@@ -1,0 +1,60 @@
+// Shared helpers for the hand-written Hopper kernels (sm_90a).
+//
+// Every kernel reads its activations as float (float32 or bfloat16 in
+// memory), accumulates in float32, and writes its output in the input's
+// type. Entry points are plain C functions loaded with ctypes; each returns
+// cudaGetLastError() after its launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace adv {
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// v rounded to T and widened back: the value a T-typed intermediate holds.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) { return to_float(from_float<T>(v)); }
+
+// Four consecutive elements as float4. The pointer must be 16-byte aligned
+// for float and 8-byte aligned for bfloat16.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  // little endian: element 0 sits in the low half of u.x
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float get(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// 16 consecutive float32 weights (64-byte aligned) into registers.
+__device__ __forceinline__ void load16(const float* p, float (&w)[16]) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = __ldg(q + i);
+    w[4 * i + 0] = v.x;
+    w[4 * i + 1] = v.y;
+    w[4 * i + 2] = v.z;
+    w[4 * i + 3] = v.w;
+  }
+}
+
+}  // namespace adv

@@ -1,0 +1,29 @@
+"""Models: the i3res50 feature extractor and the MGFN scorer."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def seeded_init_(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Random weights from an explicit generator, reproducible on any device.
+
+    Conv and linear weights draw LeCun-normal values (std 1/sqrt(fan_in),
+    the flax default the JAX package initializes with); biases start at
+    zero; norm layers keep their identity initialization. Draws happen on
+    the CPU, so a seed gives the same weights on the CPU and the card.
+    """
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for sub in module.modules():
+            if isinstance(sub, (nn.Conv1d, nn.Conv3d, nn.Linear)):
+                w = sub.weight
+                fan_in = w[0].numel()
+                values = torch.randn(w.shape, generator=gen) / math.sqrt(fan_in)
+                w.copy_(values.to(w.dtype))
+                if sub.bias is not None:
+                    sub.bias.zero_()
+    return module

@@ -1,0 +1,244 @@
+"""MGFN (Magnitude-Glance-Focus Network) scorer, eval path, in PyTorch.
+
+Counterpart of the JAX package's ``models/mgfn/model.py``. Module and
+parameter names are the reference's HF MGFN names
+(``backbone.amplifier.to_tokens``, ``backbone.layers.{s}.{b}.scc``,
+``.attention.{norm,to_qkv,to_v,rel_pos,to_out}``,
+``.ffn.{layer_norm,in_conv,out_conv}``, intermediates at
+``backbone.layers.{s}.{depth}.{layer_norm,conv}``, ``layer_norm``, ``fc``),
+so the JAX package's ``export_mgfn_state_dict`` output or a reference
+checkpoint loads with ``load_state_dict``.
+
+Sequences run channels first, ``(batch, channels, clips)``, the layout of
+torch's Conv1d; the public input is the JAX package's
+``(bs, ncrops, clips, channels + 1)`` and the output its ``scores``
+``(bs, clips, 1)``. ``length`` enables padded-bucket scoring: pads are
+zeroed before every temporal conv and excluded from attention, so the
+scores of the valid prefix equal an unpadded run. The training losses and
+the dropout top-k selection come with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import MGFNConfig
+
+
+class ChannelLayerNorm(nn.Module):
+    """The reference MGFNLayerNorm: normalizes over channels with biased
+    variance and eps added to the std, (x - mean) / (std + eps) * g + b;
+    g and b stored as (1, dim, 1)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.g = nn.Parameter(torch.ones(1, dim, 1))
+        self.b = nn.Parameter(torch.zeros(1, dim, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(dim=1, keepdim=True)
+        std = torch.sqrt(x.var(dim=1, unbiased=False, keepdim=True))
+        return (x - mean) / (std + self.eps) * self.g + self.b
+
+
+class TorchBatchNorm(nn.BatchNorm1d):
+    """BatchNorm1d normalizing with its running statistics:
+    (x - mean) * rsqrt(var + eps) * weight + bias. The batch-statistics
+    update belongs to the training slice."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        view = (1, -1, 1)
+        inv = torch.rsqrt(self.running_var + self.eps).view(view)
+        return (x - self.running_mean.view(view)) * inv * self.weight.view(view) + self.bias.view(view)
+
+
+class FeedForward(nn.Module):
+    """Conv-MLP: channel LayerNorm, 1x1 conv up, exact GELU, 1x1 conv down."""
+
+    def __init__(self, dim: int, repe: int = 4):
+        super().__init__()
+        self.layer_norm = ChannelLayerNorm(dim)
+        self.in_conv = nn.Conv1d(dim, dim * repe, 1)
+        self.out_conv = nn.Conv1d(dim * repe, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out_conv(F.gelu(self.in_conv(self.layer_norm(x))))
+
+
+class FeatureAmplifier(nn.Module):
+    """Splits features and magnitude, k3 conv on each, x_f + ratio * x_m."""
+
+    def __init__(self, config: MGFNConfig):
+        super().__init__()
+        self.channels = config.channels
+        self.mag_ratio = config.mag_ratio
+        self.to_tokens = nn.Conv1d(config.channels, config.dims[0], 3, padding=1)
+        self.to_mag = nn.Conv1d(1, config.dims[0], 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_f, x_m = x[:, : self.channels], x[:, self.channels:]
+        return self.to_tokens(x_f) + self.mag_ratio * self.to_mag(x_m)
+
+
+class GlanceAttention(nn.Module):
+    """Full self-attention over clips; padded keys masked with the dtype's
+    most negative finite value, as the JAX package masks them."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head
+        inner = heads * dim_head
+        self.norm = ChannelLayerNorm(dim)
+        self.to_qkv = nn.Conv1d(dim, inner * 3, 1, bias=False)
+        self.to_out = nn.Conv1d(inner, dim, 1)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, _, t = x.shape
+        q, k, v = self.to_qkv(self.norm(x)).chunk(3, dim=1)
+        # channel index h * dim_head + d ("(h d)")
+        split = lambda a: a.reshape(b, self.heads, self.dim_head, t)
+        q, k, v = split(q) * (self.dim_head ** -0.5), split(k), split(v)
+        sim = torch.einsum("bhdi,bhdj->bhij", q, k)
+        if mask is not None:
+            key_mask = mask[:, 0][:, None, None, :] > 0  # (1|B, 1, 1, T)
+            sim = torch.where(key_mask, sim, torch.finfo(sim.dtype).min)
+        attn = sim.softmax(dim=-1)
+        out = torch.einsum("bhij,bhdj->bhdi", attn, v)
+        return self.to_out(out.reshape(b, self.heads * self.dim_head, t))
+
+
+class FocusAttention(nn.Module):
+    """BatchNorm, value projection, per-head depthwise k5 conv over clips.
+
+    The value channels are ordered "(c h)": channel index c * heads + h,
+    the reference's rearrange ``b (c h) t -> (b c) h t``.
+    """
+
+    def __init__(self, dim: int, heads: int, dim_head: int, local_aggr_kernel: int):
+        super().__init__()
+        self.heads = heads
+        self.dim_head = dim_head
+        inner = heads * dim_head
+        self.norm = TorchBatchNorm(dim)
+        self.to_v = nn.Conv1d(dim, inner, 1, bias=False)
+        self.rel_pos = nn.Conv1d(heads, heads, local_aggr_kernel,
+                                 padding=local_aggr_kernel // 2, groups=heads)
+        self.to_out = nn.Conv1d(inner, dim, 1)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, _, t = x.shape
+        v = self.to_v(self.norm(x))
+        if mask is not None:
+            # zero pads so the k5 conv sees the zeros of an unpadded boundary
+            v = v * mask
+        v = self.rel_pos(v.reshape(b * self.dim_head, self.heads, t))
+        return self.to_out(v.reshape(b, self.dim_head * self.heads, t))
+
+
+class _Block(nn.Module):
+    def __init__(self, attention: nn.Module, dim: int, ff_repe: int):
+        super().__init__()
+        self.scc = nn.Conv1d(dim, dim, 3, padding=1)
+        self.attention = attention
+        self.ffn = FeedForward(dim, ff_repe)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if mask is not None:
+            x = x * mask  # zero pads before the k3 shortcut conv
+        x = self.scc(x) + x
+        x = self.attention(x, mask) + x
+        return self.ffn(x) + x
+
+
+class GlanceBlock(_Block):
+    def __init__(self, config: MGFNConfig, dim: int, heads: int):
+        super().__init__(GlanceAttention(dim, heads, config.dim_head), dim, config.ff_repe)
+
+
+class FocusBlock(_Block):
+    def __init__(self, config: MGFNConfig, dim: int, heads: int):
+        super().__init__(
+            FocusAttention(dim, heads, config.dim_head, config.local_aggr_kernel),
+            dim, config.ff_repe)
+
+
+class Intermediate(nn.Module):
+    """Stage-boundary dim changer: channel LayerNorm + 1x1 conv."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.layer_norm = ChannelLayerNorm(in_dim)
+        self.conv = nn.Conv1d(in_dim, out_dim, 1)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.conv(self.layer_norm(x))
+
+
+class MGFNModel(nn.Module):
+    """Backbone: amplifier + staged glance/focus blocks, channels first."""
+
+    def __init__(self, config: MGFNConfig):
+        super().__init__()
+        self.amplifier = FeatureAmplifier(config)
+        self.layers = nn.ModuleList()
+        for stage, (depth, kind) in enumerate(zip(config.depths, config.mgfn_types)):
+            dim = config.dims[stage]
+            heads = dim // config.dim_head
+            block_cls = GlanceBlock if kind == "gb" else FocusBlock
+            blocks = [block_cls(config, dim, heads) for _ in range(depth)]
+            if stage != len(config.depths) - 1:
+                blocks.append(Intermediate(dim, config.dims[stage + 1]))
+            self.layers.append(nn.ModuleList(blocks))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if mask is not None:
+            x = x * mask  # zero pads before the k3 amplifier convs
+        x = self.amplifier(x)
+        for blocks in self.layers:
+            for block in blocks:
+                x = block(x, mask)
+        return x
+
+
+class MGFN(nn.Module):
+    """MGFN backbone + scoring head (LayerNorm, Linear, sigmoid), with the
+    crop-averaged clip scores as output."""
+
+    def __init__(self, config: MGFNConfig = MGFNConfig()):
+        super().__init__()
+        self.config = config
+        self.backbone = MGFNModel(config)
+        self.layer_norm = nn.LayerNorm(config.dims[-1], eps=1e-5)
+        self.fc = nn.Linear(config.dims[-1], 1)
+
+    def forward(self, video: torch.Tensor, length: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``video`` (bs, ncrops, t, channels + 1) -> scores (bs, t, 1).
+
+        ``length``: a scalar or a (bs,) vector of valid clip counts when
+        the clip axis is padded to a bucket; pads score 0.
+        """
+        bs, ncrops, t, c = video.shape
+        x = video.reshape(bs * ncrops, t, c).transpose(1, 2)  # (B, C, T)
+        positions = torch.arange(t, device=video.device)
+        mask = video_mask = None
+        if length is not None:
+            length = torch.as_tensor(length, device=video.device)
+            if length.dim() == 0:
+                video_mask = (positions < length)[None]  # (1, t)
+                mask = video_mask[:, None].to(x.dtype)  # (1, 1, t)
+            else:
+                video_mask = positions[None] < length[:, None]  # (bs, t)
+                # row b*ncrops+crop of x carries video b's clips
+                mask = video_mask.repeat_interleave(ncrops, dim=0)[:, None].to(x.dtype)
+        x = self.backbone(x, mask).transpose(1, 2)  # (B, T, C)
+        scores = torch.sigmoid(self.fc(self.layer_norm(x)))  # (bs*ncrops, t, 1)
+        scores = scores.reshape(bs, ncrops, t).mean(dim=1)[..., None]
+        if video_mask is not None:
+            scores = scores * video_mask[..., None]
+        return scores

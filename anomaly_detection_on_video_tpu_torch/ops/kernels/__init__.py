@@ -1,0 +1,37 @@
+"""Hand-written CUDA kernels for the H100, one module per kernel.
+
+Each module holds the kernel's wrapper, its plain PyTorch version and a
+launch counter on the wrapper. A wrapper given a CPU tensor runs the plain
+version; given a CUDA tensor it launches the kernel or raises. The CUDA
+sources live in ``csrc/`` and build at first use (``_build.py``).
+"""
+
+from .bottleneck import bottleneck_block, bottleneck_plain, pack_block_params
+from .crop_norm import ten_crop_standardize, ten_crop_standardize_plain
+from .stem import pack_stem_params, stem_conv_pool, stem_plain
+
+WRAPPERS = (ten_crop_standardize, stem_conv_pool, bottleneck_block)
+
+
+def reset_launch_counts() -> None:
+    for wrapper in WRAPPERS:
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {wrapper.__name__: wrapper.launches for wrapper in WRAPPERS}
+
+
+__all__ = [
+    "WRAPPERS",
+    "bottleneck_block",
+    "bottleneck_plain",
+    "launch_counts",
+    "pack_block_params",
+    "pack_stem_params",
+    "reset_launch_counts",
+    "stem_conv_pool",
+    "stem_plain",
+    "ten_crop_standardize",
+    "ten_crop_standardize_plain",
+]
