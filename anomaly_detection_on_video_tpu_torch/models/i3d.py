@@ -133,8 +133,7 @@ class I3DResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, T, H, W, 3)`` standardized pixels -> ``(B, C)`` features."""
         x = x.to(self.dtype)
-        scale, shift = fold_bn(self.bn1)
-        x = stem_conv_pool(x, self.conv1.weight, scale, shift)  # K2, channels last
+        x = stem_conv_pool(x, self.conv1, self.bn1)  # K2, channels last
         for block in self.layer1:
             x = bottleneck_block(x, block)  # K3, channels last
         # temporal max pool k(2,1,1) s(2,1,1), VALID

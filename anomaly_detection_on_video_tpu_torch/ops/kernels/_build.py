@@ -17,7 +17,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 from typing import Optional
 
@@ -42,10 +41,9 @@ SIGNATURES = {
 class KernelLibrary:
     """The loaded shared library plus what its build printed."""
 
-    def __init__(self, path: Path, log: str, seconds: float):
+    def __init__(self, path: Path, log: str):
         self.path = path
         self.log = log
-        self.build_seconds = seconds
         self.lib = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(self.lib, name)
@@ -74,7 +72,7 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build(verbose: bool = False) -> KernelLibrary:
+def build() -> KernelLibrary:
     """Compile (when the sources changed) and load the kernel library."""
     global _LIB
     with _LOCK:
@@ -88,7 +86,6 @@ def build(verbose: bool = False) -> KernelLibrary:
         out_dir = BUILD_DIR / tag
         lib_path = out_dir / "libadv_kernels.so"
         log_path = out_dir / "build.log"
-        start = time.perf_counter()
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
             nvcc = _nvcc()
@@ -116,9 +113,6 @@ def build(verbose: bool = False) -> KernelLibrary:
                 raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
             os.replace(tmp, lib_path)
             log_path.write_text("\n".join(logs))
-        seconds = time.perf_counter() - start
         log = log_path.read_text() if log_path.exists() else ""
-        if verbose:
-            print(log)
-        _LIB = KernelLibrary(lib_path, log, seconds)
+        _LIB = KernelLibrary(lib_path, log)
         return _LIB

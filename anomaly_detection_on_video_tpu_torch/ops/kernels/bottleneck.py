@@ -21,6 +21,7 @@ from typing import Dict
 
 import torch
 
+from ._operands import cached_operands
 from .stem import fold_bn
 
 PLANE = 55
@@ -64,7 +65,9 @@ def bottleneck_block(x: torch.Tensor, block) -> torch.Tensor:
 
     A CPU tensor takes the plain version (any width). A CUDA tensor launches
     the kernel, which takes stride-1 blocks with 64 planes on a contiguous
-    55x55 float32 or bfloat16 plane and raises on anything else.
+    55x55 float32 or bfloat16 plane and raises on anything else. The
+    kernel's operands are packed at the first launch and kept until the
+    block's weights change (``_operands.cached_operands``).
     """
     if x.dim() != 5:
         raise ValueError(f"expected (B, T, H, W, C) activations, got {tuple(x.shape)}")
@@ -89,7 +92,9 @@ def bottleneck_block(x: torch.Tensor, block) -> torch.Tensor:
     from ._build import build
 
     lib = build()
-    ops = {k: v.to(x.device) for k, v in pack_block_params(block, x.dtype).items()}
+    ops = cached_operands(
+        block, (*block.parameters(), *block.buffers()), (x.dtype, x.device),
+        lambda: {k: v.to(x.device) for k, v in pack_block_params(block, x.dtype).items()})
     out = torch.empty((b, t, h, w, 4 * PLANES), dtype=x.dtype, device=x.device)
     null = 0  # the projection operands of a block without one
     lib.call(

@@ -20,12 +20,15 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from ._operands import cached_operands
 
 STEM_INPUT = (16, 224, 224, 3)  # the only clip geometry the kernel takes
 STEM_OUTPUT = (4, 55, 55, 64)
 
 
-def fold_bn(bn: torch.nn.modules.batchnorm._BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
+def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inference BN as a float32 affine, as ``pack_stem_params`` folds it:
     ``scale = gamma * rsqrt(var + eps)``, ``shift = beta - mean * scale``."""
     scale = bn.weight.detach().float() * torch.rsqrt(bn.running_var.float() + bn.eps)
@@ -52,23 +55,24 @@ def stem_plain(
     return y.permute(0, 2, 3, 4, 1).contiguous()
 
 
-def stem_conv_pool(
-    x: torch.Tensor, conv_weight: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor
-) -> torch.Tensor:
-    """``(B, T, H, W, 3)`` pixels -> pooled stem ``(B, T/4, H', W', 64)``.
+def stem_conv_pool(x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d) -> torch.Tensor:
+    """``(B, T, H, W, 3)`` pixels -> pooled stem ``(B, T/4, H', W', 64)``
+    through the stem ``conv`` and its ``bn``.
 
     A CPU tensor takes the plain version (any clip size). A CUDA tensor
     launches the kernel, which takes only (B, 16, 224, 224, 3) contiguous
-    float32 or bfloat16 clips and raises on anything else.
+    float32 or bfloat16 clips and raises on anything else. The kernel's
+    operands are packed at the first launch and kept until the weights
+    change (``_operands.cached_operands``).
     """
     if x.dim() != 5 or x.shape[-1] != 3:
         raise ValueError(f"expected (B, T, H, W, 3) clips, got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"stem takes float32 or bfloat16, got {x.dtype}")
-    if tuple(conv_weight.shape) != (64, 3, 5, 7, 7):
-        raise ValueError(f"expected a (64, 3, 5, 7, 7) stem conv, got {tuple(conv_weight.shape)}")
+    if tuple(conv.weight.shape) != (64, 3, 5, 7, 7):
+        raise ValueError(f"expected a (64, 3, 5, 7, 7) stem conv, got {tuple(conv.weight.shape)}")
     if x.device.type == "cpu":
-        return stem_plain(x, conv_weight, scale, shift)
+        return stem_plain(x, conv.weight, *fold_bn(bn))
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if tuple(x.shape[1:]) != STEM_INPUT:
@@ -80,13 +84,18 @@ def stem_conv_pool(
     from ._build import build
 
     lib = build()
-    w = pack_stem_params(conv_weight, x.dtype).to(x.device)
-    scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
-    shift = shift.to(device=x.device, dtype=torch.float32).contiguous()
+
+    def pack():
+        scale, shift = fold_bn(bn)
+        ops = {"w": pack_stem_params(conv.weight, x.dtype), "scale": scale, "shift": shift}
+        return {k: v.to(x.device).contiguous() for k, v in ops.items()}
+
+    sources = (conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    ops = cached_operands(conv, sources, (x.dtype, x.device), pack)
     out = torch.empty((x.shape[0], *STEM_OUTPUT), dtype=x.dtype, device=x.device)
     lib.call(
-        "adv_stem", x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        out.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0],
+        "adv_stem", x.data_ptr(), ops["w"].data_ptr(), ops["scale"].data_ptr(),
+        ops["shift"].data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     stem_conv_pool.launches += 1

@@ -13,14 +13,19 @@ Phases, each of which raises on failure (exit code != 0):
    K1 ten-crop + standardize at (24, 16, 256, 341, 3), bit-equal in float32
    and bfloat16; K2 stem and K3 for the three stage-1 blocks at B = 40,
    float32 with TF32 off to atol = rtol = 1e-4, bfloat16 to cosine >= 0.9999
-   against the float32 plain version;
+   against the float32 plain version; K2 and K3 again, checked and timed, at
+   B = 240, the bulk-extraction batch. Every BatchNorm of the model gets
+   seeded random affines and running statistics first, so the kernels'
+   per-channel epilogues are checked with distinct scales and shifts;
 3. the main path: a seeded 64-frame 240x320 uint8 video (4 clips, 40
    crops) -> full-width i3res50 in bfloat16 -> (4, 10, 2048) features ->
    default-config MGFN -> clip and frame scores, with seeded random weights.
    Launch counts reset just before this run and are read just after it:
    K1 >= 1, K2 >= 1, K3 >= 3. The features must agree with the same
    forward through the plain versions in float32 (cosine >= 0.999 per row)
-   and the scores must be finite and in [0, 1].
+   and the scores must be finite and in [0, 1]. The path is timed over
+   five passes (median and range), and one more pass runs under
+   torch.profiler for the device-time breakdown.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -86,6 +91,30 @@ def bound(bytes_moved: float, flops: float, dtype_name: str):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def randomize_batchnorm_(torch, model, seed: int) -> None:
+    """Seeded random affines and running statistics for every BatchNorm of
+    ``model``. At their identity initialization every channel folds to the
+    same scale and a zero shift, which would hide a kernel epilogue that
+    drops the shift or reads the wrong channel."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, torch.nn.modules.batchnorm._BatchNorm):
+                n = bn.num_features
+                bn.weight.copy_(torch.rand(n, generator=gen) + 0.5)
+                bn.bias.copy_(torch.randn(n, generator=gen) * 0.1)
+                bn.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
+                bn.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
+
+
+def taps_inside(size_in: int, positions: int, kernel: int, stride: int, pad: int) -> int:
+    """Taps of a strided, zero-padded conv along one axis that read the
+    input rather than its padding, summed over output positions
+    ``0 .. positions - 1``."""
+    return sum(1 for o in range(positions) for k in range(kernel)
+               if 0 <= o * stride - pad + k < size_in)
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -119,29 +148,33 @@ def check_crop_norm(torch, frames):
 
 
 def check_stem(torch, model, x32):
-    """K2 at the main path's batch: float32 to 1e-4, bfloat16 by cosine."""
+    """K2 against its plain version: float32 to 1e-4, bfloat16 by cosine."""
     import torch.nn.functional as F
 
     from anomaly_detection_on_video_tpu_torch.ops.kernels.stem import fold_bn
     from anomaly_detection_on_video_tpu_torch.ops.kernels import stem_conv_pool, stem_plain
 
-    w = model.conv1.weight
-    scale, shift = fold_bn(model.bn1)
+    conv, bn = model.conv1, model.bn1
+    w = conv.weight
+    scale, shift = fold_bn(bn)
     ref = stem_plain(x32, w, scale, shift)
-    got = stem_conv_pool(x32, w, scale, shift)
+    got = stem_conv_pool(x32, conv, bn)
     torch.cuda.synchronize()
     err = check_close("K2 float32", got, ref, 1e-4, 1e-4)
     x16 = x32.to(torch.bfloat16)
-    got16 = stem_conv_pool(x16, w, scale, shift)
+    got16 = stem_conv_pool(x16, conv, bn)
     cos = check_cosine("K2 bfloat16", got16.float(), ref, 0.9999)
-    ms = cuda_ms(lambda: stem_conv_pool(x16, w, scale, shift), 5)
+    ms = cuda_ms(lambda: stem_conv_pool(x16, conv, bn), 5)
     plain_ms = cuda_ms(lambda: stem_plain(x16, w, scale, shift), 5)
     xc = x16.permute(0, 4, 1, 2, 3)  # NCDHW view, channels-last strides
     w16 = w.to(torch.bfloat16)
     library_ms = cuda_ms(lambda: F.conv3d(xc, w16, None, 2, (2, 3, 3)), 5)
     b = x32.shape[0]
-    flops = 2.0 * b * 8 * 112 * 112 * 64 * 735
-    bytes_moved = x16.numel() * 2 + b * 4 * 55 * 55 * 64 * 2 + w.numel() * 4
+    # the conv work the pool needs: stem frames 0..7 and rows/columns 0..110
+    # (55 windows of 3 at stride 2), counting only taps that read pixels
+    taps = taps_inside(16, 8, 5, 2, 2) * taps_inside(224, 111, 7, 2, 3) ** 2
+    flops = 2.0 * b * 64 * 3 * taps
+    bytes_moved = x16.numel() * 2 + b * 4 * 55 * 55 * 64 * 2 + (w.numel() + 2 * 64) * 4
     bound_ms, bound_by = bound(bytes_moved, flops, "bfloat16")
     print(f"K2 stem B={b}: f32 max |err| {err:.2e}, bf16 cosine {cos:.6f}; {ms:.3f} ms kernel, "
           f"{plain_ms:.3f} ms plain, {library_ms:.3f} ms cuDNN conv3d alone, "
@@ -270,16 +303,31 @@ def main() -> int:
     video = rng.randint(0, 256, (64, 240, 320, 3), dtype=np.uint8)  # 4 clips of 16 frames
     extractor = FeatureExtractor(dtype=torch.bfloat16, batch=40, device=dev, seed=0)
     model = extractor.model
+    randomize_batchnorm_(torch, model, seed=2)
     out_h, out_w = short_side_size(240, 320, extractor.resize)
-    group = torch.from_numpy(extractor.pad_frames(video, 4)).to(dev)
-    resized = resize_bilinear_fast(group, out_h, out_w).reshape(4, 16, out_h, out_w, 3)
-    bulk = resized.repeat(6, 1, 1, 1, 1).contiguous()  # (24, 16, 256, 341, 3): the batch-240 group
+
+    def resize_clips(frames, clips):
+        group = torch.from_numpy(frames).to(dev)
+        return resize_bilinear_fast(group, out_h, out_w).reshape(clips, 16, out_h, out_w, 3)
+
+    resized = resize_clips(extractor.pad_frames(video, 4), 4)
+    # (24, 16, 256, 341, 3): the batch-240 group of bulk extraction, 24 distinct clips
+    bulk = resize_clips(rng.randint(0, 256, (24 * 16, 240, 320, 3), dtype=np.uint8), 24).contiguous()
     results = [check_crop_norm(torch, bulk)]
     crops32 = ten_crop_standardize_plain(resized, 224, torch.float32)  # (40, 16, 224, 224, 3)
     stem_out, k2 = check_stem(torch, model, crops32)
     results.append(k2)
     results.append(check_bottlenecks(torch, model, stem_out))
-    del bulk
+    del stem_out
+
+    # K2 and K3 at the bulk batch, B = 240 (checked and timed; not in the JSON line)
+    print("at B = 240, the bulk-extraction batch:", flush=True)
+    stem_240, k2_240 = check_stem(torch, model, ten_crop_standardize_plain(bulk, 224, torch.float32))
+    k3_240 = check_bottlenecks(torch, model, stem_240)
+    print(f"B=240 summary: K2 {k2_240['ms']:.3f} ms (bound {k2_240['bound_ms']:.3f}), "
+          f"K3 {k3_240['ms']:.3f} ms for 3 blocks (bound {k3_240['bound_ms']:.3f})", flush=True)
+    del bulk, stem_240
+    torch.cuda.empty_cache()
 
     # 3. the main path, through the entry points a user calls
     scorer = seeded_init_(build_scorer(device=dev), seed=1)
@@ -291,9 +339,14 @@ def main() -> int:
     features = extractor.extract_frames(video)
     clip_scores = score_features(features, scorer)
     torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
+    pass_seconds = [time.perf_counter() - start]
     counts = kernels.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for _ in range(4):  # four more timed passes for the median and range
+        start = time.perf_counter()
+        score_features(extractor.extract_frames(video), scorer)
+        torch.cuda.synchronize()
+        pass_seconds.append(time.perf_counter() - start)
     frame_scores = frame_level_scores(clip_scores, extractor.frames_per_clip)
     print(f"launches on the main path: {counts}", flush=True)
     if counts["ten_crop_standardize"] < 1 or counts["stem_conv_pool"] < 1 or counts["bottleneck_block"] < 3:
@@ -305,8 +358,10 @@ def main() -> int:
     print(f"clip scores: {np.round(clip_scores, 6).tolist()}", flush=True)
     print(f"frame scores ({frame_scores.size}): {np.round(frame_scores[::16], 6).tolist()} (every 16th)",
           flush=True)
-    print(f"main path: 4 clips in {seconds:.3f} s = {4 / seconds:.2f} clips/s end to end, "
-          f"peak memory {peak_gib:.2f} GiB", flush=True)
+    median = float(np.median(pass_seconds))
+    print(f"main path: 4 clips, {len(pass_seconds)} passes of {min(pass_seconds) * 1e3:.2f}-"
+          f"{max(pass_seconds) * 1e3:.2f} ms, median {median * 1e3:.2f} ms = {4 / median:.2f} "
+          f"clips/s end to end; peak memory {peak_gib:.2f} GiB", flush=True)
 
     with torch.no_grad():
         ref = plain_features(torch, model, crops32).reshape(4, 10, 2048)

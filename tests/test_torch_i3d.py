@@ -24,6 +24,7 @@ from anomaly_detection_on_video_tpu_torch.ops.kernels import (
     stem_conv_pool,
     stem_plain,
 )
+from anomaly_detection_on_video_tpu_torch.ops.kernels._operands import cached_operands
 from anomaly_detection_on_video_tpu_torch.ops.kernels.stem import fold_bn
 from anomaly_detection_on_video_tpu_torch.utils.convert import i3res50_state_dict_from_flax
 
@@ -80,14 +81,13 @@ def test_stem_plain_matches_jax_chain(rng):
     y = jnp.maximum(y * g + (beta - mean * g), 0)
     ref = np.asarray(nn.max_pool(y, (2, 3, 3), strides=(2, 2, 2), padding=[(0, 0)] * 3))
 
-    weight = torch.from_numpy(np.ascontiguousarray(kern.transpose(4, 3, 0, 1, 2)))
+    conv = torch.nn.Conv3d(3, 64, (5, 7, 7), bias=False)
     bn = torch.nn.BatchNorm3d(64)
     with torch.no_grad():
-        for tensor, value in ((bn.weight, gamma), (bn.bias, beta),
-                              (bn.running_mean, mean), (bn.running_var, var)):
-            tensor.copy_(torch.from_numpy(value))
-    scale, shift = fold_bn(bn)
-    got = stem_conv_pool(torch.from_numpy(x), weight, scale, shift).numpy()
+        for tensor, value in ((conv.weight, kern.transpose(4, 3, 0, 1, 2)), (bn.weight, gamma),
+                              (bn.bias, beta), (bn.running_mean, mean), (bn.running_var, var)):
+            tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+        got = stem_conv_pool(torch.from_numpy(x), conv, bn).numpy()
     assert got.shape == (1, 4, 55, 55, 64)
     np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
 
@@ -207,12 +207,43 @@ def test_kernel_wrappers_check_inputs_and_count_only_launches(rng):
     counts = (stem_conv_pool.launches, bottleneck_block.launches)
     torch.testing.assert_close(bottleneck_block(x, block), bottleneck_plain(x, block))
     assert (stem_conv_pool.launches, bottleneck_block.launches) == counts
-    w = torch.zeros(64, 3, 5, 7, 7)
-    ones, zeros = torch.ones(64), torch.zeros(64)
+    conv, bn = torch.nn.Conv3d(3, 64, (5, 7, 7), bias=False), torch.nn.BatchNorm3d(64)
     with pytest.raises(ValueError):
-        stem_conv_pool(torch.zeros(1, 16, 32, 32, 3, dtype=torch.float16), w, ones, zeros)
+        stem_conv_pool(torch.zeros(1, 16, 32, 32, 3, dtype=torch.float16), conv, bn)
     with pytest.raises(ValueError):
-        stem_conv_pool(torch.zeros(1, 16, 32, 32, 4), w, ones, zeros)
+        stem_conv_pool(torch.zeros(1, 16, 32, 32, 4), conv, bn)
     with pytest.raises(ValueError):
         bottleneck_block(x.half(), block)
+    w, ones, zeros = torch.zeros(64, 3, 5, 7, 7), torch.ones(64), torch.zeros(64)
     assert stem_plain(torch.zeros(1, 16, 32, 32, 3), w, ones, zeros).shape == (1, 4, 7, 7, 64)
+
+
+def test_cached_operands_repack_only_when_weights_change(rng):
+    """Operands are packed once per (dtype, device) and again after any
+    write to a source tensor: load_state_dict, an in-place edit, .to()."""
+    block = ti3d.Bottleneck(16, 4, has_proj=True)
+    packs = []
+
+    def get(dtype=torch.float32):
+        def pack():
+            packs.append(dtype)
+            return pack_block_params(block, dtype)
+        return cached_operands(block, (*block.parameters(), *block.buffers()), dtype, pack)
+
+    first = get()
+    assert get() is first and len(packs) == 1
+    get(torch.bfloat16)
+    assert len(packs) == 2
+    state = {k: torch.from_numpy(rng.rand(*v.shape).astype(np.float32) + 0.5) if v.is_floating_point()
+             else v for k, v in block.state_dict().items()}
+    block.load_state_dict(state)
+    after_load = get()
+    assert len(packs) == 3
+    torch.testing.assert_close(after_load["sc"], fold_bn(block.bn3)[0])
+    with torch.no_grad():
+        block.bn1.running_var.mul_(2.0)
+    torch.testing.assert_close(get()["sa"], fold_bn(block.bn1)[0])
+    assert len(packs) == 4
+    block.to(torch.float64).to(torch.float32)  # new tensors under the same names
+    get()
+    assert len(packs) == 5
