@@ -8,22 +8,37 @@ group of clips goes through kernel K1 (ten-crop + standardize) and the
 i3res50 forward (kernels K2 and K3). The JAX package's ``lax.map`` over
 groups is a Python loop here. Output: ``(n_clips, 10, 2048)`` float32, the
 reference's on-disk feature contract.
+
+``quantize=True`` is the int8 extractor (the JAX package's
+``FeatureExtractor(quantize=True)``): the first chunk calibrates static
+per-conv activation scales (``_calibrate``), then every conv runs in int8
+through kernels K4 and K5. ``pin_calibration`` keeps one set of scales per
+feature directory in ``act_scales_rgb.json``, the JAX package's sidecar
+name and format, so either package resumes the other's directory.
+``extract_videos`` is the serial, skip-existing directory extraction.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import json
+import os
+import tempfile
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..models import seeded_init_
-from ..models.i3d import build_i3d_feature_extractor
+from ..models.i3d import build_i3d_feature_extractor, calibrate_act_scales
+from ..ops.gtransforms import loop_pad_indices, standardize, ten_crop
 from ..ops.kernels.crop_norm import ten_crop_standardize
 from ..ops.resize import resize_bilinear_exact, resize_bilinear_fast, short_side_size
 from ..utils.device import DeviceLike, resolve_device
-from .video import CHUNK_FRAMES, VideoFrameSource
+from .video import CHUNK_FRAMES, VideoFrameSource, iter_decoded_chunks
+
+# the JAX package's sidecar of int8 scales for the RGB stream
+CALIBRATION_FILE = "act_scales_rgb.json"
 
 
 class FeatureExtractor:
@@ -35,7 +50,9 @@ class FeatureExtractor:
     pass a narrow ``I3DResNet``); without ``state_dict`` the weights are
     random from ``seed``. float32 runs are parity runs and take the exact
     PIL resize; bfloat16 runs take the float resize (bfloat16 convs already
-    break bit-parity).
+    break bit-parity). ``quantize`` runs the convs in int8, computing in
+    ``dtype`` around them, with scales calibrated on the first chunk
+    unless ``pin_calibration`` loads them.
     """
 
     def __init__(
@@ -51,6 +68,7 @@ class FeatureExtractor:
         device: DeviceLike = "cuda",
         model: Optional[nn.Module] = None,
         seed: int = 0,
+        quantize: bool = False,
     ):
         self.device = resolve_device(device)
         if model is None:
@@ -68,6 +86,10 @@ class FeatureExtractor:
         self.frames_per_clip = frames_per_clip
         self.resize = resize
         self.cropsize = cropsize
+        self.quantize = quantize
+        self._needs_calibration = quantize
+        self._act_scales: Optional[Dict[str, float]] = None
+        self._calibration_path: Optional[str] = None  # set by pin_calibration
 
     def _group_for(self, n_clips: int) -> int:
         """Clips per group: always ``group_clips`` in fixed mode; in
@@ -101,6 +123,8 @@ class FeatureExtractor:
     @torch.no_grad()
     def extract_frames(self, frames: np.ndarray) -> np.ndarray:
         """uint8 (n_frames, H, W, 3) -> float32 (n_clips, 10, C)."""
+        if self._needs_calibration:
+            self._calibrate(frames)
         fpc = self.frames_per_clip
         n_clips = (frames.shape[0] - 1) // fpc + 1
         gc = self._group_for(n_clips)
@@ -125,3 +149,115 @@ class FeatureExtractor:
         if not outputs:
             raise ValueError(f"{video_path}: decoded zero frames (corrupt or empty video)")
         return np.vstack(outputs)
+
+    def _calibrate(self, frames: np.ndarray) -> None:
+        """Calibrate the int8 activation scales on the first chunk.
+
+        At most four clips of it go through the exact resize, the ten
+        crops and the standardization, as the JAX package's calibration
+        does, then one unquantized forward of the unfused chain records
+        every conv input's range (``models.i3d.calibrate_act_scales``).
+        Later chunks that exceed a calibrated range saturate.
+        """
+        n_frames = int(min(frames.shape[0], 4 * self.frames_per_clip))
+        sample = torch.from_numpy(np.ascontiguousarray(frames[:n_frames])).to(self.device)
+        out_h, out_w = short_side_size(sample.shape[1], sample.shape[2], self.resize)
+        crops = ten_crop(resize_bilinear_exact(sample, out_h, out_w), self.cropsize)
+        clip_idx = loop_pad_indices(n_frames, self.frames_per_clip).astype(np.int64)
+        clips = standardize(crops[:, torch.from_numpy(clip_idx).to(self.device)])  # (10, n, fpc, ...)
+        batch = clips.reshape(-1, self.frames_per_clip, self.cropsize, self.cropsize, 3)
+        scales = calibrate_act_scales(self.model, batch)
+        self._apply_scales(scales)
+        if self._calibration_path is not None:
+            _write_json(self._calibration_path, scales)
+
+    def _apply_scales(self, scales: Dict[str, float]) -> None:
+        self.model.act_scales = scales
+        self._act_scales = dict(scales)
+        self._needs_calibration = False
+
+    def pin_calibration(self, outdir: str) -> None:
+        """Pin the int8 scales to a feature directory.
+
+        The first quantized run into ``outdir`` records its scales in
+        ``act_scales_rgb.json``; later runs load them instead of
+        calibrating on their own first chunk, so one directory holds one
+        quantization. Scales applied before (calibrated elsewhere) are
+        written here at once. No-op for a full-precision extractor.
+        """
+        if not self.quantize:
+            return
+        os.makedirs(outdir, exist_ok=True)
+        self._calibration_path = os.path.join(outdir, CALIBRATION_FILE)
+        if os.path.exists(self._calibration_path):
+            with open(self._calibration_path) as f:
+                scales = json.load(f)
+            if self._needs_calibration or scales != self._act_scales:
+                self._apply_scales(scales)
+        elif not self._needs_calibration:
+            _write_json(self._calibration_path, self._act_scales)
+
+    def ensure_calibrated(self, outdir: str, video_path: str,
+                          chunk_frames: int = CHUNK_FRAMES) -> None:
+        """Make sure ``outdir`` holds the scales sidecar: load it, or
+        calibrate on the first chunk of ``video_path`` and write it, even
+        when no video of the directory is left to extract. No-op for a
+        full-precision extractor."""
+        if not self.quantize:
+            return
+        self.pin_calibration(outdir)
+        if not self._needs_calibration:
+            return
+        chunks = iter_decoded_chunks(video_path, chunk_frames)
+        try:
+            chunk = next(chunks, None)
+        finally:
+            chunks.close()
+        if chunk is None:
+            raise ValueError(f"{video_path}: decoded zero frames (corrupt or empty video)")
+        self._calibrate(chunk)
+
+
+def _write_json(path: str, value) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(value, f)
+    os.replace(tmp, path)
+
+
+def atomic_save(path: str, array: np.ndarray) -> None:
+    """``np.save`` through a temporary file in the same directory and a
+    rename, so an interrupted run never leaves a truncated ``.npy``."""
+    directory = os.path.dirname(path) or "."
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp.npy")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.save(f, array)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
+def feature_filename(stem: str) -> str:
+    """``<stem>_i3d.npy``, the reference's on-disk name for RGB features."""
+    return f"{stem}_i3d.npy"
+
+
+def extract_videos(video_paths: Iterable[str], outdir: str, extractor: FeatureExtractor) -> int:
+    """Extract every video into ``outdir/<stem>_i3d.npy``, skipping those
+    already on disk; pins the int8 scales to ``outdir`` first. Returns the
+    number of videos extracted."""
+    os.makedirs(outdir, exist_ok=True)
+    extractor.pin_calibration(outdir)
+    n_done = 0
+    for path in video_paths:
+        stem = os.path.splitext(os.path.basename(path))[0]
+        savepath = os.path.join(outdir, feature_filename(stem))
+        if os.path.exists(savepath):
+            continue
+        atomic_save(savepath, extractor.extract_video(path))
+        n_done += 1
+    return n_done

@@ -4,13 +4,16 @@ The port's counterpart of the repository's ``infer.py`` main path::
 
     python -m anomaly_detection_on_video_tpu_torch.infer \\
         --videos clips/ --outdir scores/ --torch-weights mgfn.pt \\
-        [--i3d-weights i3res50.pt] [--dtype bfloat16] [--batch 240] [--device cuda]
+        [--i3d-weights i3res50.pt] [--dtype bfloat16|float32|int8] [--batch 240] [--device cuda]
 
 Writes ``<stem>_scores.json`` per video with the same keys as the JAX
 package's CLI (video, model, stream, n_clips, frames_per_clip, clip_scores,
 frame_scores, latency_s). ``--torch-weights`` is an MGFN state dict in the
 reference's HF layout; ``--i3d-weights`` an I3Res50 state dict (seeded
 random weights when unset, as the JAX CLI initializes randomly).
+``--dtype int8`` runs the I3D convs in int8 (kernels K4 and K5) around
+bfloat16 compute, with scales calibrated on the first video's first chunk
+and pinned to ``--outdir`` as ``act_scales_rgb.json``.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from .data.features import pad_eval_batch
 from .models.mgfn import MGFN, MGFNConfig
 from .ops.metrics import frame_level_scores
 from .training.runner import eval_bucket, make_eval_step
-from .utils.device import DeviceLike, dtype_from_name, resolve_device
+from .utils.device import DeviceLike, resolve_device
 
 VIDEO_EXTENSIONS = (".mp4", ".avi", ".mkv", ".mov", ".webm", ".mpg", ".mpeg")
 
@@ -111,7 +114,17 @@ def list_videos(spec: str) -> List[str]:
     return sorted(paths)
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def extractor_kwargs(args: argparse.Namespace) -> dict:
+    """``FeatureExtractor`` arguments for ``--dtype``: int8 quantizes the
+    convs around bfloat16 compute, as the JAX CLI does."""
+    return {
+        "dtype": torch.float32 if args.dtype == "float32" else torch.bfloat16,
+        "quantize": args.dtype == "int8",
+        "batch": args.batch,
+    }
+
+
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--videos", required=True, help="video file, directory, or glob")
     parser.add_argument("--outdir", required=True)
@@ -119,21 +132,26 @@ def main(argv: Optional[List[str]] = None) -> int:
                         help="MGFN state dict (.pt), reference HF layout")
     parser.add_argument("--i3d-weights", default=None,
                         help="I3Res50 state dict (.pt); seeded random weights if unset")
-    parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32"],
-                        help="I3D compute dtype")
+    parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"],
+                        help="I3D compute dtype; int8 quantizes the convs (scales calibrated "
+                             "on the first chunk and pinned to --outdir)")
     parser.add_argument("--batch", type=int, default=240,
                         help="(clip, crop) forwards per extraction step")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = parser.parse_args(argv)
+    return parser
 
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     extractor = FeatureExtractor(
         state_dict=load_state_dict(args.i3d_weights) if args.i3d_weights else None,
-        dtype=dtype_from_name(args.dtype),
-        batch=args.batch,
         adaptive_groups=True,
         device=device,
+        **extractor_kwargs(args),
     )
+    # one quantization per output directory, as the JAX CLI pins it
+    extractor.pin_calibration(args.outdir)
     scorer = build_scorer(load_state_dict(args.torch_weights), device=device)
     for path in list_videos(args.videos):
         process_video(path, extractor, scorer, args.outdir)

@@ -17,18 +17,36 @@ last; stages 2-4 are plain torch convolutions over the channels-last
 activation viewed as NCDHW. BatchNorm is always in inference mode, folded
 into a float32 affine (``conv_bn``), as the reference only runs the
 extractor under ``model.eval()``.
+
+int8 execution (``act_scales``, calibrated by ``calibrate_act_scales``)
+follows the JAX package's ``ConvBN._int8_conv``: every conv quantizes its
+input by a static scale and its weights per output channel
+(``ops/quant.py``), multiplies in int8 with int32 sums through kernel K4
+(1x1x1 convs, ``ops/kernels/int8_matmul.py``) or K5 (the others,
+``ops/kernels/int8_conv.py``), and dequantizes into the compute dtype
+before the folded BN. As in the JAX package, the int8 model takes the
+unfused chain: stem conv, BN, ReLU and max pool, then each block's own
+convs; K2 and K3 are not used. Activations stay channels last throughout.
+Scales are keyed by the JAX package's names (``"stem"``,
+``"stage{L}_block{i}/branch_{a,b,c}"``, ``"stage{L}_block{i}/proj"``), so a
+sidecar written by either package loads in the other.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.kernels._operands import cached_operands
 from ..ops.kernels.bottleneck import bottleneck_block
+from ..ops.kernels.int8_conv import int8_conv
+from ..ops.kernels.int8_matmul import int8_matmul
 from ..ops.kernels.stem import fold_bn, stem_conv_pool
+from ..ops.quant import dequant_scale, pack_int8_weight, quantize_activation, quantize_weight
+from ..utils.convert import act_scale_key, block_act_scales
 
 Stage = Tuple[int, int, int, Tuple[int, ...], Tuple[int, ...]]
 
@@ -42,19 +60,66 @@ I3RES50_STAGES: Tuple[Stage, ...] = (
 )
 
 
-def conv_bn(x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d) -> torch.Tensor:
+AbsMax = Dict[nn.Conv3d, torch.Tensor]  # conv -> the largest |input| it has seen
+
+
+def conv_bn(
+    x: torch.Tensor,
+    conv: nn.Conv3d,
+    bn: nn.BatchNorm3d,
+    act_scale: Optional[float] = None,
+    absmax: Optional[AbsMax] = None,
+) -> torch.Tensor:
     """ConvBN: Conv3d (no bias) + inference BatchNorm (eps 1e-5), NCDHW,
-    computed in ``x``'s dtype."""
-    y = F.conv3d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+    computed in ``x``'s dtype; with ``act_scale``, the conv runs in int8
+    (``int8_conv_nd``). ``absmax`` records the input's range in float32
+    (calibration)."""
+    if absmax is not None and x.numel():
+        seen = x.detach().float().abs().amax()
+        absmax[conv] = torch.maximum(absmax[conv], seen) if conv in absmax else seen
+    if act_scale is None:
+        y = F.conv3d(x, conv.weight.to(x.dtype), None, conv.stride, conv.padding)
+    else:
+        y = int8_conv_nd(x, conv, act_scale)
     scale, shift = fold_bn(bn)
     view = (1, -1, 1, 1, 1)
     return y * scale.to(y.dtype).view(view) + shift.to(y.dtype).view(view)
 
 
+def int8_conv_nd(x: torch.Tensor, conv: nn.Conv3d, act_scale: float) -> torch.Tensor:
+    """The int8 conv of ``ConvBN._int8_conv`` on an NCDHW view of a
+    channels-last activation: quantize the input, multiply in int8 through
+    K4 (1x1x1, a strided one reads a strided slice) or K5, and dequantize
+    into ``x``'s dtype. Returns an NCDHW view of a channels-last result.
+    The quantized, packed weights are kept on the conv until it changes."""
+    xq = quantize_activation(x.permute(0, 2, 3, 4, 1), act_scale)
+    ops = cached_operands(conv, (conv.weight,), ("int8", act_scale, x.device),
+                          lambda: _pack_int8(conv, act_scale, x.device))
+    if tuple(conv.kernel_size) == (1, 1, 1) and tuple(conv.padding) == (0, 0, 0):
+        st, sh, sw = conv.stride
+        xq = xq[:, ::st, ::sh, ::sw].contiguous()
+        y = int8_matmul(xq.reshape(-1, xq.shape[-1]), ops["w"], ops["scale"], x.dtype)
+        y = y.reshape(*xq.shape[:-1], -1)
+    else:
+        y = int8_conv(xq.contiguous(), ops["w"], ops["scale"], conv.kernel_size, conv.stride,
+                      conv.padding, x.dtype)
+    return y.permute(0, 4, 1, 2, 3)
+
+
+def _pack_int8(conv: nn.Conv3d, act_scale: float, device: torch.device) -> Dict[str, torch.Tensor]:
+    w_q, w_scale = quantize_weight(conv.weight)
+    return {"w": pack_int8_weight(w_q).to(device),
+            "scale": dequant_scale(w_scale, act_scale).to(device)}
+
+
 class Bottleneck(nn.Module):
     """3D bottleneck block: conv1 k(tk,1,1) temporal, conv2 k(1,3,3)
     spatial (carries the spatial stride), conv3 1x1x1, each with BN; a
-    projection shortcut (``downsample``) when the shape changes. NCDHW."""
+    projection shortcut (``downsample``) when the shape changes. NCDHW.
+
+    ``act_scales`` (keys ``branch_a``, ``branch_b``, ``branch_c``, ``proj``)
+    runs each conv that has a scale in int8.
+    """
 
     def __init__(
         self,
@@ -64,8 +129,10 @@ class Bottleneck(nn.Module):
         temp_kernel: int = 3,
         temp_stride: int = 1,
         has_proj: bool = False,
+        act_scales: Optional[Mapping[str, float]] = None,
     ):
         super().__init__()
+        self.act_scales = act_scales
         self.planes = planes
         self.spatial_stride = spatial_stride
         self.temp_stride = temp_stride
@@ -87,12 +154,14 @@ class Bottleneck(nn.Module):
                 nn.BatchNorm3d(planes * 4),
             )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(conv_bn(x, self.conv1, self.bn1))
-        out = torch.relu(conv_bn(out, self.conv2, self.bn2))
-        out = conv_bn(out, self.conv3, self.bn3)
+    def forward(self, x: torch.Tensor, absmax: Optional[AbsMax] = None) -> torch.Tensor:
+        scales = self.act_scales or {}
+        out = torch.relu(conv_bn(x, self.conv1, self.bn1, scales.get("branch_a"), absmax))
+        out = torch.relu(conv_bn(out, self.conv2, self.bn2, scales.get("branch_b"), absmax))
+        out = conv_bn(out, self.conv3, self.bn3, scales.get("branch_c"), absmax)
         if self.downsample is not None:
-            residual = conv_bn(x, self.downsample[0], self.downsample[1])
+            residual = conv_bn(x, self.downsample[0], self.downsample[1], scales.get("proj"),
+                               absmax)
         else:
             residual = x
         return torch.relu(out + residual)
@@ -104,10 +173,16 @@ class I3DResNet(nn.Module):
     after the first stage, global mean head.
 
     ``stages`` defaults to i3res50's; tests pass narrow ones. The stem must
-    keep 64 channels (K2's width).
+    keep 64 channels (K2's width). ``act_scales`` (JAX-package keys) makes
+    the forward the int8 chain; assigning it later re-targets every block.
     """
 
-    def __init__(self, stages: Sequence[Stage] = I3RES50_STAGES, dtype: torch.dtype = torch.float32):
+    def __init__(
+        self,
+        stages: Sequence[Stage] = I3RES50_STAGES,
+        dtype: torch.dtype = torch.float32,
+        act_scales: Optional[Mapping[str, float]] = None,
+    ):
         super().__init__()
         self.dtype = dtype
         self.conv1 = nn.Conv3d(3, 64, (5, 7, 7), stride=(2, 2, 2), padding=(2, 3, 3), bias=False)
@@ -129,37 +204,98 @@ class I3DResNet(nn.Module):
                 ))
             in_planes = planes * 4
             self.add_module(f"layer{stage_idx + 1}", nn.Sequential(*layer))
+        self.act_scales = act_scales
+
+    @property
+    def act_scales(self) -> Optional[Dict[str, float]]:
+        return self._act_scales
+
+    @act_scales.setter
+    def act_scales(self, scales: Optional[Mapping[str, float]]) -> None:
+        self._act_scales = None if scales is None else dict(scales)
+        for stage_idx in range(self.n_stages):
+            for block_idx, block in enumerate(getattr(self, f"layer{stage_idx + 1}")):
+                block.act_scales = (None if scales is None
+                                    else block_act_scales(scales, stage_idx + 1, block_idx))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, T, H, W, 3)`` standardized pixels -> ``(B, C)`` features."""
         x = x.to(self.dtype)
-        x = stem_conv_pool(x, self.conv1, self.bn1)  # K2, channels last
-        for block in self.layer1:
-            x = bottleneck_block(x, block)  # K3, channels last
-        # temporal max pool k(2,1,1) s(2,1,1), VALID
-        t = x.shape[1] // 2 * 2
-        x = torch.maximum(x[:, 0:t:2], x[:, 1:t:2])
-        x = x.permute(0, 4, 1, 2, 3)  # NCDHW view with channels-last strides
-        for stage_idx in range(1, self.n_stages):
-            x = getattr(self, f"layer{stage_idx + 1}")(x)
+        if self._act_scales is not None:
+            x = self.forward_unfused(x)
+        else:
+            x = stem_conv_pool(x, self.conv1, self.bn1)  # K2, channels last
+            for block in self.layer1:
+                x = bottleneck_block(x, block)  # K3, channels last
+            # temporal max pool k(2,1,1) s(2,1,1), VALID
+            t = x.shape[1] // 2 * 2
+            x = torch.maximum(x[:, 0:t:2], x[:, 1:t:2])
+            x = x.permute(0, 4, 1, 2, 3)  # NCDHW view with channels-last strides
+            for stage_idx in range(1, self.n_stages):
+                x = getattr(self, f"layer{stage_idx + 1}")(x)
         x = x.mean(dim=(2, 3, 4))
         # features leave in >= float32 (float32 under bfloat16 compute)
         return x.to(torch.promote_types(self.dtype, torch.float32))
 
 
-def i3res50(dtype: torch.dtype = torch.float32) -> I3DResNet:
+    def forward_unfused(self, x: torch.Tensor, absmax: Optional[AbsMax] = None) -> torch.Tensor:
+        """The chain without K2 and K3, as the JAX package runs it under
+        int8: stem ConvBN + ReLU + max pool, every block's own convs, the
+        temporal pool. ``x`` channels last in the compute dtype; returns
+        the last stage's output as an NCDHW view. A conv runs in int8 when
+        ``act_scales`` holds its scale; ``absmax`` records conv inputs."""
+        scales = self._act_scales or {}
+        x = x.permute(0, 4, 1, 2, 3)
+        x = torch.relu(conv_bn(x, self.conv1, self.bn1, scales.get("stem"), absmax))
+        x = F.max_pool3d(x, (2, 3, 3), stride=(2, 2, 2))
+        for stage_idx in range(self.n_stages):
+            for block in getattr(self, f"layer{stage_idx + 1}"):
+                x = block(x, absmax)
+            if stage_idx == 0:  # temporal max pool k(2,1,1) s(2,1,1), VALID
+                t = x.shape[2] // 2 * 2
+                x = torch.maximum(x[:, :, 0:t:2], x[:, :, 1:t:2])
+        return x
+
+
+def i3res50(
+    dtype: torch.dtype = torch.float32, act_scales: Optional[Mapping[str, float]] = None
+) -> I3DResNet:
     """The "tushar-n-baseline" I3Res50."""
-    return I3DResNet(I3RES50_STAGES, dtype=dtype)
+    return I3DResNet(I3RES50_STAGES, dtype=dtype, act_scales=act_scales)
 
 
 MODEL_ZOO = {"tushar-n-baseline": i3res50}
 
 
 def build_i3d_feature_extractor(
-    model_name: str = "tushar-n-baseline", dtype: torch.dtype = torch.float32
+    model_name: str = "tushar-n-baseline",
+    dtype: torch.dtype = torch.float32,
+    act_scales: Optional[Mapping[str, float]] = None,
 ) -> I3DResNet:
     """Factory by reference model name. Weight loading is separate
     (``load_state_dict``)."""
     if model_name not in MODEL_ZOO:
         raise AttributeError(f"unknown I3D variant {model_name!r}; options: {sorted(MODEL_ZOO)}")
-    return MODEL_ZOO[model_name](dtype=dtype)
+    return MODEL_ZOO[model_name](dtype=dtype, act_scales=act_scales)
+
+
+@torch.no_grad()
+def calibrate_act_scales(model: I3DResNet, batch: torch.Tensor) -> Dict[str, float]:
+    """Per-conv int8 input scales from one representative batch.
+
+    Counterpart of the JAX package's ``calibrate_act_scales``: one forward
+    of the unquantized, unfused chain in the model's dtype records every
+    conv input's absmax in float32; each scale is ``max(absmax, 1e-6) /
+    127``, keyed by the JAX package's conv names. Assign the result to
+    ``model.act_scales``.
+    """
+    saved = model.act_scales
+    model.act_scales = None
+    absmax: AbsMax = {}
+    try:
+        model.forward_unfused(batch.to(model.dtype), absmax)
+    finally:
+        model.act_scales = saved
+    names = {module: name for name, module in model.named_modules()}
+    return {act_scale_key(names[conv]): max(float(value), 1e-6) / 127.0
+            for conv, value in absmax.items()}

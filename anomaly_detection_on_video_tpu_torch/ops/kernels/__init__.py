@@ -8,9 +8,11 @@ sources live in ``csrc/`` and build at first use (``_build.py``).
 
 from .bottleneck import bottleneck_block, bottleneck_plain, pack_block_params
 from .crop_norm import ten_crop_standardize, ten_crop_standardize_plain
+from .int8_conv import int8_conv, int8_conv_plain
+from .int8_matmul import int8_matmul, int8_matmul_plain
 from .stem import pack_stem_params, stem_conv_pool, stem_plain
 
-WRAPPERS = (ten_crop_standardize, stem_conv_pool, bottleneck_block)
+WRAPPERS = (ten_crop_standardize, stem_conv_pool, bottleneck_block, int8_matmul, int8_conv)
 
 
 def reset_launch_counts() -> None:
@@ -26,6 +28,10 @@ __all__ = [
     "WRAPPERS",
     "bottleneck_block",
     "bottleneck_plain",
+    "int8_conv",
+    "int8_conv_plain",
+    "int8_matmul",
+    "int8_matmul_plain",
     "launch_counts",
     "pack_block_params",
     "pack_stem_params",

@@ -68,6 +68,31 @@ def i3res50_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torc
     return sd
 
 
+_BRANCH_OF_CONV = {"conv1": "branch_a", "conv2": "branch_b", "conv3": "branch_c",
+                   "downsample.0": "proj"}
+
+
+def act_scale_key(module_name: str) -> str:
+    """Torch conv module name -> the JAX package's int8 act-scale key:
+    ``conv1`` -> ``stem``, ``layer{L}.{i}.conv{1,2,3}`` ->
+    ``stage{L}_block{i}/branch_{a,b,c}``, ``layer{L}.{i}.downsample.0`` ->
+    ``stage{L}_block{i}/proj`` (the names ``i3res50_state_dict_from_flax``
+    maps between)."""
+    if module_name == "conv1":
+        return "stem"
+    layer, block, conv = module_name.split(".", 2)
+    if not layer.startswith("layer") or conv not in _BRANCH_OF_CONV:
+        raise KeyError(f"{module_name}: not a conv of the ported i3res50")
+    return f"stage{layer[5:]}_block{block}/{_BRANCH_OF_CONV[conv]}"
+
+
+def block_act_scales(scales: Mapping[str, float], stage: int, block: int) -> Dict[str, float]:
+    """The scales of one bottleneck, by branch name (``branch_a`` ...
+    ``proj``), from a model-wide scales dict."""
+    prefix = f"stage{stage}_block{block}/"
+    return {k[len(prefix):]: v for k, v in scales.items() if k.startswith(prefix)}
+
+
 def mgfn_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """MGFN variables -> the reference's HF-style names."""
     params = variables["params"]

@@ -51,12 +51,3 @@ def full_f32() -> Iterator[None]:
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
 
-
-def dtype_from_name(name: Union[str, torch.dtype]) -> torch.dtype:
-    """``"bfloat16"`` / ``"float32"`` -> torch dtype."""
-    if isinstance(name, torch.dtype):
-        return name
-    table = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-    if name not in table:
-        raise ValueError(f"dtype must be one of {sorted(table)}, got {name!r}")
-    return table[name]

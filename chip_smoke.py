@@ -25,7 +25,19 @@ Phases, each of which raises on failure (exit code != 0):
    forward through the plain versions in float32 (cosine >= 0.999 per row)
    and the scores must be finite and in [0, 1]. The path is timed over
    five passes (median and range), and one more pass runs under
-   torch.profiler for the device-time breakdown.
+   torch.profiler for the device-time breakdown;
+4. the int8 path: K4 (int8 matrix product) and K5 (int8 conv) at the TPU
+   probe's own shapes, bit-equal to their plain versions, timed against
+   their bound and, for K4, ``torch._int_mm``; then the int8 main path,
+   ``FeatureExtractor(quantize=True)`` in bfloat16 on the same video,
+   weights and scorer, calibrating in its warm-up pass. Launch counts are
+   reset just before its timed pass and read just after: K1 >= 1,
+   K4 >= 27, K5 >= 26, K2 = K3 = 0. Every K4 and K5 call of that forward
+   is replayed at its own shape and input (B = 40) against the plain
+   version, bit-equal, and timed. The features must equal the same int8
+   forward through the plain versions (gate: cosine >= 0.99999 per row;
+   the count of unequal elements is printed), reach cosine >= 0.99
+   against the plain float32 forward, and the scores must lie in [0, 1].
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -40,7 +52,8 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor bf16; fp32 non-tensor
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,  # dense tensor bf16; fp32 non-tensor
+              "int8": 1979e12}  # dense tensor int8 (operations per second)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -218,6 +231,188 @@ def check_bottlenecks(torch, model, x32):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "max_abs_err": max_err}
 
 
+def int8_operands(torch, gen, m, k, n):
+    """Seeded int8 (m, k) and (k, n) operands and a per-column float32
+    scale on the card."""
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    scale = torch.rand(n, generator=gen) * 1e-5 + 1e-6
+    return a.cuda(), b.cuda(), scale.cuda()
+
+
+def int_mm_ms(torch, a, b, iters: int):
+    """Time of ``torch._int_mm`` on (a, b), the library yardstick for K4
+    (the port never calls it). cuBLASLt refuses some row-major shapes;
+    then the weights are given column-major, as it prefers them, and when
+    it refuses that too there is no library time (None)."""
+    for rhs in (b, b.t().contiguous().t()):
+        try:
+            torch._int_mm(a, rhs)
+        except RuntimeError:
+            continue
+        return cuda_ms(lambda: torch._int_mm(a, rhs), iters)
+    return None
+
+
+def check_equal(name, got, ref) -> None:
+    """Raise unless ``got`` equals ``ref`` bit for bit."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} against "
+                             f"{ref.dtype} {tuple(ref.shape)}")
+    if not torch.equal(got, ref):
+        bad = (got != ref).sum().item()
+        diff = (got.double() - ref.double()).abs().max().item()
+        raise AssertionError(f"{name}: {bad} of {ref.numel()} elements differ, max |err| {diff}")
+
+
+def check_int8_probe_shapes(torch):
+    """K4 and K5 at the TPU probe's own shapes, bit-equal, with times."""
+    import torch.nn.functional as F
+
+    from anomaly_detection_on_video_tpu_torch.ops.kernels import (
+        int8_conv, int8_conv_plain, int8_matmul, int8_matmul_plain)
+
+    gen = torch.Generator().manual_seed(4)
+    # K4: probe_raw_matmul's (B*T*784, 512) x (512, 256) -> int32, B*T = 480
+    a, b, scale = int8_operands(torch, gen, 480 * 784, 512, 256)
+    check_equal("K4 probe int32", int8_matmul(a, b), int8_matmul_plain(a, b))
+    check_equal("K4 probe bf16", int8_matmul(a, b, scale, torch.bfloat16),
+                int8_matmul_plain(a, b, scale, torch.bfloat16))
+    ms = cuda_ms(lambda: int8_matmul(a, b), 10)
+    plain_ms = cuda_ms(lambda: int8_matmul_plain(a, b), 3)
+    library_ms = int_mm_ms(torch, a, b, 10)
+    m, k = a.shape
+    n = b.shape[1]
+    bound_ms, bound_by = bound(m * k + k * n + 4 * m * n, 2.0 * m * k * n, "int8")
+    library = "refused" if library_ms is None else f"{library_ms:.3f} ms"
+    print(f"K4 int8_matmul probe shape ({m}, {k}) x ({k}, {n}) -> int32: bit-equal (int32 and "
+          f"bf16 epilogue); {ms:.3f} ms kernel, {plain_ms:.3f} ms plain (float64), torch._int_mm "
+          f"{library}, bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+    del a, b
+    # K5: make_conv3x3's (B*T, 128, 28*28) planes, channels last, pad 1
+    x = torch.randint(-127, 128, (240, 2, 28, 28, 128), generator=gen, dtype=torch.int8).cuda()
+    w = torch.randint(-5, 6, (9 * 128, 128), generator=gen, dtype=torch.int8).cuda()
+    scale = (torch.rand(128, generator=gen) * 2e-3 + 1e-4).cuda()
+    geo = ((1, 3, 3), (1, 1, 1), (0, 1, 1))
+    for out_dtype in (torch.int8, torch.bfloat16):
+        got = int8_conv(x, w, scale, *geo, out_dtype)
+        check_equal(f"K5 probe {out_dtype}", got, int8_conv_plain(x, w, scale, *geo, out_dtype))
+    saturated = (got.float().abs() >= 127).float().mean().item()
+    ms = cuda_ms(lambda: int8_conv(x, w, scale, *geo, torch.int8), 10)
+    plain_ms = cuda_ms(lambda: int8_conv_plain(x, w, scale, *geo, torch.int8), 3)
+    xb = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+    wb = w.to(torch.bfloat16).reshape(1, 3, 3, 128, 128).permute(4, 3, 0, 1, 2)
+    bf16_conv_ms = cuda_ms(lambda: F.conv3d(xb, wb, None, 1, (0, 1, 1)), 10)
+    taps = taps_inside(28, 28, 3, 1, 1) ** 2
+    bound_ms, bound_by = bound(2 * x.numel() + w.numel() + 4 * 128,
+                               2.0 * 240 * 2 * taps * 128 * 128, "int8")
+    print(f"K5 int8_conv probe shape {tuple(x.shape)} k(1,3,3): bit-equal (int8 and bf16 "
+          f"epilogues; bf16 share >= 127: {saturated:.3f}); {ms:.3f} ms kernel (int8 out), "
+          f"{plain_ms:.3f} ms plain (float64), no library call (torch has no int8 conv on CUDA; "
+          f"bf16 F.conv3d at this shape {bf16_conv_ms:.3f} ms), bound {bound_ms:.3f} ms "
+          f"({bound_by})", flush=True)
+
+
+def int8_forward_with(torch, model, crops, matmul, conv):
+    """One int8 forward of ``model`` with its K4 and K5 calls routed to
+    ``matmul`` and ``conv`` (the plain versions, or recorders)."""
+    import anomaly_detection_on_video_tpu_torch.models.i3d as ti3d
+
+    originals = ti3d.int8_matmul, ti3d.int8_conv
+    ti3d.int8_matmul, ti3d.int8_conv = matmul, conv
+    try:
+        with torch.no_grad():
+            return model(crops)
+    finally:
+        ti3d.int8_matmul, ti3d.int8_conv = originals
+
+
+def capture_int8_calls(torch, model, crops):
+    """Every K4 / K5 call of one int8 forward, as (name, args): the shapes
+    and inputs the main path gives the kernels."""
+    from anomaly_detection_on_video_tpu_torch.ops.kernels import int8_conv, int8_matmul
+
+    calls = []
+
+    def recorder(fn):
+        def record(*args):
+            calls.append((fn.__name__, args))
+            return fn(*args)
+        return record
+
+    int8_forward_with(torch, model, crops, recorder(int8_matmul), recorder(int8_conv))
+    return calls
+
+
+def check_int8_path_calls(torch, calls):
+    """K4 and K5 on every call of the int8 path at B = 40, bit-equal to
+    their plain versions, each timed; returns the two JSON entries with
+    times and bounds summed over the path's launches."""
+    from anomaly_detection_on_video_tpu_torch.ops.kernels import (
+        int8_conv, int8_conv_plain, int8_matmul, int8_matmul_plain)
+    from anomaly_detection_on_video_tpu_torch.ops.kernels.int8_conv import conv_output_shape
+
+    fns = {"int8_matmul": (int8_matmul, int8_matmul_plain),
+           "int8_conv": (int8_conv, int8_conv_plain)}
+    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_refused": 0,
+                     "bytes": 0.0, "ops": 0.0, "n": 0} for name in fns}
+    geometries = {}
+    for name, args in calls:
+        kernel_fn, plain_fn = fns[name]
+        got = kernel_fn(*args)
+        check_equal(f"{name} {tuple(args[0].shape)}", got, plain_fn(*args))
+        out_bytes = got.numel() * got.element_size()
+        entry = totals[name]
+        ms = cuda_ms(lambda: kernel_fn(*args), 3)
+        entry["ms"] += ms
+        entry["plain_ms"] += cuda_ms(lambda: plain_fn(*args), 1)
+        if name == "int8_matmul":
+            a, b = args[0], args[1]
+            (m, k), n = a.shape, b.shape[1]
+            lib_ms = int_mm_ms(torch, a, b, 3)
+            if lib_ms is None:
+                entry["library_refused"] += 1
+            else:
+                entry["library_ms"] += lib_ms
+            entry["ops"] += 2.0 * m * k * n
+            entry["bytes"] += a.numel() + b.numel() + 4 * n + out_bytes
+            key = f"K4 ({m}, {k}) x ({k}, {n})"
+        else:
+            x, w, _, kernel, stride, padding, _ = args
+            bsz, t, h, wd, cin = x.shape
+            out = conv_output_shape((t, h, wd), kernel, stride, padding)
+            taps = 1
+            for size, positions, kk, ss, pp in zip((t, h, wd), out, kernel, stride, padding):
+                taps *= taps_inside(size, positions, kk, ss, pp)
+            entry["ops"] += 2.0 * bsz * taps * cin * w.shape[1]
+            entry["bytes"] += x.numel() + w.numel() + 4 * w.shape[1] + out_bytes
+            key = f"K5 {tuple(x.shape)} k{kernel} s{stride} -> {w.shape[1]}"
+        entry["n"] += 1
+        count, total_ms = geometries.get(key, (0, 0.0))
+        geometries[key] = (count + 1, total_ms + ms)
+    for key, (count, total_ms) in geometries.items():
+        print(f"  bit-equal at B = 40: {key} x{count}, {total_ms:.3f} ms kernel", flush=True)
+    results = []
+    for name, entry in totals.items():
+        bound_ms, bound_by = bound(entry["bytes"], entry["ops"], "int8")
+        print(f"{name} over the int8 path's {entry['n']} launches at B = 40: bit-equal; "
+              f"{entry['ms']:.3f} ms kernel, {entry['plain_ms']:.3f} ms plain (float64), "
+              f"bound {bound_ms:.3f} ms ({bound_by})"
+              + (f", {entry['library_ms']:.3f} ms torch._int_mm ({entry['library_refused']} "
+                 f"shapes refused)" if name == "int8_matmul" else ""), flush=True)
+        # a library sum that misses refused shapes is no time for the same work
+        library = None
+        if name == "int8_matmul" and not entry["library_refused"]:
+            library = entry["library_ms"]
+        results.append({"name": name, "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
+                        "max_abs_err": 0.0})
+    return results
+
+
 def plain_features(torch, model, crops32):
     """The i3res50 forward with every kernel replaced by its plain version,
     float32: the reference the main path's features are held against."""
@@ -247,7 +442,8 @@ def device_breakdown(torch, run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
-    groups = {"K1 crop_norm_kernel": 0.0, "K2 stem_kernel": 0.0, "K3 bottleneck_kernel": 0.0}
+    groups = {"K1 crop_norm_kernel": 0.0, "K2 stem_kernel": 0.0, "K3 bottleneck_kernel": 0.0,
+              "K4 int8_matmul_kernel": 0.0, "K5 int8_conv_kernel": 0.0}
     other = {}
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:  # device-side events only: kernels, copies
@@ -372,13 +568,77 @@ def main() -> int:
 
     for entry in results:
         entry["launches"] = counts[entry["name"]]
-    sources = {"ten_crop_standardize": ("crop_norm.cu", "ops/pallas/crop_norm.py:49"),
-               "stem_conv_pool": ("stem.cu", "ops/pallas/stem.py:150"),
-               "bottleneck_block": ("bottleneck.cu", "ops/pallas/bottleneck.py:176")}
+
+    # 4. the int8 path: K4 and K5 at the TPU probe's shapes, then the int8
+    # main path (FeatureExtractor(quantize=True), bfloat16 around int8 convs)
+    # on the same video, weights and scorer
+    check_int8_probe_shapes(torch)
+    torch.cuda.empty_cache()
+    qextractor = FeatureExtractor(state_dict=model.state_dict(), dtype=torch.bfloat16, batch=40,
+                                  device=dev, quantize=True)
+    score_features(qextractor.extract_frames(video), scorer)  # warm-up: calibrates on the video
+    n_scales = len(qextractor.model.act_scales)
+    if n_scales != 53:
+        raise AssertionError(f"calibration gave {n_scales} scales, expected 53")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    qfeatures = qextractor.extract_frames(video)
+    qscores = score_features(qfeatures, scorer)
+    torch.cuda.synchronize()
+    qpass_seconds = [time.perf_counter() - start]
+    qcounts = kernels.launch_counts()
+    qpeak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for _ in range(4):
+        start = time.perf_counter()
+        score_features(qextractor.extract_frames(video), scorer)
+        torch.cuda.synchronize()
+        qpass_seconds.append(time.perf_counter() - start)
+    print(f"launches on the int8 main path: {qcounts}", flush=True)
+    if (qcounts["ten_crop_standardize"] < 1 or qcounts["int8_matmul"] < 27
+            or qcounts["int8_conv"] < 26 or qcounts["stem_conv_pool"]
+            or qcounts["bottleneck_block"]):
+        raise AssertionError(f"int8 main path: wrong kernels launched: {qcounts}")
+    if qfeatures.shape != (4, 10, 2048):
+        raise AssertionError(f"int8 features {qfeatures.shape}, expected (4, 10, 2048)")
+    if not (np.isfinite(qscores).all() and (qscores >= 0).all() and (qscores <= 1).all()):
+        raise AssertionError(f"int8 clip scores out of [0, 1]: {qscores}")
+    print(f"int8 clip scores: {np.round(qscores, 6).tolist()}", flush=True)
+    qmedian = float(np.median(qpass_seconds))
+    print(f"int8 main path: 4 clips, {len(qpass_seconds)} passes of {min(qpass_seconds) * 1e3:.2f}-"
+          f"{max(qpass_seconds) * 1e3:.2f} ms, median {qmedian * 1e3:.2f} ms = {4 / qmedian:.2f} "
+          f"clips/s end to end; peak memory {qpeak_gib:.2f} GiB", flush=True)
+
+    crops16 = ten_crop_standardize_plain(resized, 224, torch.bfloat16)  # K1's output, bit for bit
+    results += check_int8_path_calls(torch, capture_int8_calls(torch, qextractor.model, crops16))
+    del crops16
+    qgot = torch.from_numpy(qfeatures).to(dev)
+    qref = int8_forward_with(torch, qextractor.model, ten_crop_standardize_plain(
+        resized, 224, torch.bfloat16), kernels.int8_matmul_plain, kernels.int8_conv_plain)
+    qref = qref.reshape(4, 10, 2048)
+    unequal = int((qgot != qref).sum().item())
+    qcos = check_cosine("int8 features vs plain int8 forward", qgot, qref, 0.99999)
+    fcos = check_cosine("int8 features vs plain float32 forward", qgot, ref, 0.99)
+    print(f"int8 features vs the same int8 forward through the plain versions: {unequal} of "
+          f"{qref.numel()} elements unequal, min row cosine {qcos:.8f}; vs the plain float32 "
+          f"forward: min row cosine {fcos:.6f}", flush=True)
+    qbreakdown = device_breakdown(
+        torch, lambda: score_features(qextractor.extract_frames(video), scorer))
+    print(f"int8 main path device breakdown (torch.profiler): {json.dumps(qbreakdown)}", flush=True)
+    for entry in results[-2:]:
+        entry["launches"] = qcounts[entry["name"]]
+
+    pallas = "anomaly_detection_on_video_tpu/ops/pallas"
+    sources = {"ten_crop_standardize": ("crop_norm.cu", f"{pallas}/crop_norm.py:49"),
+               "stem_conv_pool": ("stem.cu", f"{pallas}/stem.py:150"),
+               "bottleneck_block": ("bottleneck.cu", f"{pallas}/bottleneck.py:176"),
+               "int8_matmul": ("int8_matmul.cu", "scripts/int8_pallas_probe.py:75"),
+               "int8_conv": ("int8_conv.cu", "scripts/int8_pallas_probe.py:159")}
     line = {"kernels": [
         {"name": e["name"], "route": "cuda",
          "source": f"anomaly_detection_on_video_tpu_torch/csrc/{sources[e['name']][0]}",
-         "replaces": f"anomaly_detection_on_video_tpu/{sources[e['name']][1]}",
+         "replaces": sources[e["name"]][1],
          "launches": e["launches"], "max_abs_err": e["max_abs_err"], "ms": e["ms"],
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
          "library_ms": e["library_ms"]} for e in results]}
