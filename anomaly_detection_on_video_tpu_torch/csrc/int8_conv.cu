@@ -12,7 +12,8 @@
 // x (B, T, H, W, Cin) int8 -> out (B, To, Ho, Wo, Cout); the weights are
 // packed as a (KT*KH*KW*Cin, Cout) int8 matrix with rows (kt, kh, kw, cin).
 //
-// Bound: operations at the path's shapes. Design: an implicit GEMM with
+// Bound: operations for the k(1,3,3) convs and the probe's shape, bytes for
+// the k(3,1,1) convs over wide inputs. Design: an implicit GEMM with
 // M = B*To*Ho*Wo output positions, N = Cout and K = KT*KH*KW*Cin, on the
 // tile product of int8_gemm.cuh. The A tile is gathered straight from the
 // activation: each thread decodes its two output rows once, then for each

@@ -9,8 +9,9 @@
 // package leaves to XLA after the product; here it is the kernel's epilogue.
 // It serves every 1x1x1 int8 conv of the i3res50 int8 path.
 //
-// Bound: operations at the path's shapes (K >= 64, N >= 64), against the
-// tensor cores' int8 rate. Design: the shared tile product of
+// Bound: bytes at the path's shapes (2NK / (K + 2N) operations per byte
+// stays below the H100's int8 balance of about 590 but at K = 2048), and
+// operations only for the largest K. Design: the shared tile product of
 // int8_gemm.cuh (128 x 64 tiles, K steps of 64 staged in shared memory,
 // mma.sync m16n8k32 on eight warps); A rows load as 16-byte vectors when
 // K is a multiple of 16. No TMA, wgmma or pipelining yet.

@@ -23,7 +23,7 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import Dict, Iterable, Optional
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
@@ -87,9 +87,11 @@ class FeatureExtractor:
         self.resize = resize
         self.cropsize = cropsize
         self.quantize = quantize
-        self._needs_calibration = quantize
-        self._act_scales: Optional[Dict[str, float]] = None
         self._calibration_path: Optional[str] = None  # set by pin_calibration
+
+    @property
+    def _needs_calibration(self) -> bool:
+        return self.quantize and self.model.act_scales is None
 
     def _group_for(self, n_clips: int) -> int:
         """Clips per group: always ``group_clips`` in fixed mode; in
@@ -166,15 +168,9 @@ class FeatureExtractor:
         clip_idx = loop_pad_indices(n_frames, self.frames_per_clip).astype(np.int64)
         clips = standardize(crops[:, torch.from_numpy(clip_idx).to(self.device)])  # (10, n, fpc, ...)
         batch = clips.reshape(-1, self.frames_per_clip, self.cropsize, self.cropsize, 3)
-        scales = calibrate_act_scales(self.model, batch)
-        self._apply_scales(scales)
+        self.model.act_scales = calibrate_act_scales(self.model, batch)
         if self._calibration_path is not None:
-            _write_json(self._calibration_path, scales)
-
-    def _apply_scales(self, scales: Dict[str, float]) -> None:
-        self.model.act_scales = scales
-        self._act_scales = dict(scales)
-        self._needs_calibration = False
+            _write_json(self._calibration_path, self.model.act_scales)
 
     def pin_calibration(self, outdir: str) -> None:
         """Pin the int8 scales to a feature directory.
@@ -191,11 +187,9 @@ class FeatureExtractor:
         self._calibration_path = os.path.join(outdir, CALIBRATION_FILE)
         if os.path.exists(self._calibration_path):
             with open(self._calibration_path) as f:
-                scales = json.load(f)
-            if self._needs_calibration or scales != self._act_scales:
-                self._apply_scales(scales)
+                self.model.act_scales = json.load(f)
         elif not self._needs_calibration:
-            _write_json(self._calibration_path, self._act_scales)
+            _write_json(self._calibration_path, self.model.act_scales)
 
     def ensure_calibrated(self, outdir: str, video_path: str,
                           chunk_frames: int = CHUNK_FRAMES) -> None:

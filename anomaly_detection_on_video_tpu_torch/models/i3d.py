@@ -237,7 +237,6 @@ class I3DResNet(nn.Module):
         # features leave in >= float32 (float32 under bfloat16 compute)
         return x.to(torch.promote_types(self.dtype, torch.float32))
 
-
     def forward_unfused(self, x: torch.Tensor, absmax: Optional[AbsMax] = None) -> torch.Tensor:
         """The chain without K2 and K3, as the JAX package runs it under
         int8: stem ConvBN + ReLU + max pool, every block's own convs, the
