@@ -10,8 +10,9 @@ already there. Single host, RGB stream, ten crops. ``--dtype int8`` runs
 the convs in int8 (kernels K4 and K5) around bfloat16 compute; its scales
 calibrate on the first chunk extracted and are pinned to ``--outdir`` as
 ``act_scales_rgb.json``, the JAX package's sidecar, so a resumed run
-quantizes as the first did. ``--weights`` is an I3Res50 state dict (seeded
-random weights when unset).
+quantizes as the first did. On an H100 int8 is currently slower than
+bfloat16 and uses more memory (PERF.md, section 5). ``--weights`` is an
+I3Res50 state dict (seeded random weights when unset).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--weights", default=None,
                         help="I3Res50 state dict (.pt); seeded random weights if unset")
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"],
-                        help="float32 for parity runs (exact resize); int8 quantizes the convs")
+                        help="float32 for parity runs (exact resize); int8 quantizes the "
+                             "convs, currently slower than bfloat16 on an H100 (PERF.md sec. 5)")
     parser.add_argument("--batch", type=int, default=240,
                         help="(clip, crop) forwards per extraction step")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")

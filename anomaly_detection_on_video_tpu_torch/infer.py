@@ -13,7 +13,10 @@ reference's HF layout; ``--i3d-weights`` an I3Res50 state dict (seeded
 random weights when unset, as the JAX CLI initializes randomly).
 ``--dtype int8`` runs the I3D convs in int8 (kernels K4 and K5) around
 bfloat16 compute, with scales calibrated on the first video's first chunk
-and pinned to ``--outdir`` as ``act_scales_rgb.json``.
+and pinned to ``--outdir`` as ``act_scales_rgb.json``. On an H100 it is
+currently slower than bfloat16 and uses more memory: the quantize and BN
+passes around each int8 conv are separate elementwise kernels (PERF.md,
+section 5).
 """
 
 from __future__ import annotations
@@ -134,7 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="I3Res50 state dict (.pt); seeded random weights if unset")
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"],
                         help="I3D compute dtype; int8 quantizes the convs (scales calibrated "
-                             "on the first chunk and pinned to --outdir)")
+                             "on the first chunk and pinned to --outdir); currently slower "
+                             "than bfloat16 on an H100 (PERF.md sec. 5)")
     parser.add_argument("--batch", type=int, default=240,
                         help="(clip, crop) forwards per extraction step")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")

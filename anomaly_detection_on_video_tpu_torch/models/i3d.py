@@ -93,8 +93,8 @@ def int8_conv_nd(x: torch.Tensor, conv: nn.Conv3d, act_scale: float) -> torch.Te
     into ``x``'s dtype. Returns an NCDHW view of a channels-last result.
     The quantized, packed weights are kept on the conv until it changes."""
     xq = quantize_activation(x.permute(0, 2, 3, 4, 1), act_scale)
-    ops = cached_operands(conv, (conv.weight,), ("int8", act_scale, x.device),
-                          lambda: _pack_int8(conv, act_scale, x.device))
+    ops = cached_operands(conv, (conv.weight,), ("int8", x.device),
+                          lambda: _pack_int8(conv, act_scale, x.device), settings=act_scale)
     if tuple(conv.kernel_size) == (1, 1, 1) and tuple(conv.padding) == (0, 0, 0):
         st, sh, sw = conv.stride
         xq = xq[:, ::st, ::sh, ::sw].contiguous()
@@ -117,8 +117,8 @@ class Bottleneck(nn.Module):
     spatial (carries the spatial stride), conv3 1x1x1, each with BN; a
     projection shortcut (``downsample``) when the shape changes. NCDHW.
 
-    ``act_scales`` (keys ``branch_a``, ``branch_b``, ``branch_c``, ``proj``)
-    runs each conv that has a scale in int8.
+    ``act_scales`` (keys ``branch_a``, ``branch_b``, ``branch_c``, ``proj``),
+    set by ``I3DResNet.act_scales``, runs each conv that has a scale in int8.
     """
 
     def __init__(
@@ -129,10 +129,9 @@ class Bottleneck(nn.Module):
         temp_kernel: int = 3,
         temp_stride: int = 1,
         has_proj: bool = False,
-        act_scales: Optional[Mapping[str, float]] = None,
     ):
         super().__init__()
-        self.act_scales = act_scales
+        self.act_scales: Optional[Dict[str, float]] = None
         self.planes = planes
         self.spatial_stride = spatial_stride
         self.temp_stride = temp_stride
@@ -173,15 +172,15 @@ class I3DResNet(nn.Module):
     after the first stage, global mean head.
 
     ``stages`` defaults to i3res50's; tests pass narrow ones. The stem must
-    keep 64 channels (K2's width). ``act_scales`` (JAX-package keys) makes
-    the forward the int8 chain; assigning it later re-targets every block.
+    keep 64 channels (K2's width). Assigning ``act_scales`` (JAX-package
+    keys) makes the forward the int8 chain and gives every block its scales;
+    ``None`` restores the float chain.
     """
 
     def __init__(
         self,
         stages: Sequence[Stage] = I3RES50_STAGES,
         dtype: torch.dtype = torch.float32,
-        act_scales: Optional[Mapping[str, float]] = None,
     ):
         super().__init__()
         self.dtype = dtype
@@ -204,7 +203,7 @@ class I3DResNet(nn.Module):
                 ))
             in_planes = planes * 4
             self.add_module(f"layer{stage_idx + 1}", nn.Sequential(*layer))
-        self.act_scales = act_scales
+        self._act_scales: Optional[Dict[str, float]] = None
 
     @property
     def act_scales(self) -> Optional[Dict[str, float]]:
@@ -256,11 +255,9 @@ class I3DResNet(nn.Module):
         return x
 
 
-def i3res50(
-    dtype: torch.dtype = torch.float32, act_scales: Optional[Mapping[str, float]] = None
-) -> I3DResNet:
+def i3res50(dtype: torch.dtype = torch.float32) -> I3DResNet:
     """The "tushar-n-baseline" I3Res50."""
-    return I3DResNet(I3RES50_STAGES, dtype=dtype, act_scales=act_scales)
+    return I3DResNet(I3RES50_STAGES, dtype=dtype)
 
 
 MODEL_ZOO = {"tushar-n-baseline": i3res50}
@@ -269,13 +266,12 @@ MODEL_ZOO = {"tushar-n-baseline": i3res50}
 def build_i3d_feature_extractor(
     model_name: str = "tushar-n-baseline",
     dtype: torch.dtype = torch.float32,
-    act_scales: Optional[Mapping[str, float]] = None,
 ) -> I3DResNet:
     """Factory by reference model name. Weight loading is separate
-    (``load_state_dict``)."""
+    (``load_state_dict``), and so are int8 scales (``act_scales``)."""
     if model_name not in MODEL_ZOO:
         raise AttributeError(f"unknown I3D variant {model_name!r}; options: {sorted(MODEL_ZOO)}")
-    return MODEL_ZOO[model_name](dtype=dtype, act_scales=act_scales)
+    return MODEL_ZOO[model_name](dtype=dtype)
 
 
 @torch.no_grad()

@@ -5,7 +5,9 @@ Packing on every call would add a dozen small device ops and host work to
 each launch, so the packed operands are kept on the module they come from,
 one set per (dtype, device), and packed again only when one of their source
 tensors has changed: written in place (``load_state_dict`` copies, an
-optimizer step, BN running stats in training mode) or replaced (``.to``).
+optimizer step, BN running stats in training mode) or replaced (``.to``),
+or the settings they were packed for have changed (an int8 conv's input
+scale).
 """
 
 from __future__ import annotations
@@ -21,10 +23,12 @@ def cached_operands(
     sources: Sequence[torch.Tensor],
     key: Hashable,
     pack: Callable[[], Dict[str, torch.Tensor]],
+    settings: Hashable = None,
 ) -> Dict[str, torch.Tensor]:
     """``pack()``'s result for ``key``, computed once and kept on ``owner``
-    until a tensor of ``sources`` changes."""
-    stamp = tuple((t.data_ptr(), t._version) for t in sources)
+    until a tensor of ``sources`` or ``settings`` changes; a new result
+    replaces the old one."""
+    stamp = (tuple((t.data_ptr(), t._version) for t in sources), settings)
     cache = owner.__dict__.setdefault("_kernel_operands", {})
     entry = cache.get(key)
     if entry is None or entry[0] != stamp:

@@ -32,9 +32,10 @@ Phases, each of which raises on failure (exit code != 0):
    ``FeatureExtractor(quantize=True)`` in bfloat16 on the same video,
    weights and scorer, calibrating in its warm-up pass. Launch counts are
    reset just before its timed pass and read just after: K1 >= 1,
-   K4 >= 27, K5 >= 26, K2 = K3 = 0. Every K4 and K5 call of that forward
-   is replayed at its own shape and input (B = 40) against the plain
-   version, bit-equal, and timed. The features must equal the same int8
+   K4 >= 27, K5 >= 26, K2 = K3 = 0. Every K4 and K5 call of one more
+   int8 forward is held at its own shape and input against the plain
+   version, bit-equal, and timed: at B = 40 (the JSON line) and again at
+   B = 240, the bulk-extraction batch. The features must equal the same int8
    forward through the plain versions (gate: cosine >= 0.99999 per row;
    the count of unequal elements is printed), reach cosine >= 0.99
    against the plain float32 forward, and the scores must lie in [0, 1].
@@ -330,27 +331,11 @@ def int8_forward_with(torch, model, crops, matmul, conv):
         ti3d.int8_matmul, ti3d.int8_conv = originals
 
 
-def capture_int8_calls(torch, model, crops):
-    """Every K4 / K5 call of one int8 forward, as (name, args): the shapes
-    and inputs the main path gives the kernels."""
-    from anomaly_detection_on_video_tpu_torch.ops.kernels import int8_conv, int8_matmul
-
-    calls = []
-
-    def recorder(fn):
-        def record(*args):
-            calls.append((fn.__name__, args))
-            return fn(*args)
-        return record
-
-    int8_forward_with(torch, model, crops, recorder(int8_matmul), recorder(int8_conv))
-    return calls
-
-
-def check_int8_path_calls(torch, calls):
-    """K4 and K5 on every call of the int8 path at B = 40, bit-equal to
-    their plain versions, each timed; returns the two JSON entries with
-    times and bounds summed over the path's launches."""
+def check_int8_path_calls(torch, model, crops):
+    """One int8 forward of ``model`` on ``crops`` in which every K4 and K5
+    call is held, at its own shape and input, against its plain version
+    (bit-equal) and timed; returns the two JSON entries with times and
+    bounds summed over the forward's launches."""
     from anomaly_detection_on_video_tpu_torch.ops.kernels import (
         int8_conv, int8_conv_plain, int8_matmul, int8_matmul_plain)
     from anomaly_detection_on_video_tpu_torch.ops.kernels.int8_conv import conv_output_shape
@@ -360,45 +345,54 @@ def check_int8_path_calls(torch, calls):
     totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_refused": 0,
                      "bytes": 0.0, "ops": 0.0, "n": 0} for name in fns}
     geometries = {}
-    for name, args in calls:
+
+    def checker(name):
         kernel_fn, plain_fn = fns[name]
-        got = kernel_fn(*args)
-        check_equal(f"{name} {tuple(args[0].shape)}", got, plain_fn(*args))
-        out_bytes = got.numel() * got.element_size()
-        entry = totals[name]
-        ms = cuda_ms(lambda: kernel_fn(*args), 3)
-        entry["ms"] += ms
-        entry["plain_ms"] += cuda_ms(lambda: plain_fn(*args), 1)
-        if name == "int8_matmul":
-            a, b = args[0], args[1]
-            (m, k), n = a.shape, b.shape[1]
-            lib_ms = int_mm_ms(torch, a, b, 3)
-            if lib_ms is None:
-                entry["library_refused"] += 1
+
+        def check(*args):
+            got = kernel_fn(*args)
+            check_equal(f"{name} {tuple(args[0].shape)}", got, plain_fn(*args))
+            out_bytes = got.numel() * got.element_size()
+            entry = totals[name]
+            ms = cuda_ms(lambda: kernel_fn(*args), 3)
+            entry["ms"] += ms
+            entry["plain_ms"] += cuda_ms(lambda: plain_fn(*args), 1)
+            if name == "int8_matmul":
+                a, b = args[0], args[1]
+                (m, k), n = a.shape, b.shape[1]
+                lib_ms = int_mm_ms(torch, a, b, 3)
+                if lib_ms is None:
+                    entry["library_refused"] += 1
+                else:
+                    entry["library_ms"] += lib_ms
+                entry["ops"] += 2.0 * m * k * n
+                entry["bytes"] += a.numel() + b.numel() + 4 * n + out_bytes
+                key = f"K4 ({m}, {k}) x ({k}, {n})"
             else:
-                entry["library_ms"] += lib_ms
-            entry["ops"] += 2.0 * m * k * n
-            entry["bytes"] += a.numel() + b.numel() + 4 * n + out_bytes
-            key = f"K4 ({m}, {k}) x ({k}, {n})"
-        else:
-            x, w, _, kernel, stride, padding, _ = args
-            bsz, t, h, wd, cin = x.shape
-            out = conv_output_shape((t, h, wd), kernel, stride, padding)
-            taps = 1
-            for size, positions, kk, ss, pp in zip((t, h, wd), out, kernel, stride, padding):
-                taps *= taps_inside(size, positions, kk, ss, pp)
-            entry["ops"] += 2.0 * bsz * taps * cin * w.shape[1]
-            entry["bytes"] += x.numel() + w.numel() + 4 * w.shape[1] + out_bytes
-            key = f"K5 {tuple(x.shape)} k{kernel} s{stride} -> {w.shape[1]}"
-        entry["n"] += 1
-        count, total_ms = geometries.get(key, (0, 0.0))
-        geometries[key] = (count + 1, total_ms + ms)
+                x, w, _, kernel, stride, padding, _ = args
+                bsz, t, h, wd, cin = x.shape
+                out = conv_output_shape((t, h, wd), kernel, stride, padding)
+                taps = 1
+                for size, positions, kk, ss, pp in zip((t, h, wd), out, kernel, stride, padding):
+                    taps *= taps_inside(size, positions, kk, ss, pp)
+                entry["ops"] += 2.0 * bsz * taps * cin * w.shape[1]
+                entry["bytes"] += x.numel() + w.numel() + 4 * w.shape[1] + out_bytes
+                key = f"K5 {tuple(x.shape)} k{kernel} s{stride} -> {w.shape[1]}"
+            entry["n"] += 1
+            count, total_ms = geometries.get(key, (0, 0.0))
+            geometries[key] = (count + 1, total_ms + ms)
+            return got
+
+        return check
+
+    int8_forward_with(torch, model, crops, checker("int8_matmul"), checker("int8_conv"))
+    b = crops.shape[0]
     for key, (count, total_ms) in geometries.items():
-        print(f"  bit-equal at B = 40: {key} x{count}, {total_ms:.3f} ms kernel", flush=True)
+        print(f"  bit-equal at B = {b}: {key} x{count}, {total_ms:.3f} ms kernel", flush=True)
     results = []
     for name, entry in totals.items():
         bound_ms, bound_by = bound(entry["bytes"], entry["ops"], "int8")
-        print(f"{name} over the int8 path's {entry['n']} launches at B = 40: bit-equal; "
+        print(f"{name} over the int8 path's {entry['n']} launches at B = {b}: bit-equal; "
               f"{entry['ms']:.3f} ms kernel, {entry['plain_ms']:.3f} ms plain (float64), "
               f"bound {bound_ms:.3f} ms ({bound_by})"
               + (f", {entry['library_ms']:.3f} ms torch._int_mm ({entry['library_refused']} "
@@ -507,8 +501,10 @@ def main() -> int:
         return resize_bilinear_fast(group, out_h, out_w).reshape(clips, 16, out_h, out_w, 3)
 
     resized = resize_clips(extractor.pad_frames(video, 4), 4)
-    # (24, 16, 256, 341, 3): the batch-240 group of bulk extraction, 24 distinct clips
-    bulk = resize_clips(rng.randint(0, 256, (24 * 16, 240, 320, 3), dtype=np.uint8), 24).contiguous()
+    # (24, 16, 256, 341, 3): the batch-240 group of bulk extraction, 24 distinct clips; made
+    # again from the host frames where needed, so it is not resident during the main paths
+    bulk_frames = rng.randint(0, 256, (24 * 16, 240, 320, 3), dtype=np.uint8)
+    bulk = resize_clips(bulk_frames, 24).contiguous()
     results = [check_crop_norm(torch, bulk)]
     crops32 = ten_crop_standardize_plain(resized, 224, torch.float32)  # (40, 16, 224, 224, 3)
     stem_out, k2 = check_stem(torch, model, crops32)
@@ -611,7 +607,7 @@ def main() -> int:
           f"clips/s end to end; peak memory {qpeak_gib:.2f} GiB", flush=True)
 
     crops16 = ten_crop_standardize_plain(resized, 224, torch.bfloat16)  # K1's output, bit for bit
-    results += check_int8_path_calls(torch, capture_int8_calls(torch, qextractor.model, crops16))
+    results += check_int8_path_calls(torch, qextractor.model, crops16)
     del crops16
     qgot = torch.from_numpy(qfeatures).to(dev)
     qref = int8_forward_with(torch, qextractor.model, ten_crop_standardize_plain(
@@ -628,6 +624,17 @@ def main() -> int:
     print(f"int8 main path device breakdown (torch.profiler): {json.dumps(qbreakdown)}", flush=True)
     for entry in results[-2:]:
         entry["launches"] = qcounts[entry["name"]]
+
+    # K4 and K5 on every call of one int8 forward at B = 240, the
+    # bulk-extraction batch (checked and timed; not in the JSON line)
+    print("int8 forward at B = 240, the bulk-extraction batch:", flush=True)
+    k45_240 = check_int8_path_calls(torch, qextractor.model, ten_crop_standardize_plain(
+        resize_clips(bulk_frames, 24), 224, torch.bfloat16))
+    print("B=240 int8 summary: " + ", ".join(
+        f"{e['name']} {e['ms']:.3f} ms (bound {e['bound_ms']:.3f}, plain {e['plain_ms']:.3f}, "
+        f"library {'none' if e['library_ms'] is None else format(e['library_ms'], '.3f')})"
+        for e in k45_240), flush=True)
+    torch.cuda.empty_cache()
 
     pallas = "anomaly_detection_on_video_tpu/ops/pallas"
     sources = {"ten_crop_standardize": ("crop_norm.cu", f"{pallas}/crop_norm.py:49"),

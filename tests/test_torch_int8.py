@@ -155,6 +155,26 @@ def test_int8_matmul_plain_matches_dot_general(rng):
                                   (got.float() * scale).to(torch.bfloat16).float().numpy())
 
 
+def test_int8_operands_repacked_for_a_new_scale(rng):
+    """A conv keeps one packed int8 operand set: reused while its weight and
+    input scale stay, replaced (not added to) when the scale changes."""
+    conv = torch.nn.Conv3d(16, 8, (1, 3, 3), padding=(0, 1, 1), bias=False)
+    x = torch.from_numpy(rng.randn(1, 2, 5, 5, 16).astype(np.float32)).permute(0, 4, 1, 2, 3)
+    with torch.no_grad():
+        first = ti3d.int8_conv_nd(x, conv, 0.02)
+        packed = conv._kernel_operands[("int8", x.device)][1]
+        ti3d.int8_conv_nd(x, conv, 0.02)
+        assert conv._kernel_operands[("int8", x.device)][1] is packed
+        second = ti3d.int8_conv_nd(x, conv, 0.05)
+    assert len(conv._kernel_operands) == 1
+    assert conv._kernel_operands[("int8", x.device)][1] is not packed
+    fresh = torch.nn.Conv3d(16, 8, (1, 3, 3), padding=(0, 1, 1), bias=False)
+    fresh.load_state_dict(conv.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(second, ti3d.int8_conv_nd(x, fresh, 0.05), atol=0, rtol=0)
+    assert not torch.equal(first, second)
+
+
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 def test_packed_int8_weights_reproduce_conv(rng, geometry):
     """The (kt*kh*kw*Cin, Cout) operand, rows (kt, kh, kw, cin), is the conv
