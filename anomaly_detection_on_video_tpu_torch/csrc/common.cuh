@@ -24,20 +24,9 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// v rounded to T and widened back: the value a T-typed intermediate holds.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) { return to_float(from_float<T>(v)); }
-
-// Four consecutive elements as float4. The pointer must be 16-byte aligned
-// for float and 8-byte aligned for bfloat16.
+// Four consecutive float32 elements (16-byte aligned) as float4.
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  // little endian: element 0 sits in the low half of u.x
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
 }
 
 __device__ __forceinline__ float get(const float4& v, int i) {

@@ -1,5 +1,5 @@
-// The int8 x int8 -> int32 tile product shared by K4 (int8_matmul.cu) and
-// K5 (int8_conv.cu), and their per-column scale epilogue.
+// The int8 x int8 -> int32 tile product of K5 (int8_conv.cu) and its
+// per-column scale epilogue.
 //
 // A CTA computes a BM x BN tile of C = A (M, K) . B (K, N). Each K step
 // stages a BM x BK tile of A and a BK x BN tile of B in shared memory, both
@@ -7,9 +7,8 @@
 // mma.sync m16n8k32 s8.s8.s32 on them: warp (wm, wn) owns a 32 x 32 piece,
 // 2 x 4 tensor-core tiles of 16 x 8, held as int32 in registers. Rows of
 // A and B that fall outside M, N or K are staged as zeros, so a ragged K
-// (the stem's 735) adds nothing. The caller's loader fills the A tile: K4
-// reads rows of a matrix, K5 gathers them from the activation (implicit
-// im2col).
+// (the stem's 735) adds nothing. The caller's loader fills the A tile: K5
+// gathers it from the activation (implicit im2col).
 //
 // The epilogue converts the exact int32 sum once: float(acc) * scale[n],
 // rounded to nearest with explicit intrinsics (no FMA contraction), then

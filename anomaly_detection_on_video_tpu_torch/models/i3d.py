@@ -45,7 +45,13 @@ from ..ops.kernels.bottleneck import bottleneck_block
 from ..ops.kernels.int8_conv import int8_conv
 from ..ops.kernels.int8_matmul import int8_matmul
 from ..ops.kernels.stem import fold_bn, stem_conv_pool
-from ..ops.quant import dequant_scale, pack_int8_weight, quantize_activation, quantize_weight
+from ..ops.quant import (
+    dequant_scale,
+    pack_int8_weight,
+    pack_int8_weight_nk,
+    quantize_activation,
+    quantize_weight,
+)
 from ..utils.convert import act_scale_key, block_act_scales
 
 Stage = Tuple[int, int, int, Tuple[int, ...], Tuple[int, ...]]
@@ -95,7 +101,7 @@ def int8_conv_nd(x: torch.Tensor, conv: nn.Conv3d, act_scale: float) -> torch.Te
     xq = quantize_activation(x.permute(0, 2, 3, 4, 1), act_scale)
     ops = cached_operands(conv, (conv.weight,), ("int8", x.device),
                           lambda: _pack_int8(conv, act_scale, x.device), settings=act_scale)
-    if tuple(conv.kernel_size) == (1, 1, 1) and tuple(conv.padding) == (0, 0, 0):
+    if _is_pointwise(conv):
         st, sh, sw = conv.stride
         xq = xq[:, ::st, ::sh, ::sw].contiguous()
         y = int8_matmul(xq.reshape(-1, xq.shape[-1]), ops["w"], ops["scale"], x.dtype)
@@ -107,9 +113,14 @@ def int8_conv_nd(x: torch.Tensor, conv: nn.Conv3d, act_scale: float) -> torch.Te
 
 
 def _pack_int8(conv: nn.Conv3d, act_scale: float, device: torch.device) -> Dict[str, torch.Tensor]:
+    """K4 takes the (N, K) weights of a 1x1x1 conv, K5 the (K, N) ones."""
     w_q, w_scale = quantize_weight(conv.weight)
-    return {"w": pack_int8_weight(w_q).to(device),
-            "scale": dequant_scale(w_scale, act_scale).to(device)}
+    pack = pack_int8_weight_nk if _is_pointwise(conv) else pack_int8_weight
+    return {"w": pack(w_q).to(device), "scale": dequant_scale(w_scale, act_scale).to(device)}
+
+
+def _is_pointwise(conv: nn.Conv3d) -> bool:
+    return tuple(conv.kernel_size) == (1, 1, 1) and tuple(conv.padding) == (0, 0, 0)
 
 
 class Bottleneck(nn.Module):

@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
@@ -57,6 +59,13 @@ class KernelLibrary:
         err = getattr(self.lib, name)(*args)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def current_stream(tensor: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on ``tensor``'s device, which
+    a kernel launches on: ``torch.cuda.current_stream(device).cuda_stream``
+    without building a Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(tensor.get_device())
 
 
 _LIB: Optional[KernelLibrary] = None

@@ -12,7 +12,10 @@ On the H100 the block sits near the memory roofline at large batch: the
 CUDA kernel (``csrc/bottleneck.cu``) keeps both 64-channel intermediates in
 shared memory, as the TPU kernel keeps them in VMEM, so each block costs one
 read of its input and one write of its output. BN arrives folded to float32
-affines and the weights as float32 (in, out) matrices.
+affines. In bfloat16 the four products run on the tensor cores and the
+weights arrive as bf16 (out, in) matrices, K contiguous per output channel;
+in float32 they stay on CUDA cores (tensor cores would round float32 to
+TF32) with float32 (in, out) matrices.
 """
 
 from __future__ import annotations
@@ -29,10 +32,13 @@ PLANES = 64
 
 
 def pack_block_params(block, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """A ``models.i3d.Bottleneck`` -> the kernel's float32 operands.
+    """A ``models.i3d.Bottleneck`` -> the kernel's operands for ``dtype``.
 
-    wa (3, Cin, P), wb (9*P, P) with rows (kh, kw, in), wc (P, 4P),
-    wp (Cin, 4P); weights hold the values of ``dtype``.
+    float32, (in, out) matrices: wa (3, Cin, P), wb (9*P, P) with rows
+    (kh, kw, in), wc (P, 4P), wp (Cin, 4P). bfloat16, (out, in) matrices
+    with K contiguous, as the tensor-core fragments read them: wa (3, P,
+    Cin), wb (P, 9*P) with columns (kh, kw, in), wc (4P, P), wp (4P, Cin).
+    Weights hold the values of ``dtype``; the folded BN affines are float32.
     """
     def weight(conv):
         return conv.weight.detach().to(dtype).float()
@@ -46,11 +52,14 @@ def pack_block_params(block, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         "wb": weight(block.conv2)[:, :, 0].permute(2, 3, 1, 0).reshape(9 * planes, planes),
         "wc": weight(block.conv3)[:, :, 0, 0, 0].t(),
     }
+    if block.downsample is not None:
+        ops["wp"] = weight(block.downsample[0])[:, :, 0, 0, 0].t()
+    if dtype == torch.bfloat16:
+        ops = {k: v.transpose(-1, -2).to(dtype) for k, v in ops.items()}
     ops["sa"], ops["ba"] = fold_bn(block.bn1)
     ops["sb"], ops["bb"] = fold_bn(block.bn2)
     ops["sc"], ops["bc"] = fold_bn(block.bn3)
     if block.downsample is not None:
-        ops["wp"] = weight(block.downsample[0])[:, :, 0, 0, 0].t()
         ops["sp"], ops["bp"] = fold_bn(block.downsample[1])
     return {k: v.contiguous() for k, v in ops.items()}
 
@@ -65,7 +74,8 @@ def bottleneck_block(x: torch.Tensor, block) -> torch.Tensor:
 
     A CPU tensor takes the plain version (any width). A CUDA tensor launches
     the kernel, which takes stride-1 blocks with 64 planes on a contiguous
-    55x55 float32 or bfloat16 plane and raises on anything else. The
+    55x55 float32 or bfloat16 plane, in bfloat16 with Cin = 64 and a
+    projection or Cin = 256 without, and raises on anything else. The
     kernel's operands are packed at the first launch and kept until the
     block's weights change (``_operands.cached_operands``).
     """
@@ -87,9 +97,11 @@ def bottleneck_block(x: torch.Tensor, block) -> torch.Tensor:
     has_proj = block.downsample is not None
     if not has_proj and cin != 4 * PLANES:
         raise ValueError(f"an identity shortcut needs Cin = {4 * PLANES}, got {cin}")
+    if has_proj and x.dtype == torch.bfloat16 and cin != PLANES:
+        raise ValueError(f"the bfloat16 kernel takes a projection from Cin = {PLANES}, got {cin}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("bottleneck input must be contiguous and 16-byte aligned")
-    from ._build import build
+    from ._build import build, current_stream
 
     lib = build()
     ops = cached_operands(
@@ -102,7 +114,7 @@ def bottleneck_block(x: torch.Tensor, block) -> torch.Tensor:
         *(ops[k].data_ptr() if k in ops else null
           for k in ("wa", "wb", "wc", "wp", "sa", "ba", "sb", "bb", "sc", "bc", "sp", "bp")),
         int(x.dtype == torch.bfloat16), b, t, cin, int(has_proj),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        current_stream(x),
     )
     bottleneck_block.launches += 1
     return out

@@ -55,7 +55,7 @@ def ten_crop_standardize(
         raise ValueError("frames must be contiguous")
     if gc * 10 * fpc > _MAX_PLANES:
         raise ValueError(f"gc * 10 * fpc = {gc * 10 * fpc} exceeds {_MAX_PLANES}")
-    from ._build import build
+    from ._build import build, current_stream
 
     lib = build()
     out = torch.empty((gc * 10, fpc, cropsize, cropsize, 3), dtype=dtype, device=frames.device)
@@ -64,7 +64,7 @@ def ten_crop_standardize(
     lib.call(
         "adv_crop_norm", frames.data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16),
         gc, fpc, height, width, cropsize, offsets, MEAN, 1.0 / STD,
-        torch.cuda.current_stream(frames.device).cuda_stream,
+        current_stream(frames),
     )
     ten_crop_standardize.launches += 1
     return out

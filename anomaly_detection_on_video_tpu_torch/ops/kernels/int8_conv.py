@@ -96,14 +96,14 @@ def int8_conv(
     m = b * out_shape[0] * out_shape[1] * out_shape[2]
     if x.numel() >= 2 ** 31 or m * cout >= 2 ** 31:
         raise ValueError(f"{tuple(x.shape)} exceeds the kernel's 32-bit sizes")
-    from ._build import build
+    from ._build import build, current_stream
 
     lib = build()
-    out = torch.empty((b, *out_shape, cout), dtype=out_dtype, device=x.device)
+    out = x.new_empty((b, *out_shape, cout), dtype=out_dtype)
     lib.call(
         "adv_int8_conv", x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
         b, t, h, w, cin, cout, *kernel, *stride, *padding, MODES[out_dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        current_stream(x),
     )
     int8_conv.launches += 1
     return out

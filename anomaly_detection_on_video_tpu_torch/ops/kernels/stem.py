@@ -81,7 +81,7 @@ def stem_conv_pool(x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d) -> torc
         raise ValueError("stem input must be contiguous")
     if x.shape[0] * 4 > 65535:
         raise ValueError(f"batch {x.shape[0]} exceeds the launch grid")
-    from ._build import build
+    from ._build import build, current_stream
 
     lib = build()
 
@@ -96,7 +96,7 @@ def stem_conv_pool(x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d) -> torc
     lib.call(
         "adv_stem", x.data_ptr(), ops["w"].data_ptr(), ops["scale"].data_ptr(),
         ops["shift"].data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        current_stream(x),
     )
     stem_conv_pool.launches += 1
     return out

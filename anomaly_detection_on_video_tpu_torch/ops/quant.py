@@ -52,6 +52,14 @@ def pack_int8_weight(w_q: torch.Tensor) -> torch.Tensor:
     return w_q.permute(2, 3, 4, 1, 0).reshape(-1, w_q.shape[0]).contiguous()
 
 
+def pack_int8_weight_nk(w_q: torch.Tensor) -> torch.Tensor:
+    """int8 ``(O, I, kt, kh, kw)`` -> K4's ``(O, kt*kh*kw*I)`` matrix, each
+    output channel's row K-contiguous in ``pack_int8_weight``'s (kt, kh, kw,
+    cin) order; ``(O, I)`` for a 1x1x1 conv. Its transpose is
+    ``pack_int8_weight(w_q)``."""
+    return w_q.permute(0, 2, 3, 4, 1).reshape(w_q.shape[0], -1).contiguous()
+
+
 def scale_epilogue(acc: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """The kernels' epilogue in torch ops: ``float32(acc) * scale`` along
     the last axis, rounded once into ``out_dtype``; int8 requantizes with

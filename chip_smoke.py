@@ -27,15 +27,20 @@ Phases, each of which raises on failure (exit code != 0):
    five passes (median and range), and one more pass runs under
    torch.profiler for the device-time breakdown;
 4. the int8 path: K4 (int8 matrix product) and K5 (int8 conv) at the TPU
-   probe's own shapes, bit-equal to their plain versions, timed against
-   their bound and, for K4, ``torch._int_mm``; then the int8 main path,
+   probe's own shapes, and K4 at two edge shapes (M not a multiple of 128;
+   N = 128 with K = 64) in all three epilogues, bit-equal to their plain
+   versions, timed against their bound and, for K4, ``torch._int_mm`` on
+   the same packed (N, K) weights as its column-major operand; then the
+   int8 main path,
    ``FeatureExtractor(quantize=True)`` in bfloat16 on the same video,
    weights and scorer, calibrating in its warm-up pass. Launch counts are
    reset just before its timed pass and read just after: K1 >= 1,
    K4 >= 27, K5 >= 26, K2 = K3 = 0. Every K4 and K5 call of one more
    int8 forward is held at its own shape and input against the plain
-   version, bit-equal, and timed: at B = 40 (the JSON line) and again at
-   B = 240, the bulk-extraction batch. The features must equal the same int8
+   version, bit-equal, and timed (CUDA events over 10 launches for the
+   JSON line, and the profiler's device time beside them, for K4 and for
+   ``torch._int_mm``): at B = 40 (the JSON line) and again at B = 240, the
+   bulk-extraction batch. The features must equal the same int8
    forward through the plain versions (gate: cosine >= 0.99999 per row;
    the count of unequal elements is printed), reach cosine >= 0.99
    against the plain float32 forward, and the scores must lie in [0, 1].
@@ -72,6 +77,39 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` runs: the kernels' own
+    durations by torch.profiler, without the host's launch time (a launch
+    of tens of microseconds is host-bound under event timing)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3
+
+
+def host_us(fn, calls: int = 500) -> float:
+    """Host time of one ``fn()`` call in microseconds: the time to enqueue
+    ``calls`` launches whose device work is shorter than their launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
 
 
 def cosine_rows(a, b):
@@ -233,26 +271,25 @@ def check_bottlenecks(torch, model, x32):
 
 
 def int8_operands(torch, gen, m, k, n):
-    """Seeded int8 (m, k) and (k, n) operands and a per-column float32
-    scale on the card."""
+    """Seeded int8 activations (m, k), K4's packed weights (n, k) and a
+    per-column float32 scale on the card."""
     a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
-    b = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
     scale = torch.rand(n, generator=gen) * 1e-5 + 1e-6
-    return a.cuda(), b.cuda(), scale.cuda()
+    return a.cuda(), w.cuda(), scale.cuda()
 
 
-def int_mm_ms(torch, a, b, iters: int):
-    """Time of ``torch._int_mm`` on (a, b), the library yardstick for K4
-    (the port never calls it). cuBLASLt refuses some row-major shapes;
-    then the weights are given column-major, as it prefers them, and when
-    it refuses that too there is no library time (None)."""
-    for rhs in (b, b.t().contiguous().t()):
-        try:
-            torch._int_mm(a, rhs)
-        except RuntimeError:
-            continue
-        return cuda_ms(lambda: torch._int_mm(a, rhs), iters)
-    return None
+def int_mm_ms(torch, a, w, iters: int, timer=cuda_ms):
+    """Time of ``torch._int_mm`` on the same operands as K4, the library
+    yardstick (the port never calls it): the packed (N, K) weights go in
+    as the column-major (K, N) operand cuBLASLt prefers. None where it
+    refuses the shape."""
+    rhs = w.t()
+    try:
+        torch._int_mm(a, rhs)
+    except RuntimeError:
+        return None
+    return timer(lambda: torch._int_mm(a, rhs), iters)
 
 
 def check_equal(name, got, ref) -> None:
@@ -277,22 +314,39 @@ def check_int8_probe_shapes(torch):
         int8_conv, int8_conv_plain, int8_matmul, int8_matmul_plain)
 
     gen = torch.Generator().manual_seed(4)
+    # K4 at two edge shapes: a ragged last row tile, and the narrowest tile
+    for m, k, n in ((12_345, 512, 256), (65_536, 64, 128)):
+        a, w, scale = int8_operands(torch, gen, m, k, n)
+        check_equal(f"K4 ({m}, {k}) x ({n}, {k}) int32", int8_matmul(a, w), int8_matmul_plain(a, w))
+        for out_dtype in (torch.float32, torch.bfloat16):
+            check_equal(f"K4 ({m}, {k}) x ({n}, {k}) {out_dtype}",
+                        int8_matmul(a, w, scale, out_dtype),
+                        int8_matmul_plain(a, w, scale, out_dtype))
+        print(f"K4 int8_matmul edge shape ({m}, {k}) x ({n}, {k}): bit-equal (int32, float32 and "
+              f"bf16 epilogues)", flush=True)
     # K4: probe_raw_matmul's (B*T*784, 512) x (512, 256) -> int32, B*T = 480
-    a, b, scale = int8_operands(torch, gen, 480 * 784, 512, 256)
-    check_equal("K4 probe int32", int8_matmul(a, b), int8_matmul_plain(a, b))
-    check_equal("K4 probe bf16", int8_matmul(a, b, scale, torch.bfloat16),
-                int8_matmul_plain(a, b, scale, torch.bfloat16))
-    ms = cuda_ms(lambda: int8_matmul(a, b), 10)
-    plain_ms = cuda_ms(lambda: int8_matmul_plain(a, b), 3)
-    library_ms = int_mm_ms(torch, a, b, 10)
+    a, w, scale = int8_operands(torch, gen, 480 * 784, 512, 256)
+    check_equal("K4 probe int32", int8_matmul(a, w), int8_matmul_plain(a, w))
+    check_equal("K4 probe bf16", int8_matmul(a, w, scale, torch.bfloat16),
+                int8_matmul_plain(a, w, scale, torch.bfloat16))
+    ms = cuda_ms(lambda: int8_matmul(a, w), 10)
+    plain_ms = cuda_ms(lambda: int8_matmul_plain(a, w), 3)
+    library_ms = int_mm_ms(torch, a, w, 10)
     m, k = a.shape
-    n = b.shape[1]
+    n = w.shape[0]
     bound_ms, bound_by = bound(m * k + k * n + 4 * m * n, 2.0 * m * k * n, "int8")
     library = "refused" if library_ms is None else f"{library_ms:.3f} ms"
-    print(f"K4 int8_matmul probe shape ({m}, {k}) x ({k}, {n}) -> int32: bit-equal (int32 and "
+    print(f"K4 int8_matmul probe shape ({m}, {k}) x ({n}, {k}) -> int32: bit-equal (int32 and "
           f"bf16 epilogue); {ms:.3f} ms kernel, {plain_ms:.3f} ms plain (float64), torch._int_mm "
           f"{library}, bound {bound_ms:.3f} ms ({bound_by})", flush=True)
-    del a, b
+    # host time per launch at a stage-4 shape, whose device work takes microseconds
+    a, w, scale = int8_operands(torch, gen, 3920, 1024, 512)
+    rhs = w.t()
+    k4_us = host_us(lambda: int8_matmul(a, w, scale, torch.bfloat16))
+    lib_us = host_us(lambda: torch._int_mm(a, rhs))
+    print(f"host time per launch at (3920, 1024) x (512, 1024): K4 {k4_us:.1f} us, torch._int_mm "
+          f"{lib_us:.1f} us", flush=True)
+    del a, w
     # K5: make_conv3x3's (B*T, 128, 28*28) planes, channels last, pad 1
     x = torch.randint(-127, 128, (240, 2, 28, 28, 128), generator=gen, dtype=torch.int8).cuda()
     w = torch.randint(-5, 6, (9 * 128, 128), generator=gen, dtype=torch.int8).cuda()
@@ -334,8 +388,10 @@ def int8_forward_with(torch, model, crops, matmul, conv):
 def check_int8_path_calls(torch, model, crops):
     """One int8 forward of ``model`` on ``crops`` in which every K4 and K5
     call is held, at its own shape and input, against its plain version
-    (bit-equal) and timed; returns the two JSON entries with times and
-    bounds summed over the forward's launches."""
+    (bit-equal) and timed, by CUDA events over 10 launches (host launch
+    time included) and by the profiler's device time; returns the two JSON
+    entries with event times and bounds summed over the forward's
+    launches."""
     from anomaly_detection_on_video_tpu_torch.ops.kernels import (
         int8_conv, int8_conv_plain, int8_matmul, int8_matmul_plain)
     from anomaly_detection_on_video_tpu_torch.ops.kernels.int8_conv import conv_output_shape
@@ -343,7 +399,8 @@ def check_int8_path_calls(torch, model, crops):
     fns = {"int8_matmul": (int8_matmul, int8_matmul_plain),
            "int8_conv": (int8_conv, int8_conv_plain)}
     totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_refused": 0,
-                     "bytes": 0.0, "ops": 0.0, "n": 0} for name in fns}
+                     "device_ms": 0.0, "library_device_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+                     "n": 0} for name in fns}
     geometries = {}
 
     def checker(name):
@@ -354,20 +411,22 @@ def check_int8_path_calls(torch, model, crops):
             check_equal(f"{name} {tuple(args[0].shape)}", got, plain_fn(*args))
             out_bytes = got.numel() * got.element_size()
             entry = totals[name]
-            ms = cuda_ms(lambda: kernel_fn(*args), 3)
+            ms = cuda_ms(lambda: kernel_fn(*args), 10)
             entry["ms"] += ms
+            entry["device_ms"] += device_ms(lambda: kernel_fn(*args), 5)
             entry["plain_ms"] += cuda_ms(lambda: plain_fn(*args), 1)
             if name == "int8_matmul":
-                a, b = args[0], args[1]
-                (m, k), n = a.shape, b.shape[1]
-                lib_ms = int_mm_ms(torch, a, b, 3)
+                a, w = args[0], args[1]
+                (m, k), n = a.shape, w.shape[0]
+                lib_ms = int_mm_ms(torch, a, w, 10)
                 if lib_ms is None:
                     entry["library_refused"] += 1
                 else:
                     entry["library_ms"] += lib_ms
+                    entry["library_device_ms"] += int_mm_ms(torch, a, w, 5, device_ms)
                 entry["ops"] += 2.0 * m * k * n
-                entry["bytes"] += a.numel() + b.numel() + 4 * n + out_bytes
-                key = f"K4 ({m}, {k}) x ({k}, {n})"
+                entry["bytes"] += a.numel() + w.numel() + 4 * n + out_bytes
+                key = f"K4 ({m}, {k}) x ({n}, {k})"
             else:
                 x, w, _, kernel, stride, padding, _ = args
                 bsz, t, h, wd, cin = x.shape
@@ -393,9 +452,10 @@ def check_int8_path_calls(torch, model, crops):
     for name, entry in totals.items():
         bound_ms, bound_by = bound(entry["bytes"], entry["ops"], "int8")
         print(f"{name} over the int8 path's {entry['n']} launches at B = {b}: bit-equal; "
-              f"{entry['ms']:.3f} ms kernel, {entry['plain_ms']:.3f} ms plain (float64), "
-              f"bound {bound_ms:.3f} ms ({bound_by})"
-              + (f", {entry['library_ms']:.3f} ms torch._int_mm ({entry['library_refused']} "
+              f"{entry['ms']:.3f} ms kernel by events ({entry['device_ms']:.3f} ms device), "
+              f"{entry['plain_ms']:.3f} ms plain (float64), bound {bound_ms:.3f} ms ({bound_by})"
+              + (f", torch._int_mm {entry['library_ms']:.3f} ms by events "
+                 f"({entry['library_device_ms']:.3f} ms device; {entry['library_refused']} "
                  f"shapes refused)" if name == "int8_matmul" else ""), flush=True)
         # a library sum that misses refused shapes is no time for the same work
         library = None
@@ -403,7 +463,8 @@ def check_int8_path_calls(torch, model, crops):
             library = entry["library_ms"]
         results.append({"name": name, "ms": entry["ms"], "plain_ms": entry["plain_ms"],
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
-                        "max_abs_err": 0.0})
+                        "max_abs_err": 0.0, "device_ms": entry["device_ms"],
+                        "library_device_ms": entry["library_device_ms"]})
     return results
 
 
@@ -631,8 +692,9 @@ def main() -> int:
     k45_240 = check_int8_path_calls(torch, qextractor.model, ten_crop_standardize_plain(
         resize_clips(bulk_frames, 24), 224, torch.bfloat16))
     print("B=240 int8 summary: " + ", ".join(
-        f"{e['name']} {e['ms']:.3f} ms (bound {e['bound_ms']:.3f}, plain {e['plain_ms']:.3f}, "
-        f"library {'none' if e['library_ms'] is None else format(e['library_ms'], '.3f')})"
+        f"{e['name']} {e['ms']:.3f} ms ({e['device_ms']:.3f} device; bound {e['bound_ms']:.3f}, "
+        f"plain {e['plain_ms']:.3f}, library "
+        f"{'none' if e['library_ms'] is None else format(e['library_ms'], '.3f')})"
         for e in k45_240), flush=True)
     torch.cuda.empty_cache()
 

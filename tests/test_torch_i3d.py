@@ -126,8 +126,11 @@ def test_bottleneck_plain_matches_jax_module(rng, cin, tk, has_proj):
 
 
 def _packed_block(x, ops):
-    """The kernel's arithmetic on its packed operands, in torch:
-    x (B, T, H, W, Cin) -> (B, T, H, W, 4P)."""
+    """The kernel's arithmetic on its packed operands, in torch float32:
+    x (B, T, H, W, Cin) -> (B, T, H, W, 4P). bfloat16 operands are (out, in)
+    matrices and are read through their transposes."""
+    if ops["wa"].dtype == torch.bfloat16:
+        ops = {k: v.float().transpose(-1, -2) if k.startswith("w") else v for k, v in ops.items()}
     t = x.shape[1]
     xt = F.pad(x, (0, 0, 0, 0, 0, 0, 1, 1))  # temporal zero padding
     ya = sum(xt[:, dt: dt + t] @ ops["wa"][dt] for dt in range(3))
@@ -143,22 +146,32 @@ def _packed_block(x, ops):
     return torch.relu(z + r)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("tk,has_proj", [(3, True), (1, True), (3, False)])
-def test_bottleneck_packed_operands_reproduce_block(rng, tk, has_proj):
+def test_bottleneck_packed_operands_reproduce_block(rng, tk, has_proj, dtype):
+    """The float32 (in, out) and the bfloat16 (out, in) operand sets are the
+    block: evaluated in float32 they reproduce the plain block (whose conv
+    weights hold bfloat16 values in the bf16 case)."""
     planes = 8
     cin = 16 if has_proj else 4 * planes
     block = ti3d.Bottleneck(cin, planes, temp_kernel=tk, has_proj=has_proj)
     with torch.no_grad():
-        for p in block.parameters():
-            p.copy_(torch.from_numpy(rng.randn(*p.shape).astype(np.float32) * 0.3))
+        for name, p in block.named_parameters():
+            w = torch.from_numpy(rng.randn(*p.shape).astype(np.float32) * 0.3)
+            p.copy_(w.to(dtype).float() if p.dim() == 5 else w)
         for name, buf in block.named_buffers():
             if "running_var" in name:
                 buf.copy_(torch.from_numpy(rng.rand(*buf.shape).astype(np.float32) + 0.5))
             elif "running_mean" in name:
                 buf.copy_(torch.from_numpy(rng.randn(*buf.shape).astype(np.float32) * 0.1))
     x = torch.from_numpy(rng.randn(2, 4, 9, 7, cin).astype(np.float32))
-    ops = pack_block_params(block, torch.float32)
-    assert ops["wa"].shape == (3, cin, planes) and ops["wb"].shape == (9 * planes, planes)
+    ops = pack_block_params(block, dtype)
+    if dtype == torch.bfloat16:
+        assert ops["wa"].shape == (3, planes, cin) and ops["wb"].shape == (planes, 9 * planes)
+        assert ops["wc"].shape == (4 * planes, planes) and ops["sa"].dtype == torch.float32
+        assert all(v.dtype == dtype and v.is_contiguous() for k, v in ops.items() if k[0] == "w")
+    else:
+        assert ops["wa"].shape == (3, cin, planes) and ops["wb"].shape == (9 * planes, planes)
     with torch.no_grad():
         torch.testing.assert_close(_packed_block(x, ops), bottleneck_plain(x, block),
                                    atol=1e-4, rtol=1e-5)

@@ -32,7 +32,11 @@ from anomaly_detection_on_video_tpu_torch.ops.kernels import (
     int8_matmul,
     int8_matmul_plain,
 )
-from anomaly_detection_on_video_tpu_torch.ops.quant import pack_int8_weight, quantize_weight
+from anomaly_detection_on_video_tpu_torch.ops.quant import (
+    pack_int8_weight,
+    pack_int8_weight_nk,
+    quantize_weight,
+)
 from anomaly_detection_on_video_tpu_torch.utils.convert import (
     act_scale_key,
     i3res50_state_dict_from_flax,
@@ -146,11 +150,12 @@ def test_int8_matmul_plain_matches_dot_general(rng):
     ref = np.asarray(jax.lax.dot_general(
         jnp.asarray(w), jnp.asarray(x), (((0,), (0,)), ((), ())),
         preferred_element_type=jnp.int32))  # (N, M)
-    got = int8_matmul(torch.from_numpy(x.T.copy()), torch.from_numpy(w))
+    w_nk = torch.from_numpy(w.T.copy())  # K4's (N, K) operand
+    got = int8_matmul(torch.from_numpy(x.T.copy()), w_nk)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy().T, ref)
     scale = torch.from_numpy(rng.uniform(1e-5, 1e-3, n).astype(np.float32))
-    scaled = int8_matmul(torch.from_numpy(x.T.copy()), torch.from_numpy(w), scale, torch.bfloat16)
+    scaled = int8_matmul(torch.from_numpy(x.T.copy()), w_nk, scale, torch.bfloat16)
     np.testing.assert_array_equal(scaled.float().numpy(),
                                   (got.float() * scale).to(torch.bfloat16).float().numpy())
 
@@ -175,17 +180,25 @@ def test_int8_operands_repacked_for_a_new_scale(rng):
     assert not torch.equal(first, second)
 
 
+@pytest.mark.parametrize("layout", ["kn", "nk"])
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
-def test_packed_int8_weights_reproduce_conv(rng, geometry):
+def test_packed_int8_weights_reproduce_conv(rng, geometry, layout):
     """The (kt*kh*kw*Cin, Cout) operand, rows (kt, kh, kw, cin), is the conv
-    the kernels compute: an im2col product with it in float64 equals
-    F.conv3d exactly. For a 1x1x1 conv it is K4's (K, N) matrix over the
-    (strided) activation rows."""
+    K5 computes: an im2col product with it in float64 equals F.conv3d
+    exactly. The "nk" case evaluates K4's (Cout, K) operand, each output
+    channel's row K-contiguous, through its transpose; for a 1x1x1 conv it
+    is K4's matrix over the (strided) activation rows."""
     cin, kernel, stride, padding = GEOMETRIES[geometry]
     x = torch.from_numpy(rng.randint(-127, 128, (2, 6, 9, 11, cin)).astype(np.float64))
     w_q, _ = quantize_weight(torch.from_numpy(rng.randn(8, cin, *kernel).astype(np.float32)))
-    packed = pack_int8_weight(w_q)
-    assert packed.shape == (int(np.prod(kernel)) * cin, 8) and packed.dtype == torch.int8
+    k = int(np.prod(kernel)) * cin
+    if layout == "nk":
+        nk = pack_int8_weight_nk(w_q)
+        assert nk.shape == (8, k) and nk.dtype == torch.int8 and nk.is_contiguous()
+        packed = nk.t()
+    else:
+        packed = pack_int8_weight(w_q)
+    assert packed.shape == (k, 8) and packed.dtype == torch.int8
     pt, ph, pw = padding
     xp = F.pad(x, (0, 0, pw, pw, ph, ph, pt, pt))
     patches = xp.unfold(1, kernel[0], stride[0]).unfold(2, kernel[1], stride[1])
@@ -333,7 +346,7 @@ def test_calibration_sidecar_round_trip(rng, tmp_path, narrow_int8):
 
 def test_int8_wrappers_check_inputs_and_count_only_launches(rng):
     a = torch.from_numpy(rng.randint(-5, 6, (6, 32)).astype(np.int8))
-    b = torch.from_numpy(rng.randint(-5, 6, (32, 16)).astype(np.int8))
+    b = torch.from_numpy(rng.randint(-5, 6, (16, 32)).astype(np.int8))  # (N, K)
     x = torch.from_numpy(rng.randint(-5, 6, (1, 2, 5, 5, 16)).astype(np.int8))
     w = torch.from_numpy(rng.randint(-5, 6, (9 * 16, 8)).astype(np.int8))
     s16, s8 = torch.ones(16), torch.ones(8)
@@ -347,7 +360,7 @@ def test_int8_wrappers_check_inputs_and_count_only_launches(rng):
     assert kernels.launch_counts() == before
     bad_matmul = [
         (a.float(), b, None, None),  # not int8
-        (a, b[:8], None, None),  # K mismatch
+        (a, b[:, :8], None, None),  # K mismatch
         (a, b, None, torch.float32),  # out_dtype without a scale
         (a, b, s8, torch.float32),  # scale length
         (a, b, s16.double(), torch.float32),  # scale type
