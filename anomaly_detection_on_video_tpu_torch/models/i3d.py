@@ -42,12 +42,11 @@ from torch import nn
 
 from ..ops.kernels._operands import cached_operands
 from ..ops.kernels.bottleneck import bottleneck_block
-from ..ops.kernels.int8_conv import int8_conv
+from ..ops.kernels.int8_conv import int8_conv, pack_int8_conv_weight
 from ..ops.kernels.int8_matmul import int8_matmul
 from ..ops.kernels.stem import fold_bn, stem_conv_pool
 from ..ops.quant import (
     dequant_scale,
-    pack_int8_weight,
     pack_int8_weight_nk,
     quantize_activation,
     quantize_weight,
@@ -113,9 +112,10 @@ def int8_conv_nd(x: torch.Tensor, conv: nn.Conv3d, act_scale: float) -> torch.Te
 
 
 def _pack_int8(conv: nn.Conv3d, act_scale: float, device: torch.device) -> Dict[str, torch.Tensor]:
-    """K4 takes the (N, K) weights of a 1x1x1 conv, K5 the (K, N) ones."""
+    """K4 takes a 1x1x1 conv's (N, K) weights, K5 every other conv's (its
+    stem layout for the stem)."""
     w_q, w_scale = quantize_weight(conv.weight)
-    pack = pack_int8_weight_nk if _is_pointwise(conv) else pack_int8_weight
+    pack = pack_int8_weight_nk if _is_pointwise(conv) else pack_int8_conv_weight
     return {"w": pack(w_q).to(device), "scale": dequant_scale(w_scale, act_scale).to(device)}
 
 

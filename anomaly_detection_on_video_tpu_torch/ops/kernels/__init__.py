@@ -8,7 +8,7 @@ sources live in ``csrc/`` and build at first use (``_build.py``).
 
 from .bottleneck import bottleneck_block, bottleneck_plain, pack_block_params
 from .crop_norm import ten_crop_standardize, ten_crop_standardize_plain
-from .int8_conv import int8_conv, int8_conv_plain
+from .int8_conv import int8_conv, int8_conv_plain, pack_int8_conv_weight
 from .int8_matmul import int8_matmul, int8_matmul_plain
 from .stem import pack_stem_params, stem_conv_pool, stem_plain
 
@@ -34,6 +34,7 @@ __all__ = [
     "int8_matmul_plain",
     "launch_counts",
     "pack_block_params",
+    "pack_int8_conv_weight",
     "pack_stem_params",
     "reset_launch_counts",
     "stem_conv_pool",

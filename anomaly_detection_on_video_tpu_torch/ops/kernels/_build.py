@@ -36,6 +36,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "adv_crop_norm": [_P, _P, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _F, _F, _P],
     "adv_stem": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "adv_stem_info": [ctypes.POINTER(_I)],
     "adv_bottleneck": [_P] * 14 + [_I, _I, _I, _I, _I, _P],
     "adv_int8_matmul": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "adv_int8_conv": [_P, _P, _P, _P] + [_I] * 16 + [_P],

@@ -5,13 +5,23 @@ Replaces ``make_conv3x3`` / ``_conv3x3_kernel``
 padding, int32 accumulation, and a per-output-channel float32 scale whose
 product is either requantized to int8 (``clip(round(.), -127, 127)``, round
 half to even) or written as bfloat16. Generalized to the i3res50 int8
-path's geometries (k(1,3,3) with stride 1 or 2, k(3,1,1), the stem's
-k(5,7,7) s2 p(2,3,3) over 3 channels) and to a float32 output.
+path's geometries (k(1,3,3) with stride 1 or 2 and k(3,1,1) over Cin % 16
+== 0 channels, the stem's k(5,7,7) s2 p(2,3,3) over 3 channels) and to a
+float32 output.
 
-The CUDA kernel (``csrc/int8_conv.cu``) is an implicit GEMM on the tensor
-cores (``mma.sync`` s8.s8.s32) that gathers its A tiles from the
-activation, so no im2col copy reaches device memory. The plain version is
-``F.conv3d`` in float64 on the int8 values, exact for the path's sums.
+On the H100 it is bound by operations for the k(1,3,3) convs and by bytes
+for the k(3,1,1) convs and the stem: about 0.57 ms for the 26 convs of an
+int8 forward at B = 40. The CUDA kernels (``csrc/int8_conv.cu``) run on
+the tensor cores and gather their A tiles from the activation, so no
+im2col copy reaches device memory. For Cin % 16 == 0, an implicit GEMM on
+``wgmma`` s32.s8.s8 whose 16-byte A pieces and (Cout, K) weight rows
+arrive by ``cp.async`` in a 3-4 stage ring of 128-byte-swizzled tiles. For
+the stem, ``mma.sync`` fed by ``ldmatrix`` from a slab that holds the
+3-channel input once as one 32-byte vector per pixel (two stem frames x 5
+temporal taps x 3 channels), two (kh, kw) taps per k32 step against the
+(64, 800) operand of ``pack_int8_conv_weight``. Any other geometry raises on the card. The
+plain version is ``F.conv3d`` in float64 on the int8 values, exact for the
+path's sums.
 """
 
 from __future__ import annotations
@@ -21,10 +31,16 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..quant import check_epilogue, scale_epilogue
+from ..quant import check_epilogue, pack_int8_weight_nk, scale_epilogue
 from .int8_matmul import MODES
 
 Triple = Tuple[int, int, int]
+
+STEM_KERNEL = (5, 7, 7)  # a k(5,7,7) weight over 3 channels is packed in the stem layout
+STEM_GEOMETRY = (STEM_KERNEL, (2, 2, 2), (2, 3, 3))  # the stem kernel's only geometry
+STEM_TAPS = 7 * 7
+STEM_TAP_K = 16  # bytes per (kh, kw) tap: 5 temporal taps x 3 channels, padded
+STEM_K = (STEM_TAPS + 1) * STEM_TAP_K  # 800: 25 k32 steps of two taps, the 50th zero
 
 
 def _triple(v: Sequence[int], name: str) -> Triple:
@@ -39,13 +55,47 @@ def conv_output_shape(shape, kernel: Triple, stride: Triple, padding: Triple) ->
     return tuple((n + 2 * p - k) // s + 1 for n, k, s, p in zip(shape, kernel, stride, padding))
 
 
+def _stem_layout(cin: int, kernel: Sequence[int]) -> bool:
+    return cin == 3 and tuple(kernel) == STEM_KERNEL
+
+
+def _packed_k(cin: int, kernel: Sequence[int]) -> int:
+    """K of the packed operand: ``STEM_K`` in the stem layout, else
+    kt*kh*kw*cin."""
+    return STEM_K if _stem_layout(cin, kernel) else kernel[0] * kernel[1] * kernel[2] * cin
+
+
+def pack_int8_conv_weight(w_q: torch.Tensor) -> torch.Tensor:
+    """int8 ``(O, I, kt, kh, kw)`` -> K5's ``(O, K)`` operand, each output
+    channel's row K-contiguous. A k(5,7,7) weight over 3 channels (the
+    stem) takes the stem kernel's layout, ``(O, 800)``: 49 (kh, kw) taps of
+    16 bytes ``[kt * 3 + c]`` (the 16th zero), then one zero tap, so one
+    k32 step holds two taps. Any other weight is ``pack_int8_weight_nk``'s
+    ``(O, kt*kh*kw*I)``, rows (kt, kh, kw, cin)."""
+    o, cin = w_q.shape[:2]
+    if not _stem_layout(cin, w_q.shape[2:]):
+        return pack_int8_weight_nk(w_q)
+    taps = w_q.permute(0, 3, 4, 2, 1).reshape(o, STEM_TAPS, 5 * 3)
+    taps = F.pad(taps, (0, STEM_TAP_K - 5 * 3, 0, 1))
+    return taps.reshape(o, STEM_K).contiguous()
+
+
+def unpack_int8_conv_weight(w_packed: torch.Tensor, cin: int, kernel: Triple) -> torch.Tensor:
+    """``pack_int8_conv_weight``'s operand -> the torch ``(O, I, kt, kh, kw)``
+    weight."""
+    o = w_packed.shape[0]
+    if _stem_layout(cin, kernel):
+        taps = w_packed.reshape(o, STEM_TAPS + 1, STEM_TAP_K)[:, :STEM_TAPS, :5 * 3]
+        return taps.reshape(o, 7, 7, 5, 3).permute(0, 4, 3, 1, 2)
+    return w_packed.reshape(o, *kernel, cin).permute(0, 4, 1, 2, 3)
+
+
 def int8_conv_plain(x, w_packed, scale, kernel, stride, padding, out_dtype) -> torch.Tensor:
     """Plain version, on any device: ``F.conv3d`` in float64 on the int8
     values, cast to int32, then the same epilogue in torch ops."""
     kernel, stride, padding = (_triple(v, n) for v, n in
                                ((kernel, "kernel"), (stride, "stride"), (padding, "padding")))
-    # rows (kt, kh, kw, cin) x cout -> torch (cout, cin, kt, kh, kw)
-    w = w_packed.reshape(*kernel, x.shape[-1], -1).permute(4, 3, 0, 1, 2).double()
+    w = unpack_int8_conv_weight(w_packed, x.shape[-1], kernel).double()
     acc = F.conv3d(x.permute(0, 4, 1, 2, 3).double(), w, None, stride, padding)
     return scale_epilogue(acc.permute(0, 2, 3, 4, 1).to(torch.int32), scale, out_dtype)
 
@@ -61,9 +111,12 @@ def int8_conv(
 ) -> torch.Tensor:
     """``x`` int8 ``(B, T, H, W, Cin)`` -> ``(B, To, Ho, Wo, Cout)`` as
     ``out_dtype`` (int8, float32 or bfloat16): the zero-padded conv with
-    ``w_packed`` int8 ``(kt*kh*kw*Cin, Cout)``, its int32 sum times the
-    float32 ``(Cout,)`` ``scale``. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel, and anything it does not take raises.
+    ``w_packed``, the int8 ``(Cout, K)`` operand of
+    ``pack_int8_conv_weight``, its int32 sum times the float32 ``(Cout,)``
+    ``scale``. A CPU tensor takes the plain version (any geometry); a CUDA
+    tensor launches a kernel, which takes Cin % 16 == 0 with Cout % 16 == 0,
+    or the stem (Cin = 3, k(5,7,7), s2, p(2,3,3), Cout = 64, W % 4 == 0),
+    and anything else raises.
     """
     kernel, stride, padding = (_triple(v, n) for v, n in
                                ((kernel, "kernel"), (stride, "stride"), (padding, "padding")))
@@ -72,10 +125,10 @@ def int8_conv(
     if x.dtype != torch.int8 or w_packed.dtype != torch.int8:
         raise ValueError(f"int8_conv takes int8 operands, got {x.dtype} and {w_packed.dtype}")
     if x.dim() != 5 or w_packed.dim() != 2:
-        raise ValueError(f"expected (B, T, H, W, Cin) and (K, Cout), got {tuple(x.shape)} "
+        raise ValueError(f"expected (B, T, H, W, Cin) and (Cout, K), got {tuple(x.shape)} "
                          f"and {tuple(w_packed.shape)}")
     b, t, h, w, cin = x.shape
-    if w_packed.shape[0] != kernel[0] * kernel[1] * kernel[2] * cin:
+    if w_packed.shape[1] != _packed_k(cin, kernel):
         raise ValueError(f"weights {tuple(w_packed.shape)} do not match kernel {kernel} "
                          f"over {cin} channels")
     if min(stride) < 1 or min(padding) < 0 or min(kernel) < 1:
@@ -83,7 +136,7 @@ def int8_conv(
     out_shape = conv_output_shape((t, h, w), kernel, stride, padding)
     if min(out_shape) < 1:
         raise ValueError(f"kernel {kernel} does not fit the padded input {tuple(x.shape)}")
-    cout = w_packed.shape[1]
+    cout = w_packed.shape[0]
     check_epilogue(scale, cout, out_dtype, (torch.int8, torch.float32, torch.bfloat16), x.device)
     if w_packed.device != x.device:
         raise ValueError(f"operands on {x.device} and {w_packed.device}")
@@ -93,6 +146,17 @@ def int8_conv(
         raise ValueError(f"unsupported device {x.device}")
     if not (x.is_contiguous() and w_packed.is_contiguous()):
         raise ValueError("int8_conv operands must be contiguous")
+    if _stem_layout(cin, kernel):
+        if (kernel, stride, padding) != STEM_GEOMETRY or cout != 64 or w % 4 or x.data_ptr() % 4:
+            raise ValueError(f"the stem kernel takes k{STEM_KERNEL} s(2,2,2) p(2,3,3) into 64 "
+                             f"channels over a width that is a multiple of 4, got kernel {kernel}, "
+                             f"stride {stride}, padding {padding}, {cout} channels, "
+                             f"input {tuple(x.shape)}")
+    elif cin % 16 or cout % 16 or x.data_ptr() % 16:
+        raise ValueError(f"int8_conv on the card takes Cin and Cout multiples of 16 (or the "
+                         f"stem), got {cin} -> {cout}")
+    if w_packed.data_ptr() % 16:
+        raise ValueError("int8_conv weights must be 16-byte aligned")
     m = b * out_shape[0] * out_shape[1] * out_shape[2]
     if x.numel() >= 2 ** 31 or m * cout >= 2 ** 31:
         raise ValueError(f"{tuple(x.shape)} exceeds the kernel's 32-bit sizes")

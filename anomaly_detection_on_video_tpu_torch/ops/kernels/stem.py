@@ -7,11 +7,15 @@ k(5,7,7) s(2,2,2) p(2,3,3), BN folded to a float32 affine as
 ``(B, 16, 224, 224, 3)`` -> ``(B, 4, 55, 55, 64)``, channels last.
 
 On the H100 it is bound by operations: about 9.4 GFLOP of conv per clip
-against 0.6 MB of pixels. The CUDA kernel (``csrc/stem.cu``) is an implicit
-GEMM (K = 735 taps, N = 64 channels) over a tile of stem positions staged in
-shared memory, with float32 accumulation, and pools in its epilogue, so the
-(B, 8, 112, 112, 64) stem activation never reaches device memory. It runs
-on CUDA cores; tensor cores are a later revision's work.
+against 0.6 MB of pixels, 0.34 ms at B = 40 on the bf16 tensor cores. The
+CUDA kernel (``csrc/stem.cu``) computes the stem positions a tile of pooled
+outputs needs and pools them in its epilogue, so the (B, 8, 112, 112, 64)
+stem activation never reaches device memory. In bfloat16 it runs on the
+tensor cores (``mma.sync`` m16n8k16 fed by ``ldmatrix``): the contraction
+runs over the 5 temporal taps x 3 channels of each (kh, kw) tap, padded to
+one k16 step, against a slab of per-pixel vectors staged once per CTA, and
+the weights are the (64, 784) matrix of ``pack_stem_params``. float32
+stays on CUDA-core FMAs, since tensor cores would round it to TF32.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from ._operands import cached_operands
 
 STEM_INPUT = (16, 224, 224, 3)  # the only clip geometry the kernel takes
 STEM_OUTPUT = (4, 55, 55, 64)
+STEM_TAP_K = 16  # the bf16 operand's K per (kh, kw) tap: 5 x 3 values, padded
 
 
 def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -36,11 +41,18 @@ def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> Tuple[torch.Tensor, torch.Te
 
 
 def pack_stem_params(conv_weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """torch (64, 3, 5, 7, 7) conv weight -> float32 (735, 64), rows ordered
-    (kt, kh, kw, c), holding the values of ``dtype`` (bfloat16 weights are
-    rounded first, as the bfloat16 plain version uses them)."""
-    w = conv_weight.detach().to(dtype).float()
-    return w.permute(2, 3, 4, 1, 0).reshape(-1, w.shape[0]).contiguous()
+    """torch (64, 3, 5, 7, 7) conv weight -> the kernel's operand for ``dtype``.
+
+    float32: (735, 64), rows ordered (kt, kh, kw, c), for the CUDA-core
+    kernel. bfloat16: the tensor-core operand, (64, 784) bfloat16, each
+    output channel's row K-contiguous: 49 taps (kh, kw), each the 16 values
+    ``[kt * 3 + c]`` of one k16 step, the 16th zero.
+    """
+    w = conv_weight.detach()
+    if dtype == torch.float32:
+        return w.float().permute(2, 3, 4, 1, 0).reshape(-1, w.shape[0]).contiguous()
+    taps = w.to(dtype).permute(0, 3, 4, 2, 1).reshape(w.shape[0], 7 * 7, 5 * 3)
+    return F.pad(taps, (0, STEM_TAP_K - 5 * 3)).reshape(w.shape[0], -1).contiguous()
 
 
 def stem_plain(
@@ -77,8 +89,8 @@ def stem_conv_pool(x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d) -> torc
         raise ValueError(f"unsupported device {x.device}")
     if tuple(x.shape[1:]) != STEM_INPUT:
         raise ValueError(f"the stem kernel takes (B, 16, 224, 224, 3) clips, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("stem input must be contiguous")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("stem input must be contiguous and 16-byte aligned")
     if x.shape[0] * 4 > 65535:
         raise ValueError(f"batch {x.shape[0]} exceeds the launch grid")
     from ._build import build, current_stream
@@ -103,3 +115,16 @@ def stem_conv_pool(x: torch.Tensor, conv: nn.Conv3d, bn: nn.BatchNorm3d) -> torc
 
 
 stem_conv_pool.launches = 0
+
+
+def stem_kernel_info() -> dict:
+    """The bf16 kernel's launch shape on the current card: shared bytes per
+    CTA, threads, CTAs resident per SM, pooled rows x columns per tile."""
+    import ctypes
+
+    from ._build import build
+
+    info = (ctypes.c_int * 5)()
+    build().call("adv_stem_info", info)
+    keys = ("shared_bytes", "threads", "ctas_per_sm", "tile_rows", "tile_cols")
+    return dict(zip(keys, info))

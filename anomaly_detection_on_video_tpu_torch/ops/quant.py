@@ -46,17 +46,12 @@ def dequant_scale(w_scale: torch.Tensor, act_scale: float) -> torch.Tensor:
     return w_scale * torch.tensor(act_scale, dtype=torch.float32, device=w_scale.device)
 
 
-def pack_int8_weight(w_q: torch.Tensor) -> torch.Tensor:
-    """int8 ``(O, I, kt, kh, kw)`` -> the kernels' ``(kt*kh*kw*I, O)``
-    matrix, rows ordered (kt, kh, kw, cin); ``(I, O)`` for a 1x1x1 conv."""
-    return w_q.permute(2, 3, 4, 1, 0).reshape(-1, w_q.shape[0]).contiguous()
-
-
 def pack_int8_weight_nk(w_q: torch.Tensor) -> torch.Tensor:
-    """int8 ``(O, I, kt, kh, kw)`` -> K4's ``(O, kt*kh*kw*I)`` matrix, each
-    output channel's row K-contiguous in ``pack_int8_weight``'s (kt, kh, kw,
-    cin) order; ``(O, I)`` for a 1x1x1 conv. Its transpose is
-    ``pack_int8_weight(w_q)``."""
+    """int8 ``(O, I, kt, kh, kw)`` -> the kernels' ``(O, kt*kh*kw*I)``
+    matrix, each output channel's row K-contiguous, ordered (kt, kh, kw,
+    cin); ``(O, I)`` for a 1x1x1 conv. K4 takes it for every 1x1x1 conv, K5
+    (``kernels/int8_conv.pack_int8_conv_weight``) for every conv but the
+    stem."""
     return w_q.permute(0, 2, 3, 4, 1).reshape(w_q.shape[0], -1).contiguous()
 
 

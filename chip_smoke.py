@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (exit code != 0):
 
 1. build the CUDA kernels from ``anomaly_detection_on_video_tpu_torch/csrc``
-   with nvcc for sm_90a, and print the card's name and power limit;
+   with nvcc for sm_90a, and print the card's name and power limit and K2's
+   bf16 tile and occupancy (shared bytes, CTAs per SM);
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes, and time the kernel, the plain version and, where one exists, a
    single PyTorch library call with CUDA events:
@@ -40,7 +41,10 @@ Phases, each of which raises on failure (exit code != 0):
    version, bit-equal, and timed (CUDA events over 10 launches for the
    JSON line, and the profiler's device time beside them, for K4 and for
    ``torch._int_mm``): at B = 40 (the JSON line) and again at B = 240, the
-   bulk-extraction batch. The features must equal the same int8
+   bulk-extraction batch. K5's calls are also summed by geometry class
+   (stem, k(1,3,3) s1 and s2, k(3,1,1)) with their bound, beside a bf16
+   cuDNN ``F.conv3d`` of the same geometries as a yardstick the port never
+   calls. The features must equal the same int8
    forward through the plain versions (gate: cosine >= 0.99999 per row;
    the count of unequal elements is printed), reach cosine >= 0.99
    against the plain float32 forward, and the scores must lie in [0, 1].
@@ -349,7 +353,7 @@ def check_int8_probe_shapes(torch):
     del a, w
     # K5: make_conv3x3's (B*T, 128, 28*28) planes, channels last, pad 1
     x = torch.randint(-127, 128, (240, 2, 28, 28, 128), generator=gen, dtype=torch.int8).cuda()
-    w = torch.randint(-5, 6, (9 * 128, 128), generator=gen, dtype=torch.int8).cuda()
+    w = torch.randint(-5, 6, (128, 9 * 128), generator=gen, dtype=torch.int8).cuda()  # (Cout, K)
     scale = (torch.rand(128, generator=gen) * 2e-3 + 1e-4).cuda()
     geo = ((1, 3, 3), (1, 1, 1), (0, 1, 1))
     for out_dtype in (torch.int8, torch.bfloat16):
@@ -359,7 +363,7 @@ def check_int8_probe_shapes(torch):
     ms = cuda_ms(lambda: int8_conv(x, w, scale, *geo, torch.int8), 10)
     plain_ms = cuda_ms(lambda: int8_conv_plain(x, w, scale, *geo, torch.int8), 3)
     xb = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
-    wb = w.to(torch.bfloat16).reshape(1, 3, 3, 128, 128).permute(4, 3, 0, 1, 2)
+    wb = w.to(torch.bfloat16).reshape(128, 1, 3, 3, 128).permute(0, 4, 1, 2, 3)
     bf16_conv_ms = cuda_ms(lambda: F.conv3d(xb, wb, None, 1, (0, 1, 1)), 10)
     taps = taps_inside(28, 28, 3, 1, 1) ** 2
     bound_ms, bound_by = bound(2 * x.numel() + w.numel() + 4 * 128,
@@ -385,16 +389,29 @@ def int8_forward_with(torch, model, crops, matmul, conv):
         ti3d.int8_matmul, ti3d.int8_conv = originals
 
 
+def k5_class(cin, kernel, stride) -> str:
+    """K5's geometry classes on the int8 path: the stem, k(1,3,3) s1 / s2,
+    k(3,1,1)."""
+    if cin == 3:
+        return "stem k(5,7,7) s2"
+    return f"k({kernel[0]},{kernel[1]},{kernel[2]}) s{stride[1]}"
+
+
 def check_int8_path_calls(torch, model, crops):
     """One int8 forward of ``model`` on ``crops`` in which every K4 and K5
     call is held, at its own shape and input, against its plain version
     (bit-equal) and timed, by CUDA events over 10 launches (host launch
     time included) and by the profiler's device time; returns the two JSON
     entries with event times and bounds summed over the forward's
-    launches."""
+    launches. K5's calls are also summed by geometry class, each beside a
+    bf16 cuDNN ``F.conv3d`` of the same geometry, a yardstick the port
+    never calls."""
+    import torch.nn.functional as F
+
     from anomaly_detection_on_video_tpu_torch.ops.kernels import (
         int8_conv, int8_conv_plain, int8_matmul, int8_matmul_plain)
-    from anomaly_detection_on_video_tpu_torch.ops.kernels.int8_conv import conv_output_shape
+    from anomaly_detection_on_video_tpu_torch.ops.kernels.int8_conv import (
+        conv_output_shape, unpack_int8_conv_weight)
 
     fns = {"int8_matmul": (int8_matmul, int8_matmul_plain),
            "int8_conv": (int8_conv, int8_conv_plain)}
@@ -402,6 +419,7 @@ def check_int8_path_calls(torch, model, crops):
                      "device_ms": 0.0, "library_device_ms": 0.0, "bytes": 0.0, "ops": 0.0,
                      "n": 0} for name in fns}
     geometries = {}
+    classes = {}
 
     def checker(name):
         kernel_fn, plain_fn = fns[name]
@@ -412,8 +430,9 @@ def check_int8_path_calls(torch, model, crops):
             out_bytes = got.numel() * got.element_size()
             entry = totals[name]
             ms = cuda_ms(lambda: kernel_fn(*args), 10)
+            dev_ms = device_ms(lambda: kernel_fn(*args), 5)
             entry["ms"] += ms
-            entry["device_ms"] += device_ms(lambda: kernel_fn(*args), 5)
+            entry["device_ms"] += dev_ms
             entry["plain_ms"] += cuda_ms(lambda: plain_fn(*args), 1)
             if name == "int8_matmul":
                 a, w = args[0], args[1]
@@ -424,19 +443,33 @@ def check_int8_path_calls(torch, model, crops):
                 else:
                     entry["library_ms"] += lib_ms
                     entry["library_device_ms"] += int_mm_ms(torch, a, w, 5, device_ms)
-                entry["ops"] += 2.0 * m * k * n
-                entry["bytes"] += a.numel() + w.numel() + 4 * n + out_bytes
+                ops = 2.0 * m * k * n
+                bytes_moved = a.numel() + w.numel() + 4 * n + out_bytes
                 key = f"K4 ({m}, {k}) x ({n}, {k})"
             else:
                 x, w, _, kernel, stride, padding, _ = args
                 bsz, t, h, wd, cin = x.shape
+                cout = w.shape[0]
                 out = conv_output_shape((t, h, wd), kernel, stride, padding)
                 taps = 1
                 for size, positions, kk, ss, pp in zip((t, h, wd), out, kernel, stride, padding):
                     taps *= taps_inside(size, positions, kk, ss, pp)
-                entry["ops"] += 2.0 * bsz * taps * cin * w.shape[1]
-                entry["bytes"] += x.numel() + w.numel() + 4 * w.shape[1] + out_bytes
-                key = f"K5 {tuple(x.shape)} k{kernel} s{stride} -> {w.shape[1]}"
+                ops = 2.0 * bsz * taps * cin * cout
+                bytes_moved = x.numel() + w.numel() + 4 * cout + out_bytes
+                key = f"K5 {tuple(x.shape)} k{kernel} s{stride} -> {cout}"
+                xb = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)  # channels-last strides
+                wb = unpack_int8_conv_weight(w, cin, kernel).to(torch.bfloat16)
+                conv = lambda: F.conv3d(xb, wb, None, stride, padding)  # noqa: E731
+                c = classes.setdefault(k5_class(cin, kernel, stride), dict.fromkeys(
+                    ("n", "ms", "device_ms", "bytes", "ops", "conv_ms", "conv_device_ms"), 0.0))
+                for field, value in (("n", 1), ("ms", ms), ("device_ms", dev_ms),
+                                     ("bytes", bytes_moved), ("ops", ops),
+                                     ("conv_ms", cuda_ms(conv, 10)),
+                                     ("conv_device_ms", device_ms(conv, 5))):
+                    c[field] += value
+                del xb, wb
+            entry["ops"] += ops
+            entry["bytes"] += bytes_moved
             entry["n"] += 1
             count, total_ms = geometries.get(key, (0, 0.0))
             geometries[key] = (count + 1, total_ms + ms)
@@ -448,6 +481,19 @@ def check_int8_path_calls(torch, model, crops):
     b = crops.shape[0]
     for key, (count, total_ms) in geometries.items():
         print(f"  bit-equal at B = {b}: {key} x{count}, {total_ms:.3f} ms kernel", flush=True)
+    for cls, c in classes.items():
+        bound_ms, bound_by = bound(c["bytes"], c["ops"], "int8")
+        c["bound_ms"] = bound_ms
+        print(f"K5 {cls}, {int(c['n'])} launches at B = {b}: {c['ms']:.3f} ms by events "
+              f"({c['device_ms']:.3f} device), bound {bound_ms:.3f} ms ({bound_by}); bf16 "
+              f"F.conv3d of the same geometry (yardstick) {c['conv_ms']:.3f} ms by events "
+              f"({c['conv_device_ms']:.3f} device)", flush=True)
+    c16 = [c for cls, c in classes.items() if not cls.startswith("stem")]
+    k5_ms, conv_ms = sum(c["ms"] for c in c16), sum(c["conv_ms"] for c in c16)
+    print(f"K5 Cin % 16 geometries at B = {b}: {k5_ms:.3f} ms by events "
+          f"({sum(c['device_ms'] for c in c16):.3f} device) against bf16 F.conv3d "
+          f"{conv_ms:.3f} ms ({sum(c['conv_device_ms'] for c in c16):.3f} device): "
+          f"{conv_ms / k5_ms:.2f}x", flush=True)
     results = []
     for name, entry in totals.items():
         bound_ms, bound_by = bound(entry["bytes"], entry["ops"], "int8")
@@ -530,6 +576,7 @@ def main() -> int:
     from anomaly_detection_on_video_tpu_torch.ops import kernels
     from anomaly_detection_on_video_tpu_torch.ops.kernels._build import build
     from anomaly_detection_on_video_tpu_torch.ops.kernels.crop_norm import ten_crop_standardize_plain
+    from anomaly_detection_on_video_tpu_torch.ops.kernels.stem import stem_kernel_info
     from anomaly_detection_on_video_tpu_torch.ops.metrics import frame_level_scores
     from anomaly_detection_on_video_tpu_torch.ops.resize import resize_bilinear_fast, short_side_size
     from anomaly_detection_on_video_tpu_torch.utils.device import set_f32_parity
@@ -548,6 +595,10 @@ def main() -> int:
             print("  " + line.strip(), flush=True)
     smi = smi_line()
     print(f"card: {smi}", flush=True)
+    tile = stem_kernel_info()
+    print(f"K2 bf16 tile: {tile['tile_rows']}x{tile['tile_cols']} pooled positions of one pooled "
+          f"frame per CTA, {tile['threads']} threads, {tile['shared_bytes']} bytes of shared "
+          f"memory, {tile['ctas_per_sm']} CTAs per SM", flush=True)
 
     # 2. kernels against their plain versions, on main-path data
     rng = np.random.RandomState(0)

@@ -92,17 +92,55 @@ def test_stem_plain_matches_jax_chain(rng):
     np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
 
 
-def test_stem_packed_weights_reproduce_conv(rng):
-    """The (735, 64) operand, rows (kt, kh, kw, c), is the conv the kernel
-    computes: an im2col product with it equals F.conv3d."""
-    x = torch.from_numpy(rng.randn(1, 8, 16, 16, 3).astype(np.float32))
+def stem_slab(x):
+    """The stem kernels' per-pixel vectors (csrc/stem.cu, csrc/int8_conv.cu)
+    for a whole plane: (B, T, H, W, 3) -> (B, To, H+6, 2, Q, 16), input rows
+    from -3 and columns from -4 split by parity (column 2*i + parity), each
+    vector ``[kt * 3 + c]`` of stem frame s (input frames 2s-2 .. 2s+2),
+    the 16th zero; zeros in the padding."""
+    b, t, h, w, _ = x.shape
+    frames_out, cols = (t + 1) // 2, w + 8 + w % 2
+    xp = F.pad(x, (0, 0, 4, cols - w - 4, 3, 3, 2, 2))
+    frames = torch.stack([xp[:, 2 * s: 2 * s + 5] for s in range(frames_out)], 1)
+    vec = frames.permute(0, 1, 3, 4, 2, 5).reshape(b, frames_out, h + 6, cols, 15)
+    return F.pad(vec, (0, 1)).reshape(b, frames_out, h + 6, cols // 2, 2, 16).transpose(3, 4)
+
+
+def stem_tap_rows(slab, kh, kw, ho, wo):
+    """The A rows of tap (kh, kw) for every stem position, read as the
+    kernels address them: slab row 2*sr + kh, column 2*sc + kw + 1."""
+    q = kw + 1
+    return slab[:, :, kh: kh + 2 * ho - 1: 2, q % 2, q // 2: q // 2 + wo]
+
+
+@pytest.mark.parametrize("layout", ["f32_rows", "bf16_slab"])
+def test_stem_packed_weights_reproduce_conv(rng, layout):
+    """The kernel's operands are the conv it computes. float32: an im2col
+    product with the (735, 64) operand, rows (kt, kh, kw, c). bfloat16: the
+    tensor-core operand (64, 784) against per-pixel [kt, c] vectors, one
+    k16 step per (kh, kw) tap, on bfloat16-valued inputs; both equal
+    F.conv3d at 1e-4."""
     w = torch.from_numpy(rng.randn(64, 3, 5, 7, 7).astype(np.float32))
-    packed = pack_stem_params(w, torch.float32)
-    assert packed.shape == (735, 64)
-    xp = F.pad(x, (0, 0, 3, 3, 3, 3, 2, 2))  # (B, T, H, W, C): pad t 2, h/w 3
-    patches = xp.unfold(1, 5, 2).unfold(2, 7, 2).unfold(3, 7, 2)  # (B,T',H',W',C,5,7,7)
-    patches = patches.permute(0, 1, 2, 3, 5, 6, 7, 4).reshape(*patches.shape[:4], 735)
-    got = patches @ packed
+    if layout == "f32_rows":
+        x = torch.from_numpy(rng.randn(1, 8, 16, 16, 3).astype(np.float32))
+        packed = pack_stem_params(w, torch.float32)
+        assert packed.shape == (735, 64)
+        xp = F.pad(x, (0, 0, 3, 3, 3, 3, 2, 2))  # (B, T, H, W, C): pad t 2, h/w 3
+        patches = xp.unfold(1, 5, 2).unfold(2, 7, 2).unfold(3, 7, 2)  # (B,T',H',W',C,5,7,7)
+        patches = patches.permute(0, 1, 2, 3, 5, 6, 7, 4).reshape(*patches.shape[:4], 735)
+        got = patches @ packed
+    else:
+        x = torch.from_numpy(rng.randn(1, 16, 16, 16, 3).astype(np.float32))
+        x, w = x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float()
+        packed = pack_stem_params(w, torch.bfloat16)
+        assert packed.shape == (64, 784) and packed.dtype == torch.bfloat16
+        assert packed.is_contiguous()
+        taps = packed.float().reshape(64, 49, 16)
+        assert not taps[:, :, 15].any()
+        slab = stem_slab(x)
+        assert slab.shape == (1, 8, 22, 2, 12, 16)
+        got = sum(stem_tap_rows(slab, kh, kw, 8, 8) @ taps[:, kh * 7 + kw].t()
+                  for kh in range(7) for kw in range(7))
     ref = F.conv3d(x.permute(0, 4, 1, 2, 3), w, None, 2, (2, 3, 3)).permute(0, 2, 3, 4, 1)
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
 

@@ -31,17 +31,15 @@ from anomaly_detection_on_video_tpu_torch.ops.kernels import (
     int8_conv_plain,
     int8_matmul,
     int8_matmul_plain,
+    pack_int8_conv_weight,
 )
-from anomaly_detection_on_video_tpu_torch.ops.quant import (
-    pack_int8_weight,
-    pack_int8_weight_nk,
-    quantize_weight,
-)
+from anomaly_detection_on_video_tpu_torch.ops.kernels.int8_conv import conv_output_shape
+from anomaly_detection_on_video_tpu_torch.ops.quant import pack_int8_weight_nk, quantize_weight
 from anomaly_detection_on_video_tpu_torch.utils.convert import (
     act_scale_key,
     i3res50_state_dict_from_flax,
 )
-from test_torch_i3d import NARROW, _randomize_bn
+from test_torch_i3d import NARROW, _randomize_bn, stem_slab, stem_tap_rows
 from test_torch_mgfn import NARROW as MGFN_NARROW
 
 SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts")
@@ -112,8 +110,8 @@ def test_int8_conv_bn_matches_jax(rng, geometry, use_bn):
 def test_int8_conv_plain_matches_pallas_kernel(rng, monkeypatch, out_int8):
     """K5's plain version against the Pallas kernel itself (interpret mode)
     at two (128, 28x28) planes, bit-equal in both epilogues. Pallas rows of
-    w are ``tap * C + c_in`` with taps (kh, kw) row-major: the packed
-    (kt=1, kh, kw, cin) layout unchanged."""
+    w are ``tap * C + c_in`` with taps (kh, kw) row-major: K5's (Cout, K)
+    operand is its transpose."""
     sys.path.insert(0, SCRIPTS)
     try:
         import int8_pallas_probe as probe
@@ -132,7 +130,7 @@ def test_int8_conv_plain_matches_pallas_kernel(rng, monkeypatch, out_int8):
 
     x_cl = torch.from_numpy(x.reshape(2, c, side, side).transpose(0, 2, 3, 1).copy())[:, None]
     out_dtype = torch.int8 if out_int8 else torch.bfloat16
-    got = int8_conv(x_cl, torch.from_numpy(w), torch.from_numpy(s), (1, 3, 3), (1, 1, 1),
+    got = int8_conv(x_cl, torch.from_numpy(w.T.copy()), torch.from_numpy(s), (1, 3, 3), (1, 1, 1),
                     (0, 1, 1), out_dtype)
     assert got.dtype == out_dtype and got.shape == (2, 1, side, side, c)
     got = got[:, 0].float().numpy().reshape(2, side * side, c).transpose(0, 2, 1)
@@ -180,36 +178,68 @@ def test_int8_operands_repacked_for_a_new_scale(rng):
     assert not torch.equal(first, second)
 
 
-@pytest.mark.parametrize("layout", ["kn", "nk"])
+def _k5_product(x, packed, cin, kernel, stride, padding):
+    """K5's operand evaluated as its kernels read it. Cin % 16 == 0: each
+    16-wide piece of K lies in one tap, decoded from its offset as
+    (kt, kh, kw, cin). The stem: per-pixel [kt, c] vectors, one k32 step per
+    two (kh, kw) taps, the 50th tap's lanes reading tap 48's pixels against
+    zero weights."""
+    out = conv_output_shape(x.shape[1:4], kernel, stride, padding)
+    if cin == 3:
+        slab = stem_slab(x)
+        taps = packed.double().reshape(packed.shape[0], 50, 16)
+        rows = [stem_tap_rows(slab, t // 7, t % 7, *out[1:]) for t in range(49)] + [None]
+        rows[49] = rows[48]
+        return sum(torch.cat(rows[2 * kp: 2 * kp + 2], -1)
+                   @ taps[:, 2 * kp: 2 * kp + 2].reshape(-1, 32).t() for kp in range(25))
+    pt, ph, pw = padding
+    xp = F.pad(x, (0, 0, pw, pw, ph, ph, pt, pt))
+    acc = 0
+    for k0 in range(0, packed.shape[1], 16):
+        tap, ci = divmod(k0, cin)
+        kt, kh, kw = tap // (kernel[1] * kernel[2]), tap // kernel[2] % kernel[1], tap % kernel[2]
+        piece = xp[:, kt: kt + stride[0] * (out[0] - 1) + 1: stride[0],
+                   kh: kh + stride[1] * (out[1] - 1) + 1: stride[1],
+                   kw: kw + stride[2] * (out[2] - 1) + 1: stride[2], ci: ci + 16]
+        acc = acc + piece @ packed[:, k0: k0 + 16].double().t()
+    return acc
+
+
+@pytest.mark.parametrize("layout", ["k5", "nk"])
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 def test_packed_int8_weights_reproduce_conv(rng, geometry, layout):
-    """The (kt*kh*kw*Cin, Cout) operand, rows (kt, kh, kw, cin), is the conv
-    K5 computes: an im2col product with it in float64 equals F.conv3d
-    exactly. The "nk" case evaluates K4's (Cout, K) operand, each output
-    channel's row K-contiguous, through its transpose; for a 1x1x1 conv it
-    is K4's matrix over the (strided) activation rows."""
+    """The packed operands are the conv they encode, exactly in float64.
+    "nk": K4's (Cout, kt*kh*kw*Cin) operand, rows (kt, kh, kw, cin), in an
+    im2col product; for a 1x1x1 conv it is K4's matrix over the (strided)
+    activation rows. "k5": ``pack_int8_conv_weight``'s operand read as K5's
+    kernels read it (``_k5_product``): the same matrix for Cin % 16 == 0,
+    the (64, 800) tap-pair layout for the stem."""
     cin, kernel, stride, padding = GEOMETRIES[geometry]
+    cout = 64 if cin == 3 else 8
     x = torch.from_numpy(rng.randint(-127, 128, (2, 6, 9, 11, cin)).astype(np.float64))
-    w_q, _ = quantize_weight(torch.from_numpy(rng.randn(8, cin, *kernel).astype(np.float32)))
+    w_q, _ = quantize_weight(torch.from_numpy(rng.randn(cout, cin, *kernel).astype(np.float32)))
     k = int(np.prod(kernel)) * cin
-    if layout == "nk":
-        nk = pack_int8_weight_nk(w_q)
-        assert nk.shape == (8, k) and nk.dtype == torch.int8 and nk.is_contiguous()
-        packed = nk.t()
-    else:
-        packed = pack_int8_weight(w_q)
-    assert packed.shape == (k, 8) and packed.dtype == torch.int8
+    ref = F.conv3d(x.permute(0, 4, 1, 2, 3), w_q.double(), None, stride, padding)
+    ref = ref.permute(0, 2, 3, 4, 1)
+    if layout == "k5":
+        packed = pack_int8_conv_weight(w_q)
+        assert packed.dtype == torch.int8 and packed.is_contiguous()
+        assert packed.shape == (cout, 800 if cin == 3 else k)
+        torch.testing.assert_close(_k5_product(x, packed, cin, kernel, stride, padding), ref,
+                                   atol=0, rtol=0)
+        return
+    nk = pack_int8_weight_nk(w_q)
+    assert nk.shape == (cout, k) and nk.dtype == torch.int8 and nk.is_contiguous()
     pt, ph, pw = padding
     xp = F.pad(x, (0, 0, pw, pw, ph, ph, pt, pt))
     patches = xp.unfold(1, kernel[0], stride[0]).unfold(2, kernel[1], stride[1])
     patches = patches.unfold(3, kernel[2], stride[2])  # (B, To, Ho, Wo, C, kt, kh, kw)
     patches = patches.permute(0, 1, 2, 3, 5, 6, 7, 4).reshape(*patches.shape[:4], -1)
-    got = patches @ packed.double()
-    ref = F.conv3d(x.permute(0, 4, 1, 2, 3), w_q.double(), None, stride, padding)
-    torch.testing.assert_close(got, ref.permute(0, 2, 3, 4, 1), atol=0, rtol=0)
+    got = patches @ nk.double().t()
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
     if kernel == (1, 1, 1):
         rows = x[:, ::stride[0], ::stride[1], ::stride[2]]
-        torch.testing.assert_close(rows @ packed.double(), got, atol=0, rtol=0)
+        torch.testing.assert_close(rows @ nk.double().t(), got, atol=0, rtol=0)
 
 
 @pytest.fixture(scope="module")
@@ -348,7 +378,7 @@ def test_int8_wrappers_check_inputs_and_count_only_launches(rng):
     a = torch.from_numpy(rng.randint(-5, 6, (6, 32)).astype(np.int8))
     b = torch.from_numpy(rng.randint(-5, 6, (16, 32)).astype(np.int8))  # (N, K)
     x = torch.from_numpy(rng.randint(-5, 6, (1, 2, 5, 5, 16)).astype(np.int8))
-    w = torch.from_numpy(rng.randint(-5, 6, (9 * 16, 8)).astype(np.int8))
+    w = torch.from_numpy(rng.randint(-5, 6, (8, 9 * 16)).astype(np.int8))  # (Cout, K)
     s16, s8 = torch.ones(16), torch.ones(8)
     before = kernels.launch_counts()
     assert {"int8_matmul", "int8_conv"} <= set(before)
@@ -372,7 +402,7 @@ def test_int8_wrappers_check_inputs_and_count_only_launches(rng):
     bad_conv = [
         (x.float(), w, s8, *geo, torch.int8),  # not int8
         (x[0], w, s8, *geo, torch.int8),  # not 5-D
-        (x, w[:-16], s8, *geo, torch.int8),  # weights do not match the kernel
+        (x, w[:, :-16], s8, *geo, torch.int8),  # weights do not match the kernel
         (x, w, None, *geo, torch.int8),  # no scale
         (x, w, s16, *geo, torch.int8),  # scale length
         (x, w, s8, *geo, torch.int32),  # out_dtype
