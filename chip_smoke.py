@@ -11,8 +11,13 @@ Phases, each of which raises on failure (exit code != 0):
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes, and time the kernel, the plain version and, where one exists, a
    single PyTorch library call with CUDA events:
-   K1 ten-crop + standardize at (24, 16, 256, 341, 3), bit-equal in float32
-   and bfloat16; K2 stem and K3 for the three stage-1 blocks at B = 40,
+   K1 ten-crop + standardize bit-equal in float32 and bfloat16 at
+   (24, 16, 256, 341, 3), at gc = 1 for 341x256, 256x455, 224x224 and
+   257x301 frames, and at an odd crop size (its scalar-store path), with
+   its launch plan (band height, shared bytes) printed; K1 timed at the
+   bulk shape in both types beside its bound and achieved TB/s, and in
+   bfloat16 across shared-memory budgets of its plan;
+   K2 stem and K3 for the three stage-1 blocks at B = 40,
    float32 with TF32 off to atol = rtol = 1e-4, bfloat16 to cosine >= 0.9999
    against the float32 plain version; K2 and K3 again, checked and timed, at
    B = 240, the bulk-extraction batch. Every BatchNorm of the model gets
@@ -47,7 +52,14 @@ Phases, each of which raises on failure (exit code != 0):
    calls. The features must equal the same int8
    forward through the plain versions (gate: cosine >= 0.99999 per row;
    the count of unequal elements is printed), reach cosine >= 0.99
-   against the plain float32 forward, and the scores must lie in [0, 1].
+   against the plain float32 forward, and the scores must lie in [0, 1];
+5. both main paths end to end at the bulk batch: a seeded 384-frame
+   240x320 video (24 clips, one group of B = 240) through
+   ``FeatureExtractor(batch=240)`` and ``score_features``, bfloat16 and
+   int8, each with a warm-up pass (the int8 one calibrates), five timed
+   passes (median, range, clips/s, peak memory) and one profiled pass
+   (busy time, idle share, K1's device time), under the same gates as the
+   4-clip paths.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -56,6 +68,7 @@ repository beside it and a CUDA card; without either it exits non-zero.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -179,28 +192,68 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def check_crop_norm(torch, frames):
-    """K1 at the bulk-extraction group shape, bit-equal in both types."""
+def check_crop_norm(torch, rng, bulk):
+    """K1 bit-equal to its plain version in float32 and bfloat16 at the
+    bulk-extraction group shape and at gc = 1 for portrait, wide, square and
+    odd frames (and at an odd crop size, its scalar-store path); times at
+    the bulk shape in both types beside their bounds, and bfloat16 across
+    shared-memory budgets of the launch plan."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.ops.gtransforms import MEAN, STD
     from anomaly_detection_on_video_tpu_torch.ops.kernels import (
         ten_crop_standardize, ten_crop_standardize_plain)
+    from anomaly_detection_on_video_tpu_torch.ops.kernels._build import build, current_stream
+    from anomaly_detection_on_video_tpu_torch.ops.kernels.crop_norm import crop_norm_plan
 
-    for dtype in (torch.float32, torch.bfloat16):
-        got = ten_crop_standardize(frames, 224, dtype)
-        ref = ten_crop_standardize_plain(frames, 224, dtype)
-        torch.cuda.synchronize()
-        if not torch.equal(got, ref):
-            diff = (got.float() - ref.float()).abs().max().item()
-            raise AssertionError(f"K1 {dtype}: not bit-equal, max |err| {diff}")
-    bf16 = torch.bfloat16
-    ms = cuda_ms(lambda: ten_crop_standardize(frames, 224, bf16), 10)
-    plain_ms = cuda_ms(lambda: ten_crop_standardize_plain(frames, 224, bf16), 5)
-    gc, fpc = frames.shape[:2]
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(bulk, 224)] + [
+        (torch.from_numpy(rng.randint(0, 256, shape, dtype=np.uint8)).cuda(), size)
+        for shape, size in (((1, 16, 341, 256, 3), 224), ((1, 16, 256, 455, 3), 224),
+                            ((1, 16, 224, 224, 3), 224), ((1, 16, 257, 301, 3), 224),
+                            ((2, 3, 41, 50, 3), 36))]
+    for frames, size in cases:
+        for dtype in (f32, bf16):
+            check_equal(f"K1 {tuple(frames.shape)} S={size} {dtype}",
+                        ten_crop_standardize(frames, size, dtype),
+                        ten_crop_standardize_plain(frames, size, dtype))
+        plan = crop_norm_plan(frames.shape[2], frames.shape[3], size, bf16)
+        print(f"K1 crop_norm {tuple(frames.shape)} S={size}: bit-equal f32/bf16; bf16 plan: band "
+              f"{plan.band} rows x {plan.n_bands}, {len(plan.segments)} staged segment(s), "
+              f"{plan.shared_bytes} shared bytes, {'16-byte' if plan.vector else 'scalar'} "
+              f"stores", flush=True)
+    gc, fpc, height, width, _ = bulk.shape
     out_elems = gc * 10 * fpc * 224 * 224 * 3
-    bound_ms, bound_by = bound(frames.numel() + out_elems * 2, 2 * out_elems, "bfloat16")
-    print(f"K1 crop_norm {tuple(frames.shape)}: bit-equal f32/bf16; "
-          f"{ms:.3f} ms kernel, {plain_ms:.3f} ms plain, bound {bound_ms:.3f} ms", flush=True)
-    return {"name": "ten_crop_standardize", "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "max_abs_err": 0.0}
+    entry = {}
+    for dtype in (bf16, f32):
+        out_bytes = out_elems * torch.empty((), dtype=dtype).element_size()
+        ms = cuda_ms(lambda: ten_crop_standardize(bulk, 224, dtype), 10)
+        plain_ms = cuda_ms(lambda: ten_crop_standardize_plain(bulk, 224, dtype), 5)
+        bound_ms, bound_by = bound(bulk.numel() + out_bytes, 2 * out_elems, "float32")
+        plan = crop_norm_plan(height, width, 224, dtype)
+        print(f"K1 crop_norm {tuple(bulk.shape)} {dtype}: {ms:.3f} ms kernel, {plain_ms:.3f} ms "
+              f"plain, bound {bound_ms:.3f} ms ({bound_by}; {(bulk.numel() + out_bytes) / 1e9:.3f} "
+              f"GB), {(bulk.numel() + out_bytes) / ms / 1e9:.3f} TB/s, {bound_ms / ms:.0%} of the "
+              f"bound; plan: band {plan.band} x {plan.n_bands}, {plan.shared_bytes} shared bytes",
+              flush=True)
+        if dtype == bf16:
+            entry = {"name": "ten_crop_standardize", "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                     "max_abs_err": 0.0}
+    # the band height against the shared memory a CTA may take (bf16, bulk shape)
+    lib = build()
+    out = torch.empty((gc * 10, fpc, 224, 224, 3), dtype=bf16, device=bulk.device)
+    sweep = []
+    for budget in (24_576, 40_960, 65_536, 98_304, 131_072, 232_448):
+        plan = crop_norm_plan(height, width, 224, bf16, budget)
+        ints = (ctypes.c_int * 30)(*plan.ints())
+        ms = cuda_ms(lambda: lib.call("adv_crop_norm", bulk.data_ptr(), out.data_ptr(), 1, gc, fpc,
+                                      height, width, 224, ints, MEAN, 1.0 / STD,
+                                      current_stream(bulk)), 10)
+        check_equal(f"K1 band {plan.band}", out, ten_crop_standardize_plain(bulk, 224, bf16))
+        sweep.append(f"band {plan.band} ({plan.shared_bytes} B) {ms:.3f} ms")
+    print("K1 bf16 at the bulk shape by band height: " + ", ".join(sweep), flush=True)
+    return entry
 
 
 def check_stem(torch, model, x32):
@@ -531,6 +584,80 @@ def plain_features(torch, model, crops32):
     return x.mean(dim=(2, 3, 4))
 
 
+def drive_path(torch, name, extractor, video, scorer):
+    """One main path through the entry points a user calls:
+    ``extractor.extract_frames`` -> ``score_features``. A warm-up pass
+    (cuDNN plans, the allocator, and the calibration of an int8 extractor),
+    then five timed passes (median and range); launch counts are reset just
+    before the first timed pass and read just after it, and peak memory is
+    taken over it. Gates: every kernel of the path launched (K1, K2, K3 on
+    the bf16 path; K1, K4, K5 and neither K2 nor K3 on the int8 path),
+    features of shape (clips, 10, 2048), scores finite and in [0, 1]."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.infer import score_features
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    score_features(extractor.extract_frames(video), scorer)  # warm-up
+    if extractor.quantize and len(extractor.model.act_scales) != 53:
+        raise AssertionError(f"{name}: calibration gave {len(extractor.model.act_scales)} "
+                             f"scales, expected 53")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    features = extractor.extract_frames(video)
+    scores = score_features(features, scorer)
+    torch.cuda.synchronize()
+    seconds = [time.perf_counter() - start]
+    counts = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    for _ in range(4):  # four more timed passes for the median and range
+        start = time.perf_counter()
+        score_features(extractor.extract_frames(video), scorer)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+    print(f"launches on the {name}: {counts}", flush=True)
+    if extractor.quantize:
+        skipped = (counts["ten_crop_standardize"] < 1 or counts["int8_matmul"] < 27
+                   or counts["int8_conv"] < 26 or counts["stem_conv_pool"]
+                   or counts["bottleneck_block"])
+    else:
+        skipped = (counts["ten_crop_standardize"] < 1 or counts["stem_conv_pool"] < 1
+                   or counts["bottleneck_block"] < 3)
+    if skipped:
+        raise AssertionError(f"{name}: wrong kernels launched: {counts}")
+    clips = (video.shape[0] - 1) // extractor.frames_per_clip + 1
+    if features.shape != (clips, 10, 2048):
+        raise AssertionError(f"{name}: features {features.shape}, expected ({clips}, 10, 2048)")
+    if not (np.isfinite(scores).all() and (scores >= 0).all() and (scores <= 1).all()):
+        raise AssertionError(f"{name}: clip scores out of [0, 1]: {scores}")
+    print(f"{name} clip scores: {np.round(scores, 6).tolist()}", flush=True)
+    median = float(np.median(seconds))
+    print(f"{name}: {clips} clips, {len(seconds)} passes of {min(seconds) * 1e3:.2f}-"
+          f"{max(seconds) * 1e3:.2f} ms, median {median * 1e3:.2f} ms = {clips / median:.2f} "
+          f"clips/s end to end; peak memory {peak_gib:.2f} GiB", flush=True)
+    return features, scores, counts
+
+
+def check_int8_features(torch, name, model, crops16, features, ref):
+    """int8 path features against the same int8 forward of ``model`` on
+    K1's output ``crops16`` through the plain versions (gate: cosine >=
+    0.99999 per row; the count of unequal elements is printed) and against
+    the plain float32 forward ``ref`` (cosine >= 0.99)."""
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    got = torch.from_numpy(features).to(ref.device)
+    qref = int8_forward_with(torch, model, crops16, kernels.int8_matmul_plain,
+                             kernels.int8_conv_plain).reshape(got.shape)
+    unequal = int((got != qref).sum().item())
+    qcos = check_cosine(f"{name} vs plain int8 forward", got, qref, 0.99999)
+    fcos = check_cosine(f"{name} vs plain float32 forward", got, ref, 0.99)
+    print(f"{name} vs the same int8 forward through the plain versions: {unequal} of "
+          f"{qref.numel()} elements unequal, min row cosine {qcos:.8f}; vs the plain float32 "
+          f"forward: min row cosine {fcos:.6f}", flush=True)
+
+
 def device_breakdown(torch, run) -> dict:
     """Device time of one ``run()`` by kernel, from torch.profiler, and the
     device's busy share of the wall time (the profiler's own overhead is in
@@ -617,7 +744,7 @@ def main() -> int:
     # again from the host frames where needed, so it is not resident during the main paths
     bulk_frames = rng.randint(0, 256, (24 * 16, 240, 320, 3), dtype=np.uint8)
     bulk = resize_clips(bulk_frames, 24).contiguous()
-    results = [check_crop_norm(torch, bulk)]
+    results = [check_crop_norm(torch, rng, bulk)]
     crops32 = ten_crop_standardize_plain(resized, 224, torch.float32)  # (40, 16, 224, 224, 3)
     stem_out, k2 = check_stem(torch, model, crops32)
     results.append(k2)
@@ -635,38 +762,10 @@ def main() -> int:
 
     # 3. the main path, through the entry points a user calls
     scorer = seeded_init_(build_scorer(device=dev), seed=1)
-    score_features(extractor.extract_frames(video), scorer)  # warm-up: cuDNN plans, allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    start = time.perf_counter()
-    features = extractor.extract_frames(video)
-    clip_scores = score_features(features, scorer)
-    torch.cuda.synchronize()
-    pass_seconds = [time.perf_counter() - start]
-    counts = kernels.launch_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    for _ in range(4):  # four more timed passes for the median and range
-        start = time.perf_counter()
-        score_features(extractor.extract_frames(video), scorer)
-        torch.cuda.synchronize()
-        pass_seconds.append(time.perf_counter() - start)
+    features, clip_scores, counts = drive_path(torch, "main path", extractor, video, scorer)
     frame_scores = frame_level_scores(clip_scores, extractor.frames_per_clip)
-    print(f"launches on the main path: {counts}", flush=True)
-    if counts["ten_crop_standardize"] < 1 or counts["stem_conv_pool"] < 1 or counts["bottleneck_block"] < 3:
-        raise AssertionError(f"main path skipped a kernel: {counts}")
-    if features.shape != (4, 10, 2048):
-        raise AssertionError(f"features {features.shape}, expected (4, 10, 2048)")
-    if not (np.isfinite(clip_scores).all() and (clip_scores >= 0).all() and (clip_scores <= 1).all()):
-        raise AssertionError(f"clip scores out of [0, 1]: {clip_scores}")
-    print(f"clip scores: {np.round(clip_scores, 6).tolist()}", flush=True)
     print(f"frame scores ({frame_scores.size}): {np.round(frame_scores[::16], 6).tolist()} (every 16th)",
           flush=True)
-    median = float(np.median(pass_seconds))
-    print(f"main path: 4 clips, {len(pass_seconds)} passes of {min(pass_seconds) * 1e3:.2f}-"
-          f"{max(pass_seconds) * 1e3:.2f} ms, median {median * 1e3:.2f} ms = {4 / median:.2f} "
-          f"clips/s end to end; peak memory {peak_gib:.2f} GiB", flush=True)
-
     with torch.no_grad():
         ref = plain_features(torch, model, crops32).reshape(4, 10, 2048)
     cos = check_cosine("main-path features vs plain float32", torch.from_numpy(features).to(dev), ref, 0.999)
@@ -684,53 +783,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     qextractor = FeatureExtractor(state_dict=model.state_dict(), dtype=torch.bfloat16, batch=40,
                                   device=dev, quantize=True)
-    score_features(qextractor.extract_frames(video), scorer)  # warm-up: calibrates on the video
-    n_scales = len(qextractor.model.act_scales)
-    if n_scales != 53:
-        raise AssertionError(f"calibration gave {n_scales} scales, expected 53")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    start = time.perf_counter()
-    qfeatures = qextractor.extract_frames(video)
-    qscores = score_features(qfeatures, scorer)
-    torch.cuda.synchronize()
-    qpass_seconds = [time.perf_counter() - start]
-    qcounts = kernels.launch_counts()
-    qpeak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    for _ in range(4):
-        start = time.perf_counter()
-        score_features(qextractor.extract_frames(video), scorer)
-        torch.cuda.synchronize()
-        qpass_seconds.append(time.perf_counter() - start)
-    print(f"launches on the int8 main path: {qcounts}", flush=True)
-    if (qcounts["ten_crop_standardize"] < 1 or qcounts["int8_matmul"] < 27
-            or qcounts["int8_conv"] < 26 or qcounts["stem_conv_pool"]
-            or qcounts["bottleneck_block"]):
-        raise AssertionError(f"int8 main path: wrong kernels launched: {qcounts}")
-    if qfeatures.shape != (4, 10, 2048):
-        raise AssertionError(f"int8 features {qfeatures.shape}, expected (4, 10, 2048)")
-    if not (np.isfinite(qscores).all() and (qscores >= 0).all() and (qscores <= 1).all()):
-        raise AssertionError(f"int8 clip scores out of [0, 1]: {qscores}")
-    print(f"int8 clip scores: {np.round(qscores, 6).tolist()}", flush=True)
-    qmedian = float(np.median(qpass_seconds))
-    print(f"int8 main path: 4 clips, {len(qpass_seconds)} passes of {min(qpass_seconds) * 1e3:.2f}-"
-          f"{max(qpass_seconds) * 1e3:.2f} ms, median {qmedian * 1e3:.2f} ms = {4 / qmedian:.2f} "
-          f"clips/s end to end; peak memory {qpeak_gib:.2f} GiB", flush=True)
+    qfeatures, _, qcounts = drive_path(torch, "int8 main path", qextractor, video, scorer)
 
     crops16 = ten_crop_standardize_plain(resized, 224, torch.bfloat16)  # K1's output, bit for bit
     results += check_int8_path_calls(torch, qextractor.model, crops16)
+    check_int8_features(torch, "int8 features", qextractor.model, crops16, qfeatures, ref)
     del crops16
-    qgot = torch.from_numpy(qfeatures).to(dev)
-    qref = int8_forward_with(torch, qextractor.model, ten_crop_standardize_plain(
-        resized, 224, torch.bfloat16), kernels.int8_matmul_plain, kernels.int8_conv_plain)
-    qref = qref.reshape(4, 10, 2048)
-    unequal = int((qgot != qref).sum().item())
-    qcos = check_cosine("int8 features vs plain int8 forward", qgot, qref, 0.99999)
-    fcos = check_cosine("int8 features vs plain float32 forward", qgot, ref, 0.99)
-    print(f"int8 features vs the same int8 forward through the plain versions: {unequal} of "
-          f"{qref.numel()} elements unequal, min row cosine {qcos:.8f}; vs the plain float32 "
-          f"forward: min row cosine {fcos:.6f}", flush=True)
     qbreakdown = device_breakdown(
         torch, lambda: score_features(qextractor.extract_frames(video), scorer))
     print(f"int8 main path device breakdown (torch.profiler): {json.dumps(qbreakdown)}", flush=True)
@@ -747,6 +805,40 @@ def main() -> int:
         f"plain {e['plain_ms']:.3f}, library "
         f"{'none' if e['library_ms'] is None else format(e['library_ms'], '.3f')})"
         for e in k45_240), flush=True)
+    torch.cuda.empty_cache()
+
+    # 5. both main paths end to end at the bulk batch, B = 240: the 24-clip
+    # video in one group, through the same entry points, weights and scorer
+    print("main paths at B = 240 (a 24-clip video, one group of 240 crops):", flush=True)
+    bulk_resized = resize_clips(bulk_frames, 24)
+    with torch.no_grad():
+        bulk_ref = plain_features(torch, model, ten_crop_standardize_plain(
+            bulk_resized, 224, torch.float32)).reshape(24, 10, 2048)
+    torch.cuda.empty_cache()
+    for quantize in (False, True):
+        name = f"{'int8 ' if quantize else ''}main path at B = 240"
+        bulk_extractor = FeatureExtractor(state_dict=model.state_dict(), dtype=torch.bfloat16,
+                                          batch=240, device=dev, quantize=quantize)
+        bulk_features, _, _ = drive_path(torch, name, bulk_extractor, bulk_frames, scorer)
+        bulk_breakdown = device_breakdown(
+            torch, lambda: score_features(bulk_extractor.extract_frames(bulk_frames), scorer))
+        print(f"{name}, one profiled pass: busy {bulk_breakdown['device_busy_ms']:.2f} ms of "
+              f"{bulk_breakdown['wall_ms']:.2f} ms wall, idle share "
+              f"{bulk_breakdown['idle_share']:.1%}, K1 "
+              f"{bulk_breakdown['kernels_ms']['K1 crop_norm_kernel']:.3f} ms device; "
+              f"{json.dumps(bulk_breakdown)}", flush=True)
+        if quantize:
+            crops16 = ten_crop_standardize_plain(bulk_resized, 224, torch.bfloat16)
+            check_int8_features(torch, f"{name} features", bulk_extractor.model, crops16,
+                                bulk_features, bulk_ref)
+            del crops16
+        else:
+            cos = check_cosine(f"{name} features vs plain float32",
+                               torch.from_numpy(bulk_features).to(dev), bulk_ref, 0.999)
+            print(f"{name} features vs plain float32 forward: min row cosine {cos:.6f}", flush=True)
+        del bulk_extractor, bulk_features
+        torch.cuda.empty_cache()
+    del bulk_resized, bulk_ref
     torch.cuda.empty_cache()
 
     pallas = "anomaly_detection_on_video_tpu/ops/pallas"
