@@ -17,6 +17,12 @@
 // 16-byte row stores. The TPU kernel's masked lane rotations answer
 // Mosaic's layout rules and have no counterpart here.
 //
+// Sizes: every element offset into x, w and out is computed in size_t, so
+// neither tensor is bounded by 2^31 elements (the int8 stem's output at
+// B = 480 holds 3.1e9). Output positions M = B*To*Ho*Wo and the row index m
+// are 32-bit ints, which bounds M below 2^31 - 128 (the wrapper checks);
+// the stem's grid holds B * ceil(To / 2) planes in z, at most 65535.
+//
 // Bound: operations for the k(1,3,3) convs and the probe's shape, bytes for
 // the k(3,1,1) convs over wide inputs and the stem (about 0.57 ms for the
 // 26 convs of the int8 path at B = 40).

@@ -29,6 +29,11 @@
 //   as float32 (or the int32 sum itself), stages the tile through padded
 //   shared memory and writes it out as 16-byte vectors, full rows of the
 //   tile at a time.
+// Sizes: the output offset (m * N + n) * ELEM is computed in size_t, so C
+// may hold more than 2^31 elements; M, N and K are 32-bit, as are TMA's
+// box coordinates, so each stays below 2^31 (the wrapper checks). The
+// largest product of the int8 path, stage 1's M = B*4*55*55 rows into 256
+// channels, holds 1.49e9 values at B = 480, and M is 5.8e6.
 // TMA takes 16-byte global strides: K and N must be multiples of 16 and
 // both operands 16-byte aligned (the wrapper checks; every shape of the
 // int8 path qualifies).

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import json
 import os
-import tempfile
 from typing import Iterable, Optional
 
 import numpy as np
@@ -35,6 +34,7 @@ from ..ops.gtransforms import loop_pad_indices, standardize, ten_crop
 from ..ops.kernels.crop_norm import ten_crop_standardize
 from ..ops.resize import resize_bilinear_exact, resize_bilinear_fast, short_side_size
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.npyio import atomic_save
 from .video import CHUNK_FRAMES, VideoFrameSource, iter_decoded_chunks
 
 # the JAX package's sidecar of int8 scales for the RGB stream
@@ -219,32 +219,47 @@ def _write_json(path: str, value) -> None:
     os.replace(tmp, path)
 
 
-def atomic_save(path: str, array: np.ndarray) -> None:
-    """``np.save`` through a temporary file in the same directory and a
-    rename, so an interrupted run never leaves a truncated ``.npy``."""
-    directory = os.path.dirname(path) or "."
-    os.makedirs(directory, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp.npy")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            np.save(f, array)
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
-
-
 def feature_filename(stem: str) -> str:
     """``<stem>_i3d.npy``, the reference's on-disk name for RGB features."""
     return f"{stem}_i3d.npy"
 
 
+def record_crop_protocol(outdir: str, crops: str) -> None:
+    """Pin the crop protocol of a feature directory in ``crops.json``, the
+    JAX package's ``record_crop_protocol``.
+
+    Ten-crop ``(n, 10, 2048)`` and center-crop ``(n, 1, 2048)`` features
+    share filenames, so resuming a directory under the other protocol would
+    mix them. A center-crop run pins ``{"crops": "center"}``; a ten-crop run
+    writes nothing, and a directory with feature files but no pin is
+    ten-crop. Raises when ``crops`` differs from the directory's protocol.
+    """
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, "crops.json")
+    previous = None
+    if os.path.exists(path):
+        with open(path) as f:
+            previous = json.load(f).get("crops")
+    elif any(name.endswith(("_i3d.npy", "_flow.npy")) for name in os.listdir(outdir)):
+        previous = "ten"  # unpinned features predate the center protocol
+    if previous is not None:
+        if previous != crops:
+            raise ValueError(
+                f"{outdir} holds {previous}-crop features but this run uses crops={crops!r}; "
+                f"the two protocols are shape-incompatible on disk ((n, 10, 2048) vs "
+                f"(n, 1, 2048)). Pass crops={previous!r} to resume, or use a fresh outdir.")
+        return
+    if crops != "ten":
+        _write_json(path, {"crops": crops})
+
+
 def extract_videos(video_paths: Iterable[str], outdir: str, extractor: FeatureExtractor) -> int:
     """Extract every video into ``outdir/<stem>_i3d.npy``, skipping those
-    already on disk; pins the int8 scales to ``outdir`` first. Returns the
+    already on disk; checks the directory's crop protocol (this extractor
+    is ten-crop) and pins the int8 scales to ``outdir`` first. Returns the
     number of videos extracted."""
     os.makedirs(outdir, exist_ok=True)
+    record_crop_protocol(outdir, "ten")
     extractor.pin_calibration(outdir)
     n_done = 0
     for path in video_paths:

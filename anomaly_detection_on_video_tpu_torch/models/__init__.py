@@ -7,6 +7,10 @@ import math
 import torch
 from torch import nn
 
+from .mgfn import MGFN, MGFNConfig, MGFNForVideoAnomalyDetection, MGFNOutput
+
+__all__ = ["MGFN", "MGFNConfig", "MGFNForVideoAnomalyDetection", "MGFNOutput", "seeded_init_"]
+
 
 def seeded_init_(module: nn.Module, seed: int = 0) -> nn.Module:
     """Random weights from an explicit generator, reproducible on any device.

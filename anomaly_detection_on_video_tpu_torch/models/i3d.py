@@ -11,12 +11,14 @@ The public layout is the JAX package's: clips ``(B, T, H, W, 3)`` in,
 ``(B, 2048)`` features out, in at least float32. Parameters stay float32;
 ``dtype`` is the compute type the input and weights are cast to.
 
-The stem runs through kernel K2 (``ops/kernels/stem.py``) and the stage-1
-blocks through kernel K3 (``ops/kernels/bottleneck.py``), both channels
-last; stages 2-4 are plain torch convolutions over the channels-last
-activation viewed as NCDHW. BatchNorm is always in inference mode, folded
-into a float32 affine (``conv_bn``), as the reference only runs the
-extractor under ``model.eval()``.
+On 16x224x224 clips the stem runs through kernel K2
+(``ops/kernels/stem.py``) and the stage-1 blocks through kernel K3
+(``ops/kernels/bottleneck.py``), both channels last, as the JAX model takes
+its fused kernels only there (``kernel_paths``); any other clip runs the
+plain torch chain (``forward_unfused``). Stages 2-4 are plain torch
+convolutions over the channels-last activation viewed as NCDHW. BatchNorm
+is always in inference mode, folded into a float32 affine (``conv_bn``), as
+the reference only runs the extractor under ``model.eval()``.
 
 int8 execution (``act_scales``, calibrated by ``calibrate_act_scales``)
 follows the JAX package's ``ConvBN._int8_conv``: every conv quantizes its
@@ -44,7 +46,7 @@ from ..ops.kernels._operands import cached_operands
 from ..ops.kernels.bottleneck import bottleneck_block
 from ..ops.kernels.int8_conv import int8_conv, pack_int8_conv_weight
 from ..ops.kernels.int8_matmul import int8_matmul
-from ..ops.kernels.stem import fold_bn, stem_conv_pool
+from ..ops.kernels.stem import STEM_INPUT, fold_bn, stem_conv_pool
 from ..ops.quant import (
     dequant_scale,
     pack_int8_weight_nk,
@@ -66,6 +68,19 @@ I3RES50_STAGES: Tuple[Stage, ...] = (
 
 
 AbsMax = Dict[nn.Conv3d, torch.Tensor]  # conv -> the largest |input| it has seen
+
+
+def kernel_paths(stages: Sequence[Stage], clip_shape: Sequence[int]) -> Tuple[bool, bool]:
+    """Whether K2 (the stem) and K3 (the stage-1 blocks) take a float
+    forward of ``(T, H, W, C)`` clips: the JAX ``I3DResNet``'s
+    ``use_fused_stem`` / ``use_fused_stage1`` rule. The port's model always
+    has i3res50's stem geometry, no non-local block and the temporal pool
+    after stage 1, so the rule reduces to the clip shape, plus spatial and
+    temporal stride 1 in stage 1 for K3. Every other input runs the plain
+    torch chain, as the JAX model runs it through XLA."""
+    stem = tuple(clip_shape) == STEM_INPUT
+    _, _, spatial_stride, _, temporal_strides = stages[0]
+    return stem, stem and spatial_stride == 1 and all(ts == 1 for ts in temporal_strides)
 
 
 def conv_bn(
@@ -195,6 +210,7 @@ class I3DResNet(nn.Module):
     ):
         super().__init__()
         self.dtype = dtype
+        self.stages = tuple(stages)
         self.conv1 = nn.Conv3d(3, 64, (5, 7, 7), stride=(2, 2, 2), padding=(2, 3, 3), bias=False)
         self.bn1 = nn.BatchNorm3d(64)
         in_planes = 64
@@ -231,39 +247,51 @@ class I3DResNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, T, H, W, 3)`` standardized pixels -> ``(B, C)`` features."""
         x = x.to(self.dtype)
-        if self._act_scales is not None:
+        fused_stem, fused_stage1 = kernel_paths(self.stages, x.shape[1:])
+        if self._act_scales is not None or not fused_stem:
             x = self.forward_unfused(x)
         else:
             x = stem_conv_pool(x, self.conv1, self.bn1)  # K2, channels last
-            for block in self.layer1:
-                x = bottleneck_block(x, block)  # K3, channels last
-            # temporal max pool k(2,1,1) s(2,1,1), VALID
-            t = x.shape[1] // 2 * 2
-            x = torch.maximum(x[:, 0:t:2], x[:, 1:t:2])
-            x = x.permute(0, 4, 1, 2, 3)  # NCDHW view with channels-last strides
-            for stage_idx in range(1, self.n_stages):
-                x = getattr(self, f"layer{stage_idx + 1}")(x)
+            first = 0
+            if fused_stage1:
+                for block in self.layer1:
+                    x = bottleneck_block(x, block)  # K3, channels last
+                x = _temporal_pool(x, 1)
+                first = 1
+            # NCDHW view with channels-last strides
+            x = self._run_stages(x.permute(0, 4, 1, 2, 3), first)
         x = x.mean(dim=(2, 3, 4))
         # features leave in >= float32 (float32 under bfloat16 compute)
         return x.to(torch.promote_types(self.dtype, torch.float32))
 
     def forward_unfused(self, x: torch.Tensor, absmax: Optional[AbsMax] = None) -> torch.Tensor:
         """The chain without K2 and K3, as the JAX package runs it under
-        int8: stem ConvBN + ReLU + max pool, every block's own convs, the
-        temporal pool. ``x`` channels last in the compute dtype; returns
-        the last stage's output as an NCDHW view. A conv runs in int8 when
-        ``act_scales`` holds its scale; ``absmax`` records conv inputs."""
+        int8 or on clips other than 16x224x224: stem ConvBN + ReLU + max
+        pool, every block's own convs, the temporal pool. ``x`` channels
+        last in the compute dtype; returns the last stage's output as an
+        NCDHW view. A conv runs in int8 when ``act_scales`` holds its
+        scale; ``absmax`` records conv inputs."""
         scales = self._act_scales or {}
         x = x.permute(0, 4, 1, 2, 3)
         x = torch.relu(conv_bn(x, self.conv1, self.bn1, scales.get("stem"), absmax))
         x = F.max_pool3d(x, (2, 3, 3), stride=(2, 2, 2))
-        for stage_idx in range(self.n_stages):
+        return self._run_stages(x, 0, absmax)
+
+    def _run_stages(self, x: torch.Tensor, first: int, absmax: Optional[AbsMax] = None) -> torch.Tensor:
+        """Stages ``first`` .. last on an NCDHW activation, with the
+        temporal max pool after stage 1."""
+        for stage_idx in range(first, self.n_stages):
             for block in getattr(self, f"layer{stage_idx + 1}"):
                 x = block(x, absmax)
-            if stage_idx == 0:  # temporal max pool k(2,1,1) s(2,1,1), VALID
-                t = x.shape[2] // 2 * 2
-                x = torch.maximum(x[:, :, 0:t:2], x[:, :, 1:t:2])
+            if stage_idx == 0:
+                x = _temporal_pool(x, 2)
         return x
+
+
+def _temporal_pool(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Max pool k(2,1,1) s(2,1,1), VALID, over the frame axis ``dim``."""
+    t = x.shape[dim] // 2 * 2
+    return torch.maximum(*x.narrow(dim, 0, t).unflatten(dim, (t // 2, 2)).unbind(dim + 1))
 
 
 def i3res50(dtype: torch.dtype = torch.float32) -> I3DResNet:

@@ -1,6 +1,9 @@
-"""MGFN anomaly scorer (eval path)."""
+"""MGFN anomaly scorer: eval scores and the training outputs."""
 
 from .config import MGFNConfig
-from .model import MGFN, MGFNModel
+from .model import MGFN, MGFNModel, MGFNOutput
 
-__all__ = ["MGFN", "MGFNConfig", "MGFNModel"]
+# the JAX package's class name, as the repository's configs name it
+MGFNForVideoAnomalyDetection = MGFN
+
+__all__ = ["MGFN", "MGFNConfig", "MGFNForVideoAnomalyDetection", "MGFNModel", "MGFNOutput"]

@@ -14,19 +14,37 @@ torch's Conv1d; the public input is the JAX package's
 ``(bs, ncrops, clips, channels + 1)`` and the output its ``scores``
 ``(bs, clips, 1)``. ``length`` enables padded-bucket scoring: pads are
 zeroed before every temporal conv and excluded from attention, so the
-scores of the valid prefix equal an unpadded run. The training losses and
-the dropout top-k selection come with the training slice.
+scores of the valid prefix equal an unpadded run.
+
+Training (``MGFN.outputs``, the JAX ``MGFNForVideoAnomalyDetection``
+outputs): in train mode ``TorchBatchNorm`` normalizes with batch statistics
+and updates its running ones, the normal and abnormal halves of the batch
+each take a dropout-masked top-k selection of clips by feature magnitude
+(``_magnitude_selection``), and the MIL loss (``losses/``) is computed from
+the selected scores and features.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...losses import mgfn_loss, smoothness_loss, sparsity_loss
 from .config import MGFNConfig
+
+
+@dataclasses.dataclass
+class MGFNOutput:
+    loss: Optional[torch.Tensor]
+    abnormal_scores: torch.Tensor  # (n_abnormal, 1) mean top-k score
+    normal_scores: torch.Tensor  # (n_normal, 1)
+    a_feat_magnitude: torch.Tensor  # (ncrops * n_abnormal, k, dim) selected features
+    n_feat_magnitude: torch.Tensor  # (ncrops * n_normal, k, dim)
+    scores: torch.Tensor  # (bs, t, 1) crop-averaged clip scores
 
 
 class ChannelLayerNorm(nn.Module):
@@ -47,14 +65,28 @@ class ChannelLayerNorm(nn.Module):
 
 
 class TorchBatchNorm(nn.BatchNorm1d):
-    """BatchNorm1d normalizing with its running statistics:
-    (x - mean) * rsqrt(var + eps) * weight + bias. The batch-statistics
-    update belongs to the training slice."""
+    """BatchNorm1d with the JAX ``TorchBatchNorm``'s arithmetic:
+    (x - mean) * rsqrt(var + eps) * weight + bias over (batch, clips) per
+    channel. In eval mode mean and var are the running statistics. In train
+    mode they are the batch's, with the biased variance, and the running
+    statistics move by momentum 0.1 towards the batch mean and the unbiased
+    variance, in their own dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         view = (1, -1, 1)
-        inv = torch.rsqrt(self.running_var + self.eps).view(view)
-        return (x - self.running_mean.view(view)) * inv * self.weight.view(view) + self.bias.view(view)
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps).view(view)
+            return (x - self.running_mean.view(view)) * inv * self.weight.view(view) + self.bias.view(view)
+        mean = x.mean(dim=(0, 2))
+        var = x.var(dim=(0, 2), unbiased=False)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            m = self.momentum
+            unbiased = (var * (n / max(n - 1, 1))).to(self.running_var.dtype)
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean.to(self.running_mean.dtype))
+            self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        inv = torch.rsqrt(var + self.eps).view(view)
+        return (x - mean.view(view)) * inv * self.weight.view(view) + self.bias.view(view)
 
 
 class FeedForward(nn.Module):
@@ -104,11 +136,12 @@ class GlanceAttention(nn.Module):
         # channel index h * dim_head + d ("(h d)")
         split = lambda a: a.reshape(b, self.heads, self.dim_head, t)
         q, k, v = split(q) * (self.dim_head ** -0.5), split(k), split(v)
-        sim = torch.einsum("bhdi,bhdj->bhij", q, k)
+        acc = torch.promote_types(q.dtype, torch.float32)  # float32 logits under bfloat16
+        sim = torch.einsum("bhdi,bhdj->bhij", q.to(acc), k.to(acc))
         if mask is not None:
             key_mask = mask[:, 0][:, None, None, :] > 0  # (1|B, 1, 1, T)
             sim = torch.where(key_mask, sim, torch.finfo(sim.dtype).min)
-        attn = sim.softmax(dim=-1)
+        attn = sim.softmax(dim=-1).to(v.dtype)
         out = torch.einsum("bhij,bhdj->bhdi", attn, v)
         return self.to_out(out.reshape(b, self.heads * self.dim_head, t))
 
@@ -208,7 +241,8 @@ class MGFNModel(nn.Module):
 
 class MGFN(nn.Module):
     """MGFN backbone + scoring head (LayerNorm, Linear, sigmoid), with the
-    crop-averaged clip scores as output."""
+    crop-averaged clip scores as output (``forward``) and the training
+    outputs and loss (``outputs``)."""
 
     def __init__(self, config: MGFNConfig = MGFNConfig()):
         super().__init__()
@@ -223,6 +257,11 @@ class MGFN(nn.Module):
         ``length``: a scalar or a (bs,) vector of valid clip counts when
         the clip axis is padded to a bucket; pads score 0.
         """
+        return self._head(video, length)[1]
+
+    def _head(self, video: torch.Tensor, length: Optional[torch.Tensor]):
+        """-> (head features (bs*ncrops, t, dim), crop-averaged scores
+        (bs, t, 1), crop-averaged feature magnitudes (bs, t))."""
         bs, ncrops, t, c = video.shape
         x = video.reshape(bs * ncrops, t, c).transpose(1, 2)  # (B, C, T)
         positions = torch.arange(t, device=video.device)
@@ -236,9 +275,97 @@ class MGFN(nn.Module):
                 video_mask = positions[None] < length[:, None]  # (bs, t)
                 # row b*ncrops+crop of x carries video b's clips
                 mask = video_mask.repeat_interleave(ncrops, dim=0)[:, None].to(x.dtype)
-        x = self.backbone(x, mask).transpose(1, 2)  # (B, T, C)
-        scores = torch.sigmoid(self.fc(self.layer_norm(x)))  # (bs*ncrops, t, 1)
+        x = self.layer_norm(self.backbone(x, mask).transpose(1, 2))  # (B, T, C)
+        scores = torch.sigmoid(self.fc(x))  # (bs*ncrops, t, 1)
         scores = scores.reshape(bs, ncrops, t).mean(dim=1)[..., None]
+        magnitudes = torch.linalg.vector_norm(x, dim=2).reshape(bs, ncrops, t).mean(dim=1)
         if video_mask is not None:
             scores = scores * video_mask[..., None]
-        return scores
+            # padded clips never win the top-k selection
+            magnitudes = torch.where(video_mask, magnitudes, -1.0)
+        return x, scores, magnitudes
+
+    def outputs(
+        self,
+        video: torch.Tensor,
+        abnormal_labels: Optional[torch.Tensor] = None,
+        normal_labels: Optional[torch.Tensor] = None,
+        train: Optional[bool] = None,
+        force_split: bool = False,
+        length: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> MGFNOutput:
+        """The JAX ``MGFNForVideoAnomalyDetection`` outputs.
+
+        ``train`` is the module's mode (``.train()`` / ``.eval()``); passing
+        it only checks that it agrees. In train mode (or with
+        ``force_split``) the first half of the batch is the normal bags and
+        the second the abnormal ones (the runner's normal-first order), and
+        each half selects its top-k clips by feature magnitude under a
+        dropout mask drawn from ``generator`` (abnormal first, then normal;
+        needed when ``config.dropout_rate > 0``). With both label vectors
+        the MIL loss is computed: ``mgfn_loss`` + smoothness + sparsity.
+        """
+        if train is None:
+            train = self.training
+        elif bool(train) != self.training:
+            raise ValueError(f"train={train} but the module is in "
+                             f"{'train' if self.training else 'eval'} mode")
+        if train and self.config.dropout > 0:
+            raise NotImplementedError("feed-forward dropout (MGFNConfig.dropout > 0) is not "
+                                      "ported; the repository's configs set it to 0")
+        cfg = self.config
+        bs, ncrops, t, _ = video.shape
+        x, scores, magnitudes = self._head(video, length)
+        if force_split or train:
+            half = bs // 2
+            normal_features, abnormal_features = x[: half * ncrops], x[half * ncrops:]
+            normal_scores, abnormal_scores = scores[:half], scores[half:]
+            n_mag, a_mag = magnitudes[:half], magnitudes[half:]
+        else:
+            normal_features = abnormal_features = x
+            normal_scores = abnormal_scores = scores
+            n_mag = a_mag = magnitudes
+        rate = cfg.dropout_rate if train else 0.0
+        a_selected, score_abnormal = _magnitude_selection(
+            a_mag, abnormal_features, abnormal_scores, cfg.k, ncrops, rate, generator)
+        n_selected, score_normal = _magnitude_selection(
+            n_mag, normal_features, normal_scores, cfg.k, ncrops, rate, generator)
+        loss = None
+        if abnormal_labels is not None and normal_labels is not None:
+            loss = (mgfn_loss(score_abnormal, score_normal, a_selected, n_selected,
+                              abnormal_labels, normal_labels)
+                    + smoothness_loss(scores)
+                    + sparsity_loss(scores[: bs // 2].reshape(-1)))
+        return MGFNOutput(loss=loss, abnormal_scores=score_abnormal, normal_scores=score_normal,
+                          a_feat_magnitude=a_selected, n_feat_magnitude=n_selected, scores=scores)
+
+
+def _magnitude_selection(
+    magnitudes: torch.Tensor,  # (n, t)
+    features: torch.Tensor,  # (n * ncrops, t, dim), crop-major per sample
+    scores: torch.Tensor,  # (n, t, 1)
+    k: int,
+    ncrops: int,
+    dropout_rate: float,
+    generator: Optional[torch.Generator],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dropout-masked top-k selection of clips by feature magnitude, the
+    JAX ``_magnitude_selection``: clip indices by top-k of the magnitudes
+    times a keep mask scaled by 1 / (1 - rate), the same indices for every
+    crop of a sample. Returns (selected features (ncrops * n, k, dim),
+    crop-major: row crop * n + i is sample i's crop; mean selected score
+    (n, 1))."""
+    n, t = magnitudes.shape
+    masked = magnitudes
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("the selection dropout needs an explicit torch.Generator")
+        keep = torch.rand((n, t), generator=generator, device=magnitudes.device) < 1.0 - dropout_rate
+        masked = magnitudes * (keep.to(magnitudes.dtype) / (1.0 - dropout_rate))
+    idx = torch.topk(masked, k, dim=1).indices  # (n, k)
+    feats = features.reshape(n, ncrops, t, -1)
+    selected = torch.gather(feats, 2, idx[:, None, :, None].expand(n, ncrops, k, feats.shape[-1]))
+    selected = selected.transpose(0, 1).reshape(ncrops * n, k, -1)
+    top_scores = torch.gather(scores, 1, idx[:, :, None])
+    return selected, top_scores.mean(dim=1)

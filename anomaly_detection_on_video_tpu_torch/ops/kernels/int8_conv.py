@@ -41,6 +41,7 @@ STEM_GEOMETRY = (STEM_KERNEL, (2, 2, 2), (2, 3, 3))  # the stem kernel's only ge
 STEM_TAPS = 7 * 7
 STEM_TAP_K = 16  # bytes per (kh, kw) tap: 5 temporal taps x 3 channels, padded
 STEM_K = (STEM_TAPS + 1) * STEM_TAP_K  # 800: 25 k32 steps of two taps, the 50th zero
+MAX_POSITIONS = 2 ** 31 - 1 - 128  # B*To*Ho*Wo: a 32-bit row index plus one 128-row tile
 
 
 def _triple(v: Sequence[int], name: str) -> Triple:
@@ -157,9 +158,14 @@ def int8_conv(
                          f"stem), got {cin} -> {cout}")
     if w_packed.data_ptr() % 16:
         raise ValueError("int8_conv weights must be 16-byte aligned")
-    m = b * out_shape[0] * out_shape[1] * out_shape[2]
-    if x.numel() >= 2 ** 31 or m * cout >= 2 ** 31:
-        raise ValueError(f"{tuple(x.shape)} exceeds the kernel's 32-bit sizes")
+    # element offsets are 64-bit in the kernels; output positions are 32-bit
+    # row indices, and the stem's grid holds B * ceil(To / 2) planes in z
+    positions = b * out_shape[0] * out_shape[1] * out_shape[2]
+    if positions > MAX_POSITIONS:
+        raise ValueError(f"{tuple(x.shape)} gives {positions} output positions, more than the "
+                         f"kernel's {MAX_POSITIONS}")
+    if _stem_layout(cin, kernel) and b * ((out_shape[0] + 1) // 2) > 65535:
+        raise ValueError(f"batch {b} exceeds the stem kernel's launch grid")
     from ._build import build, current_stream
 
     lib = build()

@@ -80,6 +80,18 @@ def pr_auc(labels: np.ndarray, scores: np.ndarray) -> float:
     return auc(recall, precision)
 
 
+def false_alarm_rate(labels: np.ndarray, scores: np.ndarray, threshold: float = 0.5) -> float:
+    """Fraction of negative frames scored above ``threshold``, FP / (FP +
+    TN); NaN without negative frames. The literature computes it over the
+    normal test videos (``EvalResult.false_alarm_rate``)."""
+    labels = np.asarray(labels, dtype=np.float64).ravel()
+    scores = np.asarray(scores, dtype=np.float64).ravel()
+    negative = labels == 0
+    if not negative.any():
+        return float("nan")
+    return float(np.mean(scores[negative] > threshold))
+
+
 def frame_level_scores(clip_scores: np.ndarray, frames_per_clip: int = 16) -> np.ndarray:
     """Repeat per-clip scores to frame level."""
     return np.repeat(np.asarray(clip_scores).ravel(), frames_per_clip)

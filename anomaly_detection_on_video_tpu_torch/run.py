@@ -1,0 +1,248 @@
+"""Training CLI (counterpart of the repository-root ``run.py``), over the
+repository's ``configs/`` with the same override grammar:
+
+    python -m anomaly_detection_on_video_tpu_torch.run runner=mgfn data.local_path=/data/features
+    python -m anomaly_detection_on_video_tpu_torch.run runner=mgfn data.batch_size=8 device=cpu
+    python -m anomaly_detection_on_video_tpu_torch.run runner=mgfn --cfg
+
+It trains on the card unless ``device=cpu`` (or another torch device) is
+given, on one device only: a config asking for a mesh (``tensor_parallel``
+above 1, ``multihost``, or ``data_parallel`` with several cards visible)
+raises. ``main`` composes the config and calls ``train(cfg, device)``,
+which takes a composed dict and needs no PyYAML. ``trainer.eval_only``
+prints one JSON line of metrics. Not ported: multirun sweeps (``-m``),
+W&B logging, eval figures and the XLA compile cache.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+from typing import Any, Dict, List, Optional, Tuple
+
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+
+HELP = """\
+usage: python -m anomaly_detection_on_video_tpu_torch.run [GROUP=CHOICE ...] [KEY=VALUE ...] [flags]
+
+overrides:
+  GROUP=CHOICE      select a config-group file, e.g. runner=mgfn
+  KEY=VALUE         dotted value override, e.g. data.batch_size=8 or seed=1
+  +KEY=VALUE        add a key that is not in the composed config
+  ~KEY[=VALUE]      delete a key (=VALUE must match the current value);
+                    ~GROUP drops a config group from the defaults list
+  device=DEVICE     the torch device to train on (default cuda)
+
+flags:
+  -h, --help        show this help and exit
+  --cfg             print the composed config as YAML and exit
+
+config groups (configs/):
+"""
+
+
+def print_help(config_dir: str) -> None:
+    sys.stdout.write(HELP)
+    for root, dirs, files in sorted(os.walk(config_dir)):
+        dirs.sort()
+        group = os.path.relpath(root, config_dir).replace(os.sep, "/")
+        if group == ".":
+            continue
+        choices = sorted(f[:-5] for f in files if f.endswith(".yaml"))
+        if choices:
+            print(f"  {group}: {', '.join(choices)}")
+    print("\na real run requires `runner=mgfn`; the default runner group has model_class: null.")
+
+
+def split_device(argv: List[str]) -> Tuple[List[str], str]:
+    """Take ``device=...`` out of the overrides (it is not a config key)."""
+    device = "cuda"
+    rest = []
+    for arg in argv:
+        if arg.startswith("device="):
+            device = arg.partition("=")[2]
+        else:
+            rest.append(arg)
+    return rest, device
+
+
+def check_one_device(trainer_cfg: Dict[str, Any], device) -> None:
+    """Raise when the config asks for more than one device."""
+    import torch
+
+    if int(trainer_cfg.get("tensor_parallel", 1) or 1) > 1 or trainer_cfg.get("multihost"):
+        raise SystemExit("config error: the port trains on one device; tensor_parallel > 1 and "
+                         "multihost are not ported (set trainer.tensor_parallel=1 "
+                         "trainer.multihost=false)")
+    if (trainer_cfg.get("data_parallel") and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise SystemExit(f"config error: the port trains on one device and {torch.cuda.device_count()} "
+                         "are visible; set trainer.data_parallel=false or CUDA_VISIBLE_DEVICES")
+
+
+def train(cfg: Dict[str, Any], device: str = "cuda"):
+    """Run a composed config: train with evaluation, or evaluate a
+    checkpoint with ``trainer.eval_only``. Returns the last ``EvalResult``
+    (None when there is no test split to evaluate)."""
+    from .config import instantiate, locate
+    from .data.features import build_feature_dataset
+    from .training import VideoAnomalyDetectionRunner
+    from .training.checkpoints import TopKCheckpointer
+    from .training.loggers import ConsoleLogger, JsonlLogger
+    from .training.runner import DataConfigError
+    from .utils.device import resolve_device
+
+    device = resolve_device(device)
+    trainer_cfg = cfg.get("trainer", {})
+    check_one_device(trainer_cfg, device)
+    runner_cfg = cfg.get("runner") or {}
+    if not runner_cfg.get("model_class"):
+        raise SystemExit("no model selected: run with `runner=mgfn` (the default runner group "
+                         "has model_class: null)")
+    model_config = instantiate(runner_cfg["model_config"])
+    model = locate(runner_cfg["model_class"])(model_config)
+    data_cfg = cfg.get("data", {})
+
+    loggers = [ConsoleLogger()]
+    log_path = trainer_cfg.get("log_path", "logs/metrics.jsonl")
+    if log_path:
+        loggers.append(JsonlLogger(log_path))
+    if cfg.get("wandb_key"):
+        print("warning: wandb_key is set but W&B logging is not ported; JSONL and console "
+              "logging are unaffected", file=sys.stderr)
+
+    checkpointer = None
+    ckpt_cfg = trainer_cfg.get("checkpoint", {})
+    if ckpt_cfg.get("dirpath"):
+        checkpointer = TopKCheckpointer(ckpt_cfg["dirpath"], top_k=int(ckpt_cfg.get("save_top_k", 10)))
+        if not trainer_cfg.get("eval_only"):
+            checkpointer.write_metadata({
+                "model_name": cfg.get("_choices_", {}).get("runner"),
+                "model_class": runner_cfg["model_class"],
+                "model_config": runner_cfg["model_config"],
+                "optimizer": runner_cfg.get("optimizer", {}),
+                "data": data_cfg,
+                "seed": cfg.get("seed", 0),
+            })
+
+    runner = VideoAnomalyDetectionRunner(
+        model,
+        optimizer_cfg=runner_cfg.get("optimizer", {}),
+        loggers=loggers,
+        checkpointer=checkpointer,
+        seed=int(cfg.get("seed", 0)),
+        eval_batch_videos=int(trainer_cfg.get("eval_batch_videos", 8)),
+        precision=str(trainer_cfg.get("precision", "32-true")),
+        grad_clip=trainer_cfg.get("gradient_clip_val"),
+        accumulate_grad_batches=(1 if trainer_cfg.get("accumulate_grad_batches") is None
+                                 else int(trainer_cfg["accumulate_grad_batches"])),
+        device=device,
+    )
+
+    stream = data_cfg.get("stream", "rgb")
+    expected_channels = {"rgb": 2048, "flow": 2048, "both": 4096}.get(stream)
+    model_channels = getattr(model_config, "channels", None)
+    if expected_channels and model_channels and model_channels != expected_channels:
+        print(f"warning: data.stream={stream} produces {expected_channels}-d features but the "
+              f"model expects channels={model_channels}; set "
+              f"runner.model_config.channels={expected_channels}", file=sys.stderr)
+
+    def load_split(mode, **kw):
+        try:
+            return build_feature_dataset(
+                mode, local_path=data_cfg.get(f"{mode}_path") or data_cfg.get("local_path"),
+                dynamic_load=bool(data_cfg.get("dynamic_load", False)), stream=stream, **kw)
+        except FileNotFoundError as exc:
+            raise SystemExit(f"data error: {exc}")
+
+    def restore_selected():
+        try:
+            runner.restore(checkpointer.restore(
+                runner.state, step=trainer_cfg.get("checkpoint_step", "latest")))
+        except ValueError as exc:
+            raise SystemExit(f"trainer.checkpoint_step: {exc}")
+
+    try:
+        valid_dataset = load_split("test", ground_truth_path=data_cfg.get("ground_truth_path"))
+        frames_per_clip = int(data_cfg.get("frames_per_clip", 16))
+        if trainer_cfg.get("eval_only"):
+            if checkpointer is None:
+                raise SystemExit("trainer.eval_only=true requires trainer.checkpoint.dirpath")
+            runner.init_state()
+            restore_selected()
+            if runner.state.step == 0:
+                raise SystemExit(f"eval_only: no checkpoint found under {ckpt_cfg['dirpath']!r}; "
+                                 "evaluating random weights would be meaningless")
+            result = runner.evaluate(valid_dataset, frames_per_clip)
+            metrics = {"step": runner.state.step, "valid/rec_auc": result.rec_auc,
+                       "valid/pr_auc": result.pr_auc, "valid/far": result.false_alarm_rate()}
+            runner._log(metrics, runner.state.step)
+            if trainer_cfg.get("eval_report"):
+                metrics["report"] = result.report()
+            print(json.dumps(metrics))
+            return result
+
+        train_datasets = load_split("train")
+        batch_size = int(data_cfg.get("batch_size", 16))
+        if trainer_cfg.get("resume") and checkpointer is not None:
+            runner.init_state()
+            restore_selected()
+            print(f"resumed from step {runner.state.step}")
+        signals = trainer_cfg.get("preempt_signals") or ()
+        try:
+            result = runner.fit(
+                train_datasets,
+                valid_dataset=valid_dataset,
+                max_epochs=int(trainer_cfg.get("max_epochs", 1000)),
+                max_steps=(-1 if trainer_cfg.get("max_steps") is None
+                           else int(trainer_cfg["max_steps"])),
+                log_every_n_steps=trainer_cfg.get("log_every_n_steps"),
+                checkpoint_every_n_epochs=int(ckpt_cfg.get("every_n_epochs", 1) or 1),
+                batch_size=batch_size,
+                shuffle=bool(data_cfg.get("shuffle", False)),
+                eval_every=int(trainer_cfg.get("eval_every", 1)),
+                frames_per_clip=frames_per_clip,
+                figure_dir=trainer_cfg.get("figure_dir"),
+                handle_signals=(signals,) if isinstance(signals, str) else tuple(signals),
+            )
+        except DataConfigError as exc:
+            raise SystemExit(f"data error: {exc}")
+        if result is not None:
+            print(f"final valid/rec_auc={result.rec_auc:.4f} valid/pr_auc={result.pr_auc:.4f}")
+        return result
+    finally:
+        for logger in loggers:
+            if hasattr(logger, "close"):
+                logger.close()
+
+
+def main(argv: Optional[List[str]] = None, config_dir: str = CONFIG_DIR):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "-h" in argv or "--help" in argv:
+        print_help(config_dir)
+        return None
+    if any(flag in argv for flag in ("-m", "--multirun", "--multirun-dir")):
+        raise SystemExit("multirun sweeps (-m) are not ported; run each job on its own")
+    print_cfg = "--cfg" in argv
+    argv = [arg for arg in argv if arg != "--cfg"]
+    argv, device = split_device(argv)
+
+    from .config import compose
+
+    try:
+        cfg = compose(config_dir, "default", argv)
+    except (ValueError, KeyError, FileNotFoundError) as exc:
+        msg = exc.args[0] if exc.args else exc
+        raise SystemExit(f"config error: {msg}\n(see --help)")
+    if print_cfg:
+        import yaml
+
+        shown = {k: v for k, v in cfg.items() if k != "_choices_"}
+        sys.stdout.write(yaml.safe_dump(shown, sort_keys=False))
+        return None
+    return train(cfg, device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,5 @@
-"""Scoring steps (the eval half of the JAX package's runner)."""
+"""Training and eval runtime of the port."""
+
+from .runner import EvalResult, TrainState, VideoAnomalyDetectionRunner
+
+__all__ = ["EvalResult", "TrainState", "VideoAnomalyDetectionRunner"]

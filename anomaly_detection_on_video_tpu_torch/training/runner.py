@@ -1,14 +1,137 @@
-"""Padded-bucket scoring (counterpart of the JAX package's
-``training/runner.py`` ``make_eval_step`` and ``eval_bucket``)."""
+"""Training and eval runtime (counterpart of the JAX package's
+``training/runner.py``).
+
+- ``TrainState``: the model, its optimizer, the optimizer-step count and
+  the generator the selection dropout draws from.
+- ``make_train_step``: one MIL step on a batch of normal then abnormal bags
+  (the model's training forward and loss, backward, clip, coupled L2,
+  Adam), in ``32-true`` or ``bf16-mixed``, optionally accumulated over
+  micro-batches.
+- ``make_eval_step`` / ``eval_bucket`` / ``evaluate``: padded-bucket
+  scoring and frame-level ROC/PR AUC over a test set (``EvalResult``).
+- ``VideoAnomalyDetectionRunner``: the epoch loop with evaluation,
+  checkpoints, logs, ``max_steps``, resume and a graceful stop on signals,
+  on one device.
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+import contextlib
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..utils.device import full_f32
+from ..data.features import eval_batches, is_normal, train_batches, video_class
+from ..models import seeded_init_
+from ..ops.metrics import false_alarm_rate, frame_level_scores, pr_auc, roc_auc
+from ..utils.device import DeviceLike, full_f32, resolve_device
+from .optim import adam_with_l2
+
+PRECISIONS = ("32-true", "bf16-mixed")
+
+
+class DataConfigError(ValueError):
+    """A data or config mistake found before training (e.g. a batch size
+    larger than the dataset); the CLI reports it as a one-line error."""
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+    generator: Optional[torch.Generator] = None  # the selection dropout's draws
+
+    @classmethod
+    def create(cls, model: nn.Module, optimizer: torch.optim.Optimizer, seed: int = 0) -> "TrainState":
+        device = next(model.parameters()).device
+        return cls(model, optimizer, 0, torch.Generator(device=device).manual_seed(seed))
+
+
+def _grouped(iterable, size: int):
+    """Lists of up to ``size`` consecutive items (the last may be short)."""
+    group = []
+    for item in iterable:
+        group.append(item)
+        if len(group) == size:
+            yield group
+            group = []
+    if group:
+        yield group
+
+
+class _TrainForward(nn.Module):
+    """Routes ``torch.func.functional_call`` to ``model.outputs``."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args, **kwargs):
+        return self.model.outputs(*args, **kwargs)
+
+
+def make_train_step(precision: str = "32-true", microbatched: bool = False) -> Callable:
+    """The train step: ``step(state, feature, normal_labels,
+    abnormal_labels) -> loss`` (a float32 scalar tensor), which updates
+    ``state`` in place.
+
+    ``feature`` holds the batch's normal bags then its abnormal ones, on
+    the model's device and in its parameter dtype. The model runs in train
+    mode (batch-statistics BN, dropout-masked top-k from
+    ``state.generator``); the loss's gradients go through the optimizer
+    once. ``"32-true"`` runs with TF32 off. ``"bf16-mixed"`` runs the
+    forward and backward on bfloat16 copies of every float32 parameter and
+    of the batch, as the JAX step casts them; master parameters, their
+    gradients, the optimizer's moments and the BN statistics stay float32.
+
+    ``microbatched=True``: every batch argument has a leading micro-batch
+    axis ``(k, ...)``; the micro-batches run in order (BN statistics thread
+    through them), their gradients and losses are averaged, and the
+    optimizer steps once.
+    """
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    half = precision == "bf16-mixed"
+
+    def loss_of(state: TrainState, x, n_labels, a_labels) -> torch.Tensor:
+        kwargs = dict(abnormal_labels=a_labels, normal_labels=n_labels, train=True,
+                      generator=state.generator)
+        if not half:
+            return state.model.outputs(x, **kwargs).loss
+        params = {f"model.{name}": p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+                  for name, p in state.model.named_parameters()}
+        out = torch.func.functional_call(_TrainForward(state.model), params,
+                                         (x.to(torch.bfloat16),), kwargs)
+        return out.loss
+
+    def step(state: TrainState, feature, normal_labels, abnormal_labels) -> torch.Tensor:
+        model = state.model
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        micro = (zip(feature, normal_labels, abnormal_labels) if microbatched
+                 else [(feature, normal_labels, abnormal_labels)])
+        loss_sum, k = None, 0
+        with contextlib.nullcontext() if half else full_f32():
+            for x, n_labels, a_labels in micro:
+                loss = loss_of(state, x, n_labels, a_labels)
+                loss.backward()
+                loss = loss.detach().float()
+                loss_sum = loss if loss_sum is None else loss_sum + loss
+                k += 1
+            if k > 1:
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(k)
+            state.optimizer.step()
+        state.step += 1
+        return loss_sum / k
+
+    return step
 
 
 def eval_bucket(n_clips: int, minimum: int = 32) -> int:
@@ -35,3 +158,331 @@ def make_eval_step() -> Callable[[nn.Module, torch.Tensor, torch.Tensor], torch.
             return model(feature, length=length)
 
     return step
+
+
+@dataclasses.dataclass
+class EvalResult:
+    rec_auc: float
+    pr_auc: float
+    preds: np.ndarray
+    labels: np.ndarray
+    # per-video (frame_scores, frame_labels) in dataset order; None for hand-built results
+    videos: Optional[Dict[str, Tuple[np.ndarray, np.ndarray]]] = None
+
+    def false_alarm_rate(self, threshold: float = 0.5) -> float:
+        """FAR at ``threshold`` over the normal test videos (all negative
+        frames without per-video data); NaN without normal videos."""
+        if self.videos is None:
+            return false_alarm_rate(self.labels, self.preds, threshold)
+        normal = [(s, lab) for name, (s, lab) in self.videos.items() if is_normal(name)]
+        if not normal:
+            return float("nan")
+        return false_alarm_rate(np.concatenate([lab for _, lab in normal]),
+                                np.concatenate([s for s, _ in normal]), threshold)
+
+    def report(self, threshold: float = 0.5) -> Dict[str, Any]:
+        """The pooled AUCs, FAR at ``threshold`` on normal videos, the ROC
+        AUC over abnormal videos only, and per anomaly class the ROC AUC
+        over that class's videos and all normal ones (None where the labels
+        are single-valued), with video and frame counts."""
+        if self.videos is None:
+            raise ValueError("report() needs per-video data (videos=None)")
+
+        def safe_auc(labels: np.ndarray, scores: np.ndarray):
+            if labels.min() == labels.max():
+                return None
+            return roc_auc(labels, scores)
+
+        by_class: Dict[str, list] = {}
+        for name, (scores, labels) in self.videos.items():
+            by_class.setdefault(video_class(name), []).append((scores, np.asarray(labels)))
+        normal = by_class.pop("Normal", [])
+        normal_scores = np.concatenate([s for s, _ in normal]) if normal else np.zeros((0,))
+        normal_labels = np.concatenate([lab for _, lab in normal]) if normal else np.zeros((0,))
+        per_class: Dict[str, Dict[str, Any]] = {}
+        abnormal_scores, abnormal_labels = [], []
+        for cls in sorted(by_class):
+            items = by_class[cls]
+            scores = np.concatenate([s for s, _ in items])
+            labels = np.concatenate([lab for _, lab in items])
+            abnormal_scores.append(scores)
+            abnormal_labels.append(labels)
+            per_class[cls] = {
+                "auc": safe_auc(np.concatenate([labels, normal_labels]),
+                                np.concatenate([scores, normal_scores])),
+                "videos": len(items),
+                "frames": int(labels.size),
+            }
+        return {
+            "rec_auc": self.rec_auc,
+            "pr_auc": self.pr_auc,
+            "far": self.false_alarm_rate(threshold),
+            "far_threshold": threshold,
+            "normal_videos": len(normal),
+            "abnormal_videos": sum(v["videos"] for v in per_class.values()),
+            "per_class": per_class,
+            "abnormal_auc": (safe_auc(np.concatenate(abnormal_labels),
+                                      np.concatenate(abnormal_scores))
+                             if abnormal_scores else None),
+        }
+
+
+def evaluate(state: TrainState, dataset, frames_per_clip: int = 16, eval_step=None,
+             batch_videos: int = 1) -> EvalResult:
+    """Frame-level ROC/PR AUC over a test set.
+
+    Videos are grouped by power-of-two clip bucket, up to ``batch_videos``
+    to a device batch, scored with masking so padded clips do not change
+    the valid ones, repeated to frame level, concatenated in dataset order
+    and held against the concatenated ground truth.
+    """
+    eval_step = eval_step or make_eval_step()
+    model = state.model
+    model.eval()
+    param = next(model.parameters())
+    buckets: Dict[int, list] = {}
+    order = []
+    for batch in eval_batches(dataset):
+        if batch["label"] is None:
+            raise ValueError(f"video {batch['filename']!r} has no frame-level ground truth")
+        buckets.setdefault(eval_bucket(batch["feature"].shape[2]), []).append(batch)
+        order.append((batch["filename"], np.asarray(batch["label"]).ravel()))
+
+    per_video: Dict[str, np.ndarray] = {}
+    for bucket, items in buckets.items():
+        for start in range(0, len(items), batch_videos):
+            group = items[start: start + batch_videos]
+            feats = np.zeros((len(group), 10, bucket, group[0]["feature"].shape[3]), np.float32)
+            lengths = np.zeros((len(group),), np.int64)
+            for k, item in enumerate(group):
+                n_clips = item["feature"].shape[2]
+                feats[k, :, :n_clips] = item["feature"][0]
+                lengths[k] = n_clips
+            scores = eval_step(model, torch.from_numpy(feats).to(param.device, param.dtype),
+                               torch.from_numpy(lengths).to(param.device))
+            scores = scores.float().cpu().numpy()
+            for k, item in enumerate(group):
+                per_video[item["filename"]] = scores[k, : lengths[k], 0]
+
+    all_preds, all_labels = [], []
+    videos: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+    for filename, label in order:
+        frame_preds = frame_level_scores(per_video[filename], frames_per_clip)
+        all_preds.append(frame_preds)
+        all_labels.append(label)
+        videos[filename] = (frame_preds, label)
+    preds = np.concatenate(all_preds)
+    labels = np.concatenate(all_labels)
+    if preds.shape != labels.shape:
+        raise ValueError(f"frame count mismatch: {preds.shape} predictions vs "
+                         f"{labels.shape} labels")
+    return EvalResult(rec_auc=roc_auc(labels, preds), pr_auc=pr_auc(labels, preds),
+                      preds=preds, labels=labels, videos=videos)
+
+
+class VideoAnomalyDetectionRunner:
+    """The epoch loop (the reference's LightningModule role) on one device:
+    a model and its optimizer settings, with evaluation, checkpoints and
+    logs."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        optimizer_cfg: Optional[Dict[str, Any]] = None,
+        loggers: Iterable = (),
+        checkpointer=None,
+        seed: int = 0,
+        eval_batch_videos: int = 8,
+        precision: str = "32-true",
+        grad_clip: Optional[float] = None,
+        accumulate_grad_batches: int = 1,
+        device: DeviceLike = "cuda",
+    ):
+        optimizer_cfg = dict(optimizer_cfg or {})
+        accumulate_grad_batches = int(accumulate_grad_batches)
+        if accumulate_grad_batches < 1:
+            raise ValueError("trainer.accumulate_grad_batches must be >= 1, got "
+                             f"{accumulate_grad_batches}")
+        self.precision = precision
+        self.accumulate_grad_batches = accumulate_grad_batches
+        self.device = resolve_device(device)
+        self.model = model
+        self.loggers = list(loggers)
+        self.checkpointer = checkpointer
+        self.seed = seed
+        self.learning_rate = float(optimizer_cfg.get("learning_rate", 1e-3))
+        self.weight_decay = float(optimizer_cfg.get("weight_decay", 5e-4))
+        self.grad_clip = grad_clip
+        self.eval_batch_videos = eval_batch_videos
+        self._train_step = make_train_step(precision, microbatched=accumulate_grad_batches > 1)
+        self._eval_step = make_eval_step()
+        self.state: Optional[TrainState] = None
+
+    def init_state(self) -> TrainState:
+        """Fresh weights from ``seed`` (``seeded_init_``: LeCun-normal conv
+        and linear weights, zero biases, identity norms) on the device, and
+        a fresh optimizer. Unlike the JAX runner it needs no example batch:
+        a torch module has its shapes."""
+        model = seeded_init_(self.model, self.seed).to(self.device)
+        optimizer = adam_with_l2(model.parameters(), self.learning_rate, self.weight_decay,
+                                 self.grad_clip)
+        self.state = TrainState.create(model, optimizer, self.seed + 2)
+        return self.state
+
+    def restore(self, state: TrainState) -> None:
+        self.state = state
+
+    def _log(self, metrics: Dict[str, float], step: int) -> None:
+        for logger in self.loggers:
+            logger.log(metrics, step)
+
+    def evaluate(self, valid_dataset, frames_per_clip: int = 16) -> EvalResult:
+        return evaluate(self.state, valid_dataset, frames_per_clip, self._eval_step,
+                        self.eval_batch_videos)
+
+    def _to_device(self, array: np.ndarray) -> torch.Tensor:
+        dtype = next(self.state.model.parameters()).dtype
+        return torch.from_numpy(array).to(self.device, dtype)
+
+    def fit(
+        self,
+        train_datasets: Dict[str, Any],
+        valid_dataset=None,
+        max_epochs: int = 1000,
+        batch_size: int = 16,
+        shuffle: bool = False,
+        eval_every: int = 1,
+        frames_per_clip: int = 16,
+        figure_dir: Optional[str] = None,
+        handle_signals: Iterable[str] = (),
+        max_steps: int = -1,
+        log_every_n_steps: Optional[int] = None,
+        checkpoint_every_n_epochs: int = 1,
+    ) -> Optional[EvalResult]:
+        """Train with evaluation every ``eval_every`` epochs.
+
+        ``handle_signals`` names signals (``("SIGTERM", "SIGINT")``) that
+        request a graceful stop: the current step finishes, a checkpoint of
+        the step reached is saved (without a metric, kept as the latest)
+        and fit returns, so a preempted job resumes from that step.
+        ``figure_dir`` is accepted for the JAX runner's signature; eval
+        figures are not ported and none is written.
+        """
+        if figure_dir:
+            print(f"warning: eval figures are not ported; nothing is written to {figure_dir}")
+        if isinstance(handle_signals, str):  # a CLI scalar override
+            handle_signals = (handle_signals,)
+        stop_signal: Dict[str, Any] = {"num": None}
+        restore_handlers = {}
+        if handle_signals:
+            import signal
+
+            def request_stop(signum, frame):
+                stop_signal["num"] = signum
+
+            for name in handle_signals:
+                signum = getattr(signal, name, None)
+                if signum is None:
+                    print(f"warning: unknown signal name {name!r} ignored")
+                    continue
+                try:
+                    restore_handlers[signum] = signal.signal(signum, request_stop)
+                except ValueError:
+                    pass  # not the main thread: signals keep their handlers
+        try:
+            return self._fit_loop(train_datasets["normal"], train_datasets["abnormal"],
+                                  valid_dataset, max_epochs, batch_size, shuffle, eval_every,
+                                  frames_per_clip, stop_signal, max_steps,
+                                  log_every_n_steps, checkpoint_every_n_epochs)
+        finally:
+            if restore_handlers:
+                import signal
+
+                for signum, handler in restore_handlers.items():
+                    signal.signal(signum, handler)
+
+    def _fit_loop(self, normal, abnormal, valid_dataset, max_epochs, batch_size, shuffle,
+                  eval_every, frames_per_clip, stop_signal, max_steps,
+                  log_every_n_steps, checkpoint_every_n_epochs) -> Optional[EvalResult]:
+        last_eval: Optional[EvalResult] = None
+        # a resumed run continues the step count and, derived from it, the
+        # epoch count (exact while batch_size matches the run that saved)
+        step = self.state.step if self.state is not None else 0
+        accumulate = self.accumulate_grad_batches
+        loader_batches = min(len(normal), len(abnormal)) // batch_size
+        if loader_batches == 0:
+            raise DataConfigError(
+                f"batch_size={batch_size} exceeds the training data: {len(normal)} normal / "
+                f"{len(abnormal)} abnormal videos yield zero batches under the drop-last dual "
+                "loader; lower data.batch_size or add videos")
+        steps_per_epoch = -(-loader_batches // accumulate)
+        start_epoch = step // steps_per_epoch
+        log_every = max(1, int(log_every_n_steps or 1))
+        hit_max = max_steps >= 0 and step >= max_steps
+        if self.state is not None:
+            self.state.generator.manual_seed(self.seed + 2)
+        for epoch in range(start_epoch, max_epochs):
+            if hit_max:
+                break
+            epoch_losses = []
+            t0 = time.time()
+            batches = train_batches(normal, abnormal, batch_size=batch_size, shuffle=shuffle,
+                                    seed=self.seed, epoch=epoch)
+            stopped = False
+            for group in _grouped(batches, accumulate):
+                if self.state is None:
+                    self.init_state()
+                if accumulate == 1:
+                    parts = [group[0][key] for key in ("feature", "normal_labels", "abnormal_labels")]
+                else:
+                    # one optimizer step per group of loader batches
+                    parts = [np.stack([b[key] for b in group])
+                             for key in ("feature", "normal_labels", "abnormal_labels")]
+                loss = float(self._train_step(self.state, *map(self._to_device, parts)))
+                epoch_losses.append(loss)
+                if (step + 1) % log_every == 0:
+                    self._log({"train_loss": loss, "lr-Adam": self.learning_rate}, step)
+                step += 1
+                if max_steps >= 0 and step >= max_steps:
+                    hit_max = True
+                    break
+                if stop_signal["num"] is not None:
+                    stopped = True
+                    break
+            if stopped:
+                # skip eval (the grace period is short) and save the exact step
+                saved = False
+                if self.checkpointer is not None and self.state is not None:
+                    self.checkpointer.save(step=step, state=self.state, metric=None)
+                    saved = True
+                self._log({"preempted_at_step": step}, step)
+                print(f"signal {stop_signal['num']}: "
+                      + (f"checkpoint saved at step {step}, stopping" if saved
+                         else f"stopping at step {step}"))
+                return last_eval
+            metrics = {
+                "epoch": epoch,
+                "epoch_time_s": time.time() - t0,
+                "train_loss_epoch": float(np.mean(epoch_losses)) if epoch_losses else float("nan"),
+            }
+            # the max_steps stop evaluates too, so its checkpoint ranks by a metric
+            if valid_dataset is not None and ((epoch + 1) % eval_every == 0 or hit_max):
+                last_eval = self.evaluate(valid_dataset, frames_per_clip)
+                metrics["valid/rec_auc"] = last_eval.rec_auc
+                metrics["valid/pr_auc"] = last_eval.pr_auc
+                metrics["valid/far"] = last_eval.false_alarm_rate()
+            self._log(metrics, step)
+            save_this_epoch = ((epoch + 1) % max(1, checkpoint_every_n_epochs) == 0
+                               or hit_max or epoch == max_epochs - 1)
+            if self.checkpointer is not None and self.state is not None and save_this_epoch:
+                self.checkpointer.save(step=step, state=self.state,
+                                       metric=metrics.get("valid/rec_auc"))
+            if hit_max:
+                print(f"max_steps {max_steps} reached at step {step}, stopping")
+                break
+        if last_eval is None and valid_dataset is not None and self.state is not None:
+            # a resumed run whose epoch budget is spent still reports where it stands
+            last_eval = self.evaluate(valid_dataset, frames_per_clip)
+            self._log({"valid/rec_auc": last_eval.rec_auc, "valid/pr_auc": last_eval.pr_auc,
+                       "valid/far": last_eval.false_alarm_rate()}, step)
+        return last_eval

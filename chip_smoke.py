@@ -59,7 +59,30 @@ Phases, each of which raises on failure (exit code != 0):
    int8, each with a warm-up pass (the int8 one calibrates), five timed
    passes (median, range, clips/s, peak memory) and one profiled pass
    (busy time, idle share, K1's device time), under the same gates as the
-   4-clip paths.
+   4-clip paths;
+6. the float32 extractor at 8 frames per clip (``FeatureExtractor(
+   frames_per_clip=8)`` on the same video and weights): the clip shape K2
+   and K3 do not take, so the model runs the plain torch chain, as the JAX
+   model runs such clips through XLA. Gates: K1 launched, K2 and K3 not;
+   features against the plain float32 forward at atol = rtol = 1e-4;
+7. K5's int8 stem conv at B = 480, whose (480, 8, 112, 112, 64) output
+   holds 3.1e9 values, past 2^31: bit-equal to its plain version,
+   computed in slices of 40 clips, and timed;
+8. MGFN training through the port's ``run`` (``main``, or ``train`` with
+   ``MGFN_RUN_CONFIG`` where PyYAML is missing) at the full
+   ``runner=mgfn`` width: the committed ``docs/i3d_segments_seed0.npz``
+   bags (six normal, six abnormal) as train features and, transposed to
+   (32, 10, 2048), as test features with a ground truth built by the
+   port's ``make_gt_ucf`` from an annotation file written here; batch 3,
+   10 epochs, ``max_steps`` 20, eval every 5 epochs, learning rate 1e-4
+   (at the config's 1e-3 the JAX trainer diverges on these 12 bags, and
+   the port with it). Gates: every loss finite, the mean of the last 5
+   below the mean of the first 5, AUCs finite and in [0, 1], and
+   ``eval_only`` from the step-20 checkpoint printing the same AUCs.
+   Then the train step at the reference batch
+   (16 normal + 16 abnormal bags of (10, 32, 2049), made from a seed) in
+   ``32-true`` and ``bf16-mixed``: median ms per step, steps/s, peak
+   memory and one profiled step's device time.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -68,15 +91,54 @@ repository beside it and a CUDA card; without either it exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import ctypes
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,  # dense tensor bf16; fp32 non-tensor
               "int8": 1979e12}  # dense tensor int8 (operations per second)
+
+
+# The JAX package's name, as the repository's configs spell their classes
+REFERENCE = "anomaly_detection_on_video_tpu"
+# configs/ composed with runner=mgfn (tests/test_torch_runner.py holds it to
+# the port's composition): the training phase's config where PyYAML is missing
+MGFN_RUN_CONFIG = {
+    "data": {"batch_size": 16, "frames_per_clip": 16, "num_workers": 8, "dynamic_load": False,
+             "revision": "tushar-n", "cache_dir": None, "local_path": None, "train_path": None,
+             "test_path": None, "ground_truth_path": None, "shuffle": False, "stream": "rgb"},
+    "runner": {"cls": f"{REFERENCE}.training.VideoAnomalyDetectionRunner",
+               "model_class": f"{REFERENCE}.models.MGFNForVideoAnomalyDetection",
+               "model_config": {"_target_": f"{REFERENCE}.models.MGFNConfig", "classes": 0,
+                                "dims": [64, 128, 1024], "depths": [3, 3, 2],
+                                "mgfn_types": ["gb", "fb", "fb"], "lokernel": 5, "channels": 2048,
+                                "ff_repe": 4, "dim_head": 64, "local_aggr_kernel": 5,
+                                "dropout": 0.0, "attention_dropout": 0.0, "dropout_rate": 0.7,
+                                "mag_ratio": 0.1, "k": 3},
+               "optimizer": {"learning_rate": 0.001, "weight_decay": 0.0005}},
+    "trainer": {"max_epochs": 1000, "max_steps": -1, "gradient_clip_val": None,
+                "accumulate_grad_batches": 1, "log_every_n_steps": None, "precision": "32-true",
+                "eval_every": 1, "eval_batch_videos": 8, "resume": False,
+                "checkpoint_step": "latest", "eval_only": False, "eval_report": False,
+                "data_parallel": True, "tensor_parallel": 1, "multihost": False,
+                "coordinator": None, "num_processes": None, "process_id": None,
+                "preempt_signals": ["SIGTERM"], "compile_cache": None,
+                "log_path": "logs/metrics.jsonl", "figure_dir": None,
+                "checkpoint": {"dirpath": "checkpoints", "save_top_k": 10,
+                               "monitor": "valid/rec_auc", "mode": "max", "every_n_epochs": 1}},
+    "seed": 0,
+    "wandb_key": None,
+    "_choices_": {"data": "default", "runner": "mgfn", "trainer": "default"},
+}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -110,7 +172,8 @@ def device_ms(fn, iters: int) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
     return us / iters / 1e3
 
 
@@ -674,7 +737,9 @@ def device_breakdown(torch, run) -> dict:
               "K4 int8_matmul_kernel": 0.0, "K5 int8_conv_kernel": 0.0}
     other = {}
     for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:  # device-side events only: kernels, copies
+        # device-side events only: kernels and copies, not the ranges a
+        # record_function (such as Optimizer.step) spans over them
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         us = evt.time_range.elapsed_us()
         for group in groups:
@@ -690,6 +755,224 @@ def device_breakdown(torch, run) -> dict:
             "kernels_ms": groups, "other_kernels_ms": sum(other.values()), "top_other_ms": top}
 
 
+def check_eight_frame_extractor(torch, model, video):
+    """Fault 1: the float32 extractor at 8 frames per clip. The clip shape
+    sends the model down the plain torch chain (K1 still crops); its
+    features are held against the plain float32 forward."""
+    from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+    from anomaly_detection_on_video_tpu_torch.ops.kernels.crop_norm import ten_crop_standardize_plain
+    from anomaly_detection_on_video_tpu_torch.ops.resize import (
+        resize_bilinear_exact, short_side_size)
+
+    extractor = FeatureExtractor(state_dict=model.state_dict(), dtype=torch.float32, batch=40,
+                                 frames_per_clip=8, device="cuda")
+    extractor.extract_frames(video)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    features = extractor.extract_frames(video)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = kernels.launch_counts()
+    clips = video.shape[0] // 8
+    if (counts["ten_crop_standardize"] < 1 or counts["stem_conv_pool"]
+            or counts["bottleneck_block"] or features.shape != (clips, 10, 2048)):
+        raise AssertionError(f"8-frame extractor: launches {counts}, features {features.shape}")
+    frames = torch.from_numpy(video[: clips * 8]).cuda()
+    h, w = short_side_size(video.shape[1], video.shape[2], extractor.resize)
+    resized = resize_bilinear_exact(frames, h, w).reshape(clips, 8, h, w, 3)
+    with torch.no_grad():
+        ref = plain_features(torch, extractor.model, ten_crop_standardize_plain(
+            resized, 224, torch.float32)).reshape(clips, 10, 2048)
+    err = check_close("8-frame float32 features", torch.from_numpy(features).cuda(), ref,
+                      1e-4, 1e-4)
+    print(f"float32 extractor at 8 frames per clip: {clips} clips in {seconds * 1e3:.2f} ms, "
+          f"launches {counts}; features vs the plain float32 forward: max |err| {err:.2e}",
+          flush=True)
+
+
+def check_int8_stem_past_2g(torch):
+    """Fault 2: K5's int8 stem at B = 480, whose output holds more than
+    2^31 values, bit-equal to its plain version in slices of 40 clips."""
+    from anomaly_detection_on_video_tpu_torch.ops.kernels import (
+        int8_conv, int8_conv_plain, pack_int8_conv_weight)
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, slab = 480, 40
+    x = torch.randint(-127, 128, (b, 16, 224, 224, 3), generator=gen, dtype=torch.int8,
+                      device="cuda")
+    w = pack_int8_conv_weight(torch.randint(-20, 21, (64, 3, 5, 7, 7), generator=gen,
+                                            dtype=torch.int8, device="cuda"))
+    scale = torch.rand(64, generator=gen, device="cuda") * 1e-4 + 1e-5
+    geo = ((5, 7, 7), (2, 2, 2), (2, 3, 3))
+    out = int8_conv(x, w, scale, *geo, torch.bfloat16)
+    torch.cuda.synchronize()
+    for i in range(0, b, slab):
+        check_equal(f"K5 stem at B = {b}, clips {i}-{i + slab - 1}", out[i:i + slab],
+                    int8_conv_plain(x[i:i + slab], w, scale, *geo, torch.bfloat16))
+    ms = cuda_ms(lambda: int8_conv(x, w, scale, *geo, torch.bfloat16), 3)
+    out_bytes = out.numel() * out.element_size()
+    bound_ms, bound_by = bound(x.numel() + w.numel() + out_bytes,
+                               2.0 * b * 64 * 3 * taps_inside(16, 8, 5, 2, 2)
+                               * taps_inside(224, 112, 7, 2, 3) ** 2, "int8")
+    print(f"K5 int8 stem at B = {b}: output {tuple(out.shape)} = {out.numel():,} values "
+          f"(2^31 = {2 ** 31:,}), bit-equal to the plain version in {b // slab} slices; "
+          f"{ms:.3f} ms kernel, bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+    del x, out
+
+
+def write_training_data(root: str):
+    """The committed segment bags as train features, the same bags as
+    (32, 10, 2048) test features, an annotation file (abnormal videos: one
+    event over frames 160-320 of 512; normal videos: none) and the ground
+    truth the port's make_gt_ucf builds from it."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import make_gt_ucf
+
+    bags = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                                "i3d_segments_seed0.npz"))
+    train, test = os.path.join(root, "train"), os.path.join(root, "test")
+    os.makedirs(train)
+    os.makedirs(test)
+    lines = []
+    for name in bags.files:
+        np.save(os.path.join(train, f"{name}_i3d.npy"), bags[name])
+        np.save(os.path.join(test, f"{name}_i3d.npy"), bags[name].transpose(1, 0, 2))
+        normal = "Normal" in name
+        events = "-1  -1" if normal else "160  320"
+        lines.append(f"{name}.mp4  {'Normal' if normal else 'Abuse'}  {events}  -1  -1")
+    annotations = os.path.join(root, "annotations.txt")
+    with open(annotations, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    gt = os.path.join(root, "ground_truth.json")
+    make_gt_ucf.main(["--annotations", annotations, "--features", test, "--out", gt])
+    return train, test, gt, len(bags.files)
+
+
+def run_training(overrides: dict):
+    """The port's run entry: ``main`` with ``key=value`` overrides where
+    PyYAML is installed, else ``train`` on ``MGFN_RUN_CONFIG`` with the
+    same overrides set. Returns what it printed."""
+    from anomaly_detection_on_video_tpu_torch import run
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            import yaml  # noqa: F401
+        except ImportError:
+            cfg = copy.deepcopy(MGFN_RUN_CONFIG)
+            for key, value in overrides.items():
+                node = cfg
+                *path, last = key.split(".")
+                for part in path:
+                    node = node[part]
+                node[last] = value
+            run.train(cfg, "cuda")
+        else:
+            # key= is null; booleans are YAML's true / false
+            run.main(["runner=mgfn"] + [
+                f"{k}={'' if v is None else json.dumps(v) if isinstance(v, bool) else v}"
+                for k, v in overrides.items()])
+    sys.stdout.write(out.getvalue())
+    return out.getvalue()
+
+
+def check_training(torch):
+    """MGFN training at the full runner=mgfn width through the port's run
+    entry, then eval_only from its checkpoint; returns the wall time."""
+    import numpy as np
+
+    start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="mgfn_train_")
+    try:
+        train, test, gt, n_videos = write_training_data(root)
+        # lr 1e-4: at the config's 1e-3 the JAX trainer, and the port with
+        # it, diverge to NaN by step 4 on these bags (PERF.md, section 6)
+        overrides = {"data.train_path": train, "data.test_path": test,
+                     "data.ground_truth_path": gt, "data.batch_size": 3,
+                     "runner.optimizer.learning_rate": 1e-4,
+                     "trainer.max_epochs": 10, "trainer.max_steps": 20, "trainer.eval_every": 5,
+                     "trainer.log_path": os.path.join(root, "metrics.jsonl"),
+                     "trainer.checkpoint.dirpath": os.path.join(root, "checkpoints")}
+        run_training(overrides)
+        with open(overrides["trainer.log_path"]) as f:
+            records = [json.loads(line) for line in f]
+        losses = [r["train_loss"] for r in records if "train_loss" in r]
+        evals = [r for r in records if "valid/rec_auc" in r]
+        if len(losses) != 20 or not np.isfinite(losses).all():
+            raise AssertionError(f"training: {len(losses)} losses, expected 20 finite: {losses}")
+        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            raise AssertionError(f"training: the loss did not fall: {losses}")
+        aucs = [(r["valid/rec_auc"], r["valid/pr_auc"]) for r in evals]
+        if len(evals) != 2 or not all(np.isfinite(a) and 0.0 <= a <= 1.0 for pair in aucs
+                                      for a in pair):
+            raise AssertionError(f"training: eval AUCs {aucs}")
+        wall = time.perf_counter() - start
+        print(f"training: {n_videos} videos, 20 steps at batch 3 + 3, losses "
+              f"{np.round(losses, 5).tolist()}; first 5 mean {np.mean(losses[:5]):.5f}, last 5 "
+              f"mean {np.mean(losses[-5:]):.5f}; eval at steps {[r['step'] for r in evals]}: "
+              f"rec_auc / pr_auc {aucs}; {wall:.1f} s", flush=True)
+        printed = run_training(dict(overrides, **{"trainer.eval_only": True,
+                                                  "trainer.log_path": None}))
+        line = json.loads(printed.strip().splitlines()[-1])
+        if line["step"] != 20 or abs(line["valid/rec_auc"] - aucs[-1][0]) > 1e-6 or abs(
+                line["valid/pr_auc"] - aucs[-1][1]) > 1e-6:
+            raise AssertionError(f"eval_only from the step-20 checkpoint gave {line}, "
+                                 f"training's last eval {aucs[-1]}")
+        print(f"eval_only from the checkpoint at step {line['step']}: rec_auc "
+              f"{line['valid/rec_auc']:.6f}, pr_auc {line['valid/pr_auc']:.6f} (training's last "
+              f"eval {aucs[-1][0]:.6f}, {aucs[-1][1]:.6f})", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return time.perf_counter() - start
+
+
+def time_train_step(torch, precision: str, steps: int = 20):
+    """The train step at the reference batch, 16 normal + 16 abnormal bags
+    of (10, 32, 2049) made from a seed, at the full MGFN width: median ms
+    per step (host clock around a synchronized step), steps/s, peak memory,
+    and one profiled step's device time. lr 1e-4, as in check_training:
+    at 1e-3 these inputs drive the losses to NaN within a few steps."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.models import seeded_init_
+    from anomaly_detection_on_video_tpu_torch.models.mgfn import MGFN, MGFNConfig
+    from anomaly_detection_on_video_tpu_torch.training.optim import adam_with_l2
+    from anomaly_detection_on_video_tpu_torch.training.runner import TrainState, make_train_step
+
+    rng = np.random.RandomState(3)
+    feature = torch.from_numpy(np.abs(rng.randn(32, 10, 32, 2049)).astype(np.float32)).cuda()
+    n_labels, a_labels = torch.zeros(16, device="cuda"), torch.ones(16, device="cuda")
+    model = seeded_init_(MGFN(MGFNConfig()), seed=0).cuda()
+    state = TrainState.create(model, adam_with_l2(model.parameters(), learning_rate=1e-4), seed=2)
+    step = make_train_step(precision)
+    for _ in range(3):
+        step(state, feature, n_labels, a_labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(steps):
+        start = time.perf_counter()
+        loss = step(state, feature, n_labels, a_labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+        losses.append(float(loss))
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train step {precision}: losses {losses}")
+    breakdown = device_breakdown(torch, lambda: step(state, feature, n_labels, a_labels))
+    median = float(np.median(times)) * 1e3
+    print(f"train step {precision} at 16 + 16 bags of (10, 32, 2049): median {median:.3f} ms "
+          f"({min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}) over {steps} steps = "
+          f"{1e3 / median:.2f} steps/s; peak memory {peak_gib:.2f} GiB; one profiled step: busy "
+          f"{breakdown['device_busy_ms']:.2f} ms of {breakdown['wall_ms']:.2f} ms wall, idle share "
+          f"{breakdown['idle_share']:.1%}; {json.dumps(breakdown['top_other_ms'])}", flush=True)
+    del state, model, feature
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -697,6 +980,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
     from anomaly_detection_on_video_tpu_torch.infer import build_scorer, score_features
     from anomaly_detection_on_video_tpu_torch.models import seeded_init_
@@ -841,6 +1125,22 @@ def main() -> int:
     del bulk_resized, bulk_ref
     torch.cuda.empty_cache()
 
+    # 6. fault 1: clips other than 16x224x224 run the plain torch chain
+    check_eight_frame_extractor(torch, model, video)
+    torch.cuda.empty_cache()
+
+    # 7. fault 2: K5 past 2^31 output values
+    check_int8_stem_past_2g(torch)
+    torch.cuda.empty_cache()
+
+    # 8. MGFN training through the run entry, then the reference batch's step
+    t_train = time.perf_counter()
+    run_s = check_training(torch)
+    for precision in ("32-true", "bf16-mixed"):
+        time_train_step(torch, precision)
+    print(f"training phase: {time.perf_counter() - t_train:.1f} s ({run_s:.1f} s for the run and "
+          f"its eval_only)", flush=True)
+
     pallas = "anomaly_detection_on_video_tpu/ops/pallas"
     sources = {"ten_crop_standardize": ("crop_norm.cu", f"{pallas}/crop_norm.py:49"),
                "stem_conv_pool": ("stem.cu", f"{pallas}/stem.py:150"),
@@ -855,6 +1155,7 @@ def main() -> int:
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
          "library_ms": e["library_ms"]} for e in results]}
     print(json.dumps(line), flush=True)
+    print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)
