@@ -1,5 +1,6 @@
-"""Host video decode with OpenCV (counterpart of the JAX package's
-``data/video.py`` cv2 backend).
+"""Video discovery and host video decode with OpenCV (counterpart of the
+JAX package's ``data/video.py`` cv2 backend and its CLIs' ``find_videos``
+and ``warn_duplicate_stems``).
 
 ``cv2`` is imported only inside the decode functions: the rest of the port
 runs on hosts without it. Chunks are 3,008 frames (16 * 188), the
@@ -8,13 +9,46 @@ reference's chunk size, so per-chunk features stay layout-compatible.
 
 from __future__ import annotations
 
+import glob
+import os
 import queue
+import sys
 import threading
-from typing import Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
 CHUNK_FRAMES = 16 * 188
+VIDEO_EXTENSIONS = (".mp4", ".avi", ".mkv", ".mov", ".webm", ".mpg", ".mpeg")
+
+
+def find_videos(spec: str) -> List[str]:
+    """The videos ``spec`` names, sorted: a directory is searched
+    recursively, by extension and case-insensitively (corpora arrive in
+    class subfolders, the UCF-Crime layout); an existing file is itself,
+    even when its name holds glob characters; anything else is a glob.
+    Empty when nothing matches; each CLI says so in its own words."""
+    if os.path.isdir(spec):
+        return sorted(path for path in glob.glob(os.path.join(spec, "**", "*"), recursive=True)
+                      if path.lower().endswith(VIDEO_EXTENSIONS))
+    if os.path.isfile(spec):
+        return [spec]
+    return sorted(glob.glob(spec))
+
+
+def warn_duplicate_stems(paths: Sequence[str], what: str = "extracted") -> Dict[str, List[str]]:
+    """Warn on stderr when videos from different folders share a filename
+    stem: every output file is keyed by stem, so of such videos only the
+    first is ``what`` (extracted, scored) and the rest are skipped as done.
+    Returns the duplicated stems and their paths."""
+    by_stem: Dict[str, List[str]] = {}
+    for path in paths:
+        by_stem.setdefault(os.path.splitext(os.path.basename(path))[0], []).append(path)
+    dups = {stem: group for stem, group in by_stem.items() if len(group) > 1}
+    for stem, group in sorted(dups.items()):
+        print(f"warning: {len(group)} videos share the stem {stem!r} ({', '.join(group)}); "
+              f"outputs are stem-keyed, so only the first will be {what}", file=sys.stderr)
+    return dups
 
 
 def _open(path: str):

@@ -6,7 +6,10 @@
 
 Writes ``<stem>_i3d.npy`` of shape ``(n_clips, 10, 2048)`` float32 per
 video, the reference's on-disk contract, and skips videos whose file is
-already there. Single host, RGB stream, ten crops. ``--dtype int8`` runs
+already there. ``--videos`` is a video file, a glob, or a directory
+searched recursively (the UCF-Crime class subfolders); videos of
+different folders that share a stem share one output file, and a warning
+names them. Single host, RGB stream, ten crops. ``--dtype int8`` runs
 the convs in int8 (kernels K4 and K5) around bfloat16 compute; its scales
 calibrate on the first chunk extracted and are pinned to ``--outdir`` as
 ``act_scales_rgb.json``, the JAX package's sidecar, so a resumed run
@@ -21,13 +24,15 @@ import argparse
 from typing import List, Optional
 
 from .data.extraction import FeatureExtractor, extract_videos
-from .infer import extractor_kwargs, list_videos, load_state_dict
+from .data.video import find_videos, warn_duplicate_stems
+from .infer import extractor_kwargs, load_state_dict
 from .utils.device import resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--videos", required=True, help="video file, directory, or glob")
+    parser.add_argument("--videos", required=True,
+                        help="video file, glob, or directory (searched recursively)")
     parser.add_argument("--outdir", required=True)
     parser.add_argument("--weights", default=None,
                         help="I3Res50 state dict (.pt); seeded random weights if unset")
@@ -42,12 +47,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    videos = find_videos(args.videos)
+    if not videos:
+        raise SystemExit(f"no videos found under {args.videos!r}")
+    warn_duplicate_stems(videos, what="extracted")
     extractor = FeatureExtractor(
         state_dict=load_state_dict(args.weights) if args.weights else None,
         device=resolve_device(args.device),
         **extractor_kwargs(args),
     )
-    videos = list_videos(args.videos)
     n_done = extract_videos(videos, args.outdir, extractor)
     print(f"extracted {n_done} of {len(videos)} videos into {args.outdir}")
     return 0

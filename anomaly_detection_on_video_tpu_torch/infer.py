@@ -1,45 +1,73 @@
-"""Score videos: video -> I3D features -> MGFN clip and frame scores.
+"""Score videos: video -> I3D features -> clip and frame anomaly scores.
 
-The port's counterpart of the repository's ``infer.py`` main path::
+The port's counterpart of the repository's ``infer.py``, its scorer side
+and the one-shot scoring of a video set::
 
-    python -m anomaly_detection_on_video_tpu_torch.infer \\
-        --videos clips/ --outdir scores/ --torch-weights mgfn.pt \\
+    python -m anomaly_detection_on_video_tpu_torch.infer --videos clips/ --outdir scores/ \\
+        (--checkpoint <run dir> [--checkpoint-step latest|best|N]
+         | --torch-weights <.pt> [--official]) \\
+        [--model mgfn|rtfm|sultani] [--model-config k=v ...] \\
+        [--threshold t --min-event-frames n] [--features-dir <cache>] \\
+        [--frames-per-clip n] [--group-mode adaptive|fixed] [--warmup clips] \\
         [--i3d-weights i3res50.pt] [--dtype bfloat16|float32|int8] [--batch 240] [--device cuda]
 
-Writes ``<stem>_scores.json`` per video with the same keys as the JAX
-package's CLI (video, model, stream, n_clips, frames_per_clip, clip_scores,
-frame_scores, latency_s). ``--torch-weights`` is an MGFN state dict in the
-reference's HF layout; ``--i3d-weights`` an I3Res50 state dict (seeded
-random weights when unset, as the JAX CLI initializes randomly).
+Writes ``<stem>_scores.json`` per video with the JAX CLI's keys (video,
+model, stream, n_clips, frames_per_clip, clip_scores, frame_scores,
+latency_s, and with ``--threshold`` the threshold and the ``events``:
+contiguous frame runs scoring above it). ``--videos`` is a video file, a
+glob, or a directory searched recursively (the UCF-Crime class
+subfolders).
+
+The scorer: ``--checkpoint`` is a directory written by the port's ``run``
+(``<step>/state.pt`` and ``hparams.json``), whose persisted model family
+and config are rebuilt unless ``--model`` is given, with ``--model-config``
+keys applied on top. The JAX package's orbax checkpoints are not read:
+export their weights with its ``utils/convert.py``
+``export_{mgfn,rtfm,sultani}_state_dict`` and pass them as
+``--torch-weights``, a state dict in the reference's layout (MGFN: the HF
+names, ``--official`` for the official release's; RTFM: the official
+release's, BatchNorms after a conv folded; Sultani: ``fc1``-``fc3``).
+``--i3d-weights`` is an I3Res50 state dict (seeded random weights when
+unset, as the JAX CLI initializes randomly).
+
 ``--dtype int8`` runs the I3D convs in int8 (kernels K4 and K5) around
 bfloat16 compute, with scales calibrated on the first video's first chunk
-and pinned to ``--outdir`` as ``act_scales_rgb.json``. On an H100 it is
-currently slower than bfloat16 and uses more memory: the quantize and BN
-passes around each int8 conv are separate elementwise kernels (PERF.md,
-section 5).
+and pinned to ``--features-dir`` (else ``--outdir``) as
+``act_scales_rgb.json``. On an H100 it is currently slower than bfloat16
+and uses more memory (PERF.md, section 5). Not ported: ``--stream`` flow
+and both, ``--crops center``, other ``--i3d-model`` values, ``--figure``,
+``--watch``, ``--serve``, ``--export`` / ``--from-export``,
+``--data-parallel`` and ``--compile-cache``.
 """
 
 from __future__ import annotations
 
 import argparse
-import glob
 import json
 import os
+import sys
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from .data.extraction import FeatureExtractor
+from .config import instantiate, locate
+from .config.compose import parse_value
+from .data.extraction import FeatureExtractor, feature_filename
 from .data.features import pad_eval_batch
-from .models.mgfn import MGFN, MGFNConfig
-from .ops.metrics import frame_level_scores
-from .training.runner import eval_bucket, make_eval_step
-from .utils.device import DeviceLike, resolve_device
+from .data.video import find_videos, warn_duplicate_stems
+from .models import build_model
+from .ops.metrics import anomaly_events, frame_level_scores
+from .training.checkpoints import STATE_FILE, TopKCheckpointer
+from .training.optim import adam_with_l2
+from .training.runner import TrainState, buckets_up_to, eval_bucket, make_eval_step
+from .utils.convert import mgfn_state_dict_from_official, rtfm_state_dict_from_official
+from .utils.device import resolve_device
+from .utils.npyio import atomic_save
 
-VIDEO_EXTENSIONS = (".mp4", ".avi", ".mkv", ".mov", ".webm", ".mpg", ".mpeg")
+FEATURE_DIM = 2048  # the RGB stream's features per crop
 
 
 def load_state_dict(path: str) -> dict:
@@ -49,16 +77,91 @@ def load_state_dict(path: str) -> dict:
     return state_dict
 
 
-def build_scorer(
-    state_dict: Optional[dict] = None,
-    config: MGFNConfig = MGFNConfig(),
-    device: DeviceLike = "cuda",
-) -> nn.Module:
-    """MGFN on ``device`` in eval mode, from a reference-named state dict."""
-    model = MGFN(config)
-    if state_dict is not None:
-        model.load_state_dict(state_dict)
-    return model.to(resolve_device(device)).eval()
+def _weights_to_port(model_name: str, state_dict: dict, official: bool) -> dict:
+    """A reference-layout state dict -> the port model's names."""
+    if model_name == "rtfm":
+        return rtfm_state_dict_from_official(state_dict)
+    if model_name == "mgfn" and official:
+        return mgfn_state_dict_from_official(state_dict)
+    return state_dict
+
+
+def _parse_model_config(pairs: Optional[List[str]]) -> dict:
+    overrides = {}
+    for kv in pairs or []:
+        key, _, value = kv.partition("=")
+        try:
+            # YAML-style values, as the run CLI's: dims=[64,128,1024], dropout_rate=0.7
+            overrides[key] = parse_value(value)
+        except ValueError as exc:
+            raise SystemExit(f"--model-config {kv!r}: {exc}")
+    return overrides
+
+
+def build_scorer(args: argparse.Namespace) -> Tuple[nn.Module, str]:
+    """(scorer on ``args.device`` in eval mode, its registry name) from the
+    CLI's scorer flags, as the JAX CLI's ``build_scorer`` resolves them:
+    the checkpoint's persisted model (``hparams.json``) unless ``--model``
+    is given, ``--model-config`` on top, then the weights of
+    ``--torch-weights`` or of the ``--checkpoint-step`` selected step.
+    Path and selection mistakes exit with a one-line message before any
+    extraction; a restore that does not fit the model raises ValueError."""
+    checkpoint, torch_weights = args.checkpoint, args.torch_weights
+    # fail fast on path typos: scoring with random weights would be garbage
+    if checkpoint and not os.path.isdir(checkpoint):
+        raise SystemExit(f"--checkpoint {checkpoint!r}: no such directory")
+    if torch_weights and not os.path.isfile(torch_weights):
+        raise SystemExit(f"--torch-weights {torch_weights!r}: no such file")
+    if args.i3d_weights and not os.path.isfile(args.i3d_weights):
+        raise SystemExit(f"--i3d-weights {args.i3d_weights!r}: no such file")
+
+    overrides = _parse_model_config(args.model_config)
+    metadata = TopKCheckpointer.load_metadata(checkpoint) if checkpoint else None
+    if metadata and not args.model:
+        node = dict(metadata.get("model_config") or {})
+        node.update(overrides)
+        model_name = metadata.get("model_name") or "mgfn"
+        if "_target_" in node and metadata.get("model_class"):
+            model = locate(metadata["model_class"])(instantiate(node))
+        else:
+            node.pop("_target_", None)
+            _, model = build_model(model_name, **node)
+    else:
+        model_name = args.model or "mgfn"
+        _, model = build_model(model_name, **overrides)
+
+    if torch_weights:
+        try:
+            model.load_state_dict(_weights_to_port(model_name, load_state_dict(torch_weights),
+                                                   args.official))
+        except (KeyError, ValueError, RuntimeError) as exc:
+            raise SystemExit(
+                f"--torch-weights {torch_weights!r} does not look like a {model_name!r} state "
+                f"dict ({type(exc).__name__}: {exc}); pass --model {{mgfn,rtfm,sultani}} "
+                "matching the weights, or --official for the official MGFN release layout")
+    elif checkpoint:
+        ckpt = TopKCheckpointer(checkpoint)
+        if ckpt.latest_step() is None:
+            if any(name.isdigit() and not os.path.exists(os.path.join(checkpoint, name, STATE_FILE))
+                   for name in os.listdir(checkpoint)):
+                raise SystemExit(
+                    f"--checkpoint {checkpoint!r}: its step directories hold no {STATE_FILE}; "
+                    "it looks like a JAX (orbax) checkpoint, and the port reads only the "
+                    "checkpoints its own run writes. Export the weights with the JAX package's "
+                    "utils/convert.py export_{mgfn,rtfm,sultani}_state_dict, torch.save them, "
+                    "and pass --torch-weights")
+            raise SystemExit(f"--checkpoint {checkpoint!r}: directory contains no checkpoints "
+                             "(expected a directory written by the port's run)")
+        # only step selection errors map to the flag; a restore failure (a
+        # --model-config override reshaping the model) raises as its own ValueError
+        try:
+            step = ckpt.resolve_step(args.checkpoint_step)
+        except ValueError as exc:
+            raise SystemExit(f"--checkpoint-step: {exc}")
+        ckpt.restore(TrainState(model, adam_with_l2(model.parameters())), step=step)
+    else:
+        raise SystemExit("one of --checkpoint / --torch-weights is required")
+    return model.to(resolve_device(args.device)).eval(), model_name
 
 
 def score_features(features: np.ndarray, scorer: nn.Module, eval_step=None) -> np.ndarray:
@@ -78,16 +181,28 @@ def process_video(
     extractor: FeatureExtractor,
     scorer: nn.Module,
     outdir: str,
+    model_name: str = "mgfn",
+    threshold: Optional[float] = None,
+    min_event_frames: int = 1,
+    features_dir: Optional[str] = None,
 ) -> dict:
-    """Extract, score and write ``<stem>_scores.json``; returns its content."""
+    """Extract (or load ``features_dir``'s ``<stem>_i3d.npy``, writing it
+    on a miss), score, and write ``<stem>_scores.json``; returns its
+    content. With ``threshold`` the JSON carries the event windows."""
     start = time.time()
     stem = os.path.splitext(os.path.basename(path))[0]
-    features = extractor.extract_video(path)
+    cache = os.path.join(features_dir, feature_filename(stem)) if features_dir else None
+    if cache and os.path.exists(cache):
+        features = np.load(cache)
+    else:
+        features = extractor.extract_video(path)
+        if cache:
+            atomic_save(cache, features)
     clip_scores = score_features(features, scorer)
     frame_scores = frame_level_scores(clip_scores, extractor.frames_per_clip)
     out = {
         "video": os.path.basename(path),
-        "model": "mgfn",
+        "model": model_name,
         "stream": "rgb",
         "n_clips": int(features.shape[0]),
         "frames_per_clip": extractor.frames_per_clip,
@@ -95,6 +210,9 @@ def process_video(
         "frame_scores": np.round(frame_scores, 6).tolist(),
         "latency_s": round(time.time() - start, 3),
     }
+    if threshold is not None:
+        out["threshold"] = threshold
+        out["events"] = anomaly_events(frame_scores, threshold, min_event_frames)
     os.makedirs(outdir, exist_ok=True)
     out_path = os.path.join(outdir, f"{stem}_scores.json")
     tmp_path = out_path + ".tmp"
@@ -103,18 +221,6 @@ def process_video(
     os.replace(tmp_path, out_path)
     print(f"{stem}: {out['n_clips']} clips, max score {clip_scores.max():.4f} -> {out_path}")
     return out
-
-
-def list_videos(spec: str) -> List[str]:
-    """A video file, a directory of videos, or a glob."""
-    if os.path.isdir(spec):
-        paths = [os.path.join(spec, n) for n in os.listdir(spec)
-                 if n.lower().endswith(VIDEO_EXTENSIONS)]
-    else:
-        paths = glob.glob(spec)
-    if not paths:
-        raise SystemExit(f"--videos {spec!r}: no videos found")
-    return sorted(paths)
 
 
 def extractor_kwargs(args: argparse.Namespace) -> dict:
@@ -127,38 +233,116 @@ def extractor_kwargs(args: argparse.Namespace) -> dict:
     }
 
 
+def warmup(extractor: FeatureExtractor, scorer: nn.Module, max_clips: int, channels: int) -> None:
+    """Run the I3D forward once on a constant 240x320 clip (unless int8
+    still awaits calibration, which a constant chunk would degrade) and
+    the scorer on every eval bucket a video of ``max_clips`` clips can
+    hit: on the card this builds the kernels and picks cuDNN's algorithms
+    before the first video."""
+    start = time.time()
+    if extractor._needs_calibration:
+        print("warmup: skipping rgb extractor (int8 awaits calibration on the first real video)",
+              flush=True)
+    else:
+        extractor.extract_frames(np.full((extractor.frames_per_clip, 240, 320, 3), 127, np.uint8))
+    buckets = buckets_up_to(max_clips)
+    for bucket in buckets:
+        score_features(np.zeros((bucket, extractor.n_crops, channels), np.float32), scorer)
+    print(f"warmup done in {time.time() - start:.1f}s (eval buckets {buckets})", flush=True)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--videos", required=True, help="video file, directory, or glob")
+    parser.add_argument("--videos", required=True,
+                        help="video file, glob, or directory (searched recursively)")
     parser.add_argument("--outdir", required=True)
-    parser.add_argument("--torch-weights", required=True,
-                        help="MGFN state dict (.pt), reference HF layout")
+    parser.add_argument("--checkpoint", default=None,
+                        help="checkpoint directory written by the port's run")
+    parser.add_argument("--checkpoint-step", default="latest",
+                        help="which checkpoint to serve: latest (default), best (highest "
+                             "recorded valid AUC), or an exact step number")
+    parser.add_argument("--torch-weights", default=None,
+                        help="scorer state dict (.pt) in the reference's layout")
+    parser.add_argument("--official", action="store_true",
+                        help="--torch-weights uses the official MGFN release layout instead of "
+                             "the HF layout")
+    parser.add_argument("--model", default=None, choices=["mgfn", "rtfm", "sultani"],
+                        help="scorer family; defaults to the checkpoint's hparams.json (else mgfn)")
+    parser.add_argument("--model-config", nargs="*", metavar="KEY=VALUE",
+                        help="model config overrides (YAML-style values, e.g. dims=[64,128,1024]); "
+                             "applied on top of the checkpoint's hparams")
     parser.add_argument("--i3d-weights", default=None,
                         help="I3Res50 state dict (.pt); seeded random weights if unset")
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"],
                         help="I3D compute dtype; int8 quantizes the convs (scales calibrated "
-                             "on the first chunk and pinned to --outdir); currently slower "
-                             "than bfloat16 on an H100 (PERF.md sec. 5)")
+                             "on the first chunk and pinned to --features-dir or --outdir); "
+                             "currently slower than bfloat16 on an H100 (PERF.md sec. 5)")
     parser.add_argument("--batch", type=int, default=240,
                         help="(clip, crop) forwards per extraction step")
+    parser.add_argument("--group-mode", default="adaptive", choices=["adaptive", "fixed"],
+                        help="'adaptive' (default) sizes each video's extraction group to the "
+                             "video by a power-of-two ladder capped at --batch; 'fixed' always "
+                             "uses the --batch-derived group")
+    parser.add_argument("--frames-per-clip", type=int, default=16)
+    parser.add_argument("--features-dir", default=None,
+                        help="cache and reuse <stem>_i3d.npy features here")
+    parser.add_argument("--threshold", type=float, default=None,
+                        help="emit anomaly events (contiguous frame runs scoring above this) in "
+                             "the score JSON")
+    parser.add_argument("--min-event-frames", type=int, default=1,
+                        help="drop events shorter than this many frames (only with --threshold)")
+    parser.add_argument("--warmup", type=int, default=0, metavar="CLIPS",
+                        help="before the first video, run the I3D forward once and the scorer "
+                             "on every eval bucket up to CLIPS clips")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.batch < 1:
+        parser.error(f"--batch must be >= 1 (got {args.batch})")
+    if args.threshold is not None and not 0.0 <= args.threshold <= 1.0:
+        # scores are sigmoid outputs: an out-of-range threshold gives no or all-frame events
+        parser.error(f"--threshold must be in [0, 1] (got {args.threshold}; frame scores are "
+                     "sigmoid probabilities)")
+    if args.threshold is not None and args.dtype == "int8":
+        print("warning: --threshold with --dtype int8: absolute thresholds derived on bf16 scores "
+              "may not transfer (frame scores shift up to ~0.5; AUC is stable). Re-derive the "
+              "operating point on int8-scored data (scripts/operating_point.py); see "
+              "docs/ROOFLINE.md.", file=sys.stderr)
+    videos = find_videos(args.videos)
+    if not videos:
+        raise SystemExit(f"no videos match {args.videos!r}")
+    os.makedirs(args.outdir, exist_ok=True)
+    # the scorer first: its path and weights checks fail before the extractor is built
+    scorer, model_name = build_scorer(args)
+    scorer_dim = getattr(getattr(scorer, "config", None), "channels", FEATURE_DIM)
+    if scorer_dim != FEATURE_DIM:
+        hint = ("two-stream (RGB + flow) scoring is not ported" if scorer_dim == 2 * FEATURE_DIM
+                else f"pass --model-config channels={FEATURE_DIM}")
+        raise SystemExit(f"--stream rgb extracts {FEATURE_DIM}-d features but the {model_name} "
+                         f"scorer expects {scorer_dim}-d input; {hint}")
     extractor = FeatureExtractor(
         state_dict=load_state_dict(args.i3d_weights) if args.i3d_weights else None,
-        adaptive_groups=True,
-        device=device,
+        frames_per_clip=args.frames_per_clip,
+        adaptive_groups=args.group_mode == "adaptive",
+        device=resolve_device(args.device),
         **extractor_kwargs(args),
     )
-    # one quantization per output directory, as the JAX CLI pins it
-    extractor.pin_calibration(args.outdir)
-    scorer = build_scorer(load_state_dict(args.torch_weights), device=device)
-    for path in list_videos(args.videos):
-        process_video(path, extractor, scorer, args.outdir)
+    # one quantization per feature directory, as the JAX CLI pins it (no-op unless int8)
+    extractor.pin_calibration(args.features_dir or args.outdir)
+    if args.warmup > 0:
+        warmup(extractor, scorer, args.warmup, scorer_dim)
+    # score JSONs are stem-keyed: same-stem videos of different subfolders would collide
+    warn_duplicate_stems(videos, what="scored")
+    for path in videos:
+        try:
+            process_video(path, extractor, scorer, args.outdir, model_name, args.threshold,
+                          args.min_event_frames, args.features_dir)
+        except ValueError as exc:  # an undecodable file: a user problem, not a traceback
+            raise SystemExit(f"{path}: {exc}")
     return 0
 
 

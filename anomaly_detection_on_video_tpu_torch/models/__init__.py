@@ -1,4 +1,5 @@
-"""Models: the i3res50 feature extractor and the MGFN scorer."""
+"""Models: the i3res50 feature extractor and the three scorer families
+(MGFN, RTFM, Sultani), with the JAX package's registry of scorers."""
 
 from __future__ import annotations
 
@@ -8,8 +9,32 @@ import torch
 from torch import nn
 
 from .mgfn import MGFN, MGFNConfig, MGFNForVideoAnomalyDetection, MGFNOutput
+from .rtfm import RTFM, RTFMConfig, RTFMForVideoAnomalyDetection, RTFMOutput
+from .sultani import Sultani, SultaniConfig, SultaniForVideoAnomalyDetection, SultaniOutput
 
-__all__ = ["MGFN", "MGFNConfig", "MGFNForVideoAnomalyDetection", "MGFNOutput", "seeded_init_"]
+__all__ = [
+    "MGFN", "MGFNConfig", "MGFNForVideoAnomalyDetection", "MGFNOutput",
+    "RTFM", "RTFMConfig", "RTFMForVideoAnomalyDetection", "RTFMOutput",
+    "Sultani", "SultaniConfig", "SultaniForVideoAnomalyDetection", "SultaniOutput",
+    "MODEL_REGISTRY", "build_model", "seeded_init_",
+]
+
+# scorer name (the configs' runner group) -> (config class, model class)
+MODEL_REGISTRY = {
+    "mgfn": (MGFNConfig, MGFN),
+    "rtfm": (RTFMConfig, RTFM),
+    "sultani": (SultaniConfig, Sultani),
+}
+
+
+def build_model(name: str, **config_overrides):
+    """(config, model) of a registered scorer, the config built from its
+    defaults and ``config_overrides``."""
+    if name not in MODEL_REGISTRY:
+        raise KeyError(f"unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
+    config_cls, model_cls = MODEL_REGISTRY[name]
+    config = config_cls(**config_overrides)
+    return config, model_cls(config)
 
 
 def seeded_init_(module: nn.Module, seed: int = 0) -> nn.Module:

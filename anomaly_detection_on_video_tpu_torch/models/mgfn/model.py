@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...losses import mgfn_loss, smoothness_loss, sparsity_loss
+from ..common import clip_masks, resolve_train
 from .config import MGFNConfig
 
 
@@ -264,17 +265,8 @@ class MGFN(nn.Module):
         (bs, t, 1), crop-averaged feature magnitudes (bs, t))."""
         bs, ncrops, t, c = video.shape
         x = video.reshape(bs * ncrops, t, c).transpose(1, 2)  # (B, C, T)
-        positions = torch.arange(t, device=video.device)
-        mask = video_mask = None
-        if length is not None:
-            length = torch.as_tensor(length, device=video.device)
-            if length.dim() == 0:
-                video_mask = (positions < length)[None]  # (1, t)
-                mask = video_mask[:, None].to(x.dtype)  # (1, 1, t)
-            else:
-                video_mask = positions[None] < length[:, None]  # (bs, t)
-                # row b*ncrops+crop of x carries video b's clips
-                mask = video_mask.repeat_interleave(ncrops, dim=0)[:, None].to(x.dtype)
+        video_mask, row_mask = clip_masks(length, t, ncrops, video.device)
+        mask = None if row_mask is None else row_mask[:, None].to(x.dtype)  # (1|B, 1, t)
         x = self.layer_norm(self.backbone(x, mask).transpose(1, 2))  # (B, T, C)
         scores = torch.sigmoid(self.fc(x))  # (bs*ncrops, t, 1)
         scores = scores.reshape(bs, ncrops, t).mean(dim=1)[..., None]
@@ -306,11 +298,7 @@ class MGFN(nn.Module):
         needed when ``config.dropout_rate > 0``). With both label vectors
         the MIL loss is computed: ``mgfn_loss`` + smoothness + sparsity.
         """
-        if train is None:
-            train = self.training
-        elif bool(train) != self.training:
-            raise ValueError(f"train={train} but the module is in "
-                             f"{'train' if self.training else 'eval'} mode")
+        train = resolve_train(self, train)
         if train and self.config.dropout > 0:
             raise NotImplementedError("feed-forward dropout (MGFNConfig.dropout > 0) is not "
                                       "ported; the repository's configs set it to 0")

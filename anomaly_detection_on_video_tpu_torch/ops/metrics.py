@@ -1,4 +1,5 @@
-"""Frame-level ROC-AUC and PR-AUC (numpy, sklearn semantics).
+"""Frame-level ROC-AUC and PR-AUC (numpy, sklearn semantics), and the
+thresholded event windows that serving reports.
 
 Counterpart of the JAX package's ``ops/metrics.py``: clip scores repeat x16
 to frame level; ROC uses thresholds at distinct scores, trapezoidal AUC; the
@@ -95,3 +96,28 @@ def false_alarm_rate(labels: np.ndarray, scores: np.ndarray, threshold: float = 
 def frame_level_scores(clip_scores: np.ndarray, frames_per_clip: int = 16) -> np.ndarray:
     """Repeat per-clip scores to frame level."""
     return np.repeat(np.asarray(clip_scores).ravel(), frames_per_clip)
+
+
+def anomaly_events(frame_scores: np.ndarray, threshold: float, min_frames: int = 1) -> list:
+    """Contiguous frame runs scoring above ``threshold`` -> event windows,
+    the inverse of the ground-truth builder's window -> frame labels. Per
+    event: inclusive ``start_frame`` / ``end_frame`` (the UCF-Crime
+    annotation convention), ``frames``, and the window's ``peak`` and
+    ``mean`` score rounded to 6 decimals; runs shorter than ``min_frames``
+    are dropped (debounce)."""
+    scores = np.asarray(frame_scores, dtype=np.float64).ravel()
+    above = scores > threshold
+    edges = np.flatnonzero(np.diff(np.r_[0, above.astype(np.int8), 0]))
+    events = []
+    for start, end in zip(edges[::2], edges[1::2]):  # end exclusive here
+        if end - start < min_frames:
+            continue
+        window = scores[start:end]
+        events.append({
+            "start_frame": int(start),
+            "end_frame": int(end - 1),
+            "frames": int(end - start),
+            "peak": round(float(window.max()), 6),
+            "mean": round(float(window.mean()), 6),
+        })
+    return events

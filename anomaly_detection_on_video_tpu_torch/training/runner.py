@@ -142,6 +142,16 @@ def eval_bucket(n_clips: int, minimum: int = 32) -> int:
     return bucket
 
 
+def buckets_up_to(max_clips: int) -> list:
+    """Every eval bucket a video of at most ``max_clips`` clips can hit
+    (the JAX package's ``utils/aot.py`` ``export_buckets``)."""
+    buckets, n = {eval_bucket(max_clips)}, 1
+    while n <= max_clips:
+        buckets.add(eval_bucket(n))
+        n *= 2
+    return sorted(buckets)
+
+
 def make_eval_step() -> Callable[[nn.Module, torch.Tensor, torch.Tensor], torch.Tensor]:
     """The scoring step: ``step(model, feature (bs, ncrops, bucket, C+1),
     length (bs,)) -> scores (bs, bucket, 1)``.

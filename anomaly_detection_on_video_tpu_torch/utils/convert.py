@@ -1,9 +1,10 @@
-"""JAX-package variables -> reference-named torch state dicts.
+"""JAX-package variables -> reference-named torch state dicts, and the
+reference's own checkpoint layouts -> the port's names.
 
-The port's own copy of the JAX package's exporters
-(``export_i3res50_state_dict`` and ``export_mgfn_state_dict`` in its
-``utils/convert.py``). Each function takes the ``{"params", "batch_stats"}``
-tree as nested dicts of numpy arrays and returns the state dict that
+The ``*_from_flax`` functions are the port's own copy of the JAX package's
+exporters (``export_{i3res50,mgfn,rtfm,sultani}_state_dict`` in its
+``utils/convert.py``). Each takes the ``{"params", "batch_stats"}`` tree as
+nested dicts of numpy arrays and returns the state dict that
 ``load_state_dict`` takes on the port's models (and the reference's):
 
 - flax Conv3d kernel (T, H, W, I, O) -> torch (O, I, T, H, W)
@@ -14,7 +15,7 @@ tree as nested dicts of numpy arrays and returns the state dict that
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +23,11 @@ import torch
 
 def _t(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def _array(value: Any) -> np.ndarray:
+    """A state dict's tensor (or array) as a numpy array of its dtype."""
+    return value.detach().cpu().numpy() if hasattr(value, "detach") else np.asarray(value)
 
 
 def _conv3d(w: Any) -> torch.Tensor:
@@ -139,4 +145,137 @@ def mgfn_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.T
     sd["layer_norm.bias"] = _t(params["head_norm"]["bias"])
     sd["fc.weight"] = _t(np.asarray(params["fc"]["kernel"]).T)
     sd["fc.bias"] = _t(params["fc"]["bias"])
+    return sd
+
+
+def rtfm_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """RTFM variables -> the official release's names (the JAX package's
+    ``export_rtfm_state_dict``): flax ``dilated{1,2,4}`` / ``proj`` /
+    ``fuse`` are ``Aggregate.conv_{1,2,3}`` / ``conv_4`` / ``conv_5``, the
+    non-local Dense layers 1x1 convs, ``fc_out`` is ``fc3``."""
+    params = variables["params"]
+    agg = params["aggregate"]
+    sd: Dict[str, torch.Tensor] = {}
+    for official, ours in (("conv_1", "dilated1"), ("conv_2", "dilated2"),
+                           ("conv_3", "dilated4"), ("conv_5", "fuse")):
+        sd[f"Aggregate.{official}.0.weight"] = _conv1d(agg[ours]["kernel"])
+        sd[f"Aggregate.{official}.0.bias"] = _t(agg[ours]["bias"])
+    sd["Aggregate.conv_4.0.weight"] = _conv1d(agg["proj"]["kernel"])
+    nl = agg["non_local"]
+    for name, key in (("theta", "theta"), ("phi", "phi"), ("g", "g"), ("out", "W.0")):
+        sd[f"Aggregate.non_local.{key}.weight"] = _t(np.asarray(nl[name]["kernel"]).T[:, :, None])
+        sd[f"Aggregate.non_local.{key}.bias"] = _t(nl[name]["bias"])
+    for official, ours in (("fc1", "fc1"), ("fc2", "fc2"), ("fc3", "fc_out")):
+        sd[f"{official}.weight"] = _t(np.asarray(params[ours]["kernel"]).T)
+        sd[f"{official}.bias"] = _t(params[ours]["bias"])
+    return sd
+
+
+def sultani_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Sultani variables -> ``fc{1,2,3}`` Linear names (the JAX package's
+    ``export_sultani_state_dict``)."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("fc1", "fc2", "fc3"):
+        sd[f"{name}.weight"] = _t(np.asarray(params[name]["kernel"]).T)
+        sd[f"{name}.bias"] = _t(params[name]["bias"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# The reference's own layouts -> the port's names (``infer --torch-weights``)
+# ---------------------------------------------------------------------------
+
+
+def mgfn_state_dict_from_official(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """The official MGFN release's keys -> the HF names the port's MGFN
+    loads, the remap of the JAX package's
+    ``convert_official_mgfn_state_dict`` (the reference's
+    scripts/convert_official_to_hf.py): ``to_tokens`` / ``to_mag`` go under
+    ``backbone.amplifier``, ``to_logits`` becomes ``layer_norm``,
+    ``stages.{s}.0...`` blocks and ``stages.{s}.1`` intermediates become
+    ``backbone.layers.{s}...``. As there, an intermediate lands at block
+    index 3 (the reference depths), and keys of no known part (dropouts'
+    positions of the feed-forward) are dropped. Tensors pass unchanged."""
+    remapped: Dict[str, Any] = {}
+    for key, tensor in state_dict.items():
+        if "to_tokens" in key or "to_mag" in key:
+            remapped["backbone.amplifier." + key] = tensor
+        elif "to_logits" in key:
+            remapped["layer_norm." + key.split(".")[-1]] = tensor
+        elif key.startswith("fc"):
+            remapped[key] = tensor
+        elif key.startswith("stages"):
+            info = key.split(".")[1:]
+            prefix = f"backbone.layers.{info[0]}."
+            if info[1] == "1":  # intermediate
+                layer_name = "layer_norm" if info[2] == "0" else "conv"
+                remapped[prefix + f"3.{layer_name}.{info[-1]}"] = tensor
+            else:  # blocks
+                prefix += f"{info[3]}."
+                if info[4] == "0":
+                    remapped[prefix + f"scc.{info[-1]}"] = tensor
+                elif info[4] == "1":
+                    remapped[prefix + f"attention.{info[-2]}.{info[-1]}"] = tensor
+                elif info[4] == "2":
+                    ffn_names = {"0": "layer_norm", "1": "in_conv", "4": "out_conv"}
+                    if info[-2] in ffn_names:
+                        remapped[prefix + f"ffn.{ffn_names[info[-2]]}.{info[-1]}"] = tensor
+    return remapped
+
+
+def _conv1d_fold_bn(state_dict: Mapping[str, Any], prefix: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """``<prefix>.0`` Conv1d weight and bias (None when absent), with a
+    ``<prefix>.1`` eval-mode BatchNorm folded in, in the tensors' own
+    dtype: ``w * gamma / sqrt(var + eps)`` per out-channel, ``(b - mean) *
+    gamma / sqrt(var + eps) + beta`` (the JAX package's
+    ``_conv1d_fold_bn``). A BN after the ReLU (index 2) cannot fold and
+    raises ValueError."""
+
+    def get(key):
+        return _array(state_dict[f"{prefix}.{key}"])
+
+    w = get("0.weight")
+    b = get("0.bias") if f"{prefix}.0.bias" in state_dict else None
+    if f"{prefix}.2.running_mean" in state_dict:
+        raise ValueError(f"{prefix}: BatchNorm after ReLU cannot be folded into the conv; "
+                         "this layout needs an explicit BN in the RTFM module")
+    if f"{prefix}.1.running_mean" in state_dict:
+        mean, var = get("1.running_mean"), get("1.running_var")
+        gamma, beta = get("1.weight"), get("1.bias")
+        scale = gamma / np.sqrt(var + 1e-5)
+        w = w * scale[:, None, None]
+        b = beta + (b - mean) * scale if b is not None else beta - mean * scale
+    return w, b
+
+
+def rtfm_state_dict_from_official(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An official-release RTFM state dict -> the port's RTFM names (the
+    JAX package's ``convert_rtfm_state_dict``). A branch whose Sequential
+    holds an eval-mode BatchNorm right after its conv (index 1, as the
+    official ``non_local.W`` does) folds exactly into the BN-free conv;
+    a BN after the ReLU raises ValueError, as does a fold that gives the
+    bias-free ``conv_4`` a nonzero bias (its shift would feed attention
+    and could not be dropped). ``non_local.W`` without a bias gets zeros."""
+    agg = "Aggregate"
+    sd: Dict[str, torch.Tensor] = {}
+    for name in ("conv_1", "conv_2", "conv_3", "conv_4", "conv_5", "non_local.W"):
+        prefix = f"{agg}.{name}"
+        w, b = _conv1d_fold_bn(state_dict, prefix)
+        if name == "conv_4" and b is not None:
+            if np.any(b != 0):
+                raise ValueError(f"{prefix}: folding produced a nonzero bias but the target "
+                                 "module is bias-free; this BN-after-conv_4 layout is not "
+                                 "representable (official checkpoints keep conv_4 bias-free "
+                                 "with no BN)")
+            b = None
+        if name == "non_local.W" and b is None:
+            b = np.zeros(w.shape[0], w.dtype)
+        sd[f"{prefix}.0.weight"] = _t(w)
+        if b is not None:
+            sd[f"{prefix}.0.bias"] = _t(b)
+    for module in (f"{agg}.non_local.theta", f"{agg}.non_local.phi", f"{agg}.non_local.g",
+                   "fc1", "fc2", "fc3"):
+        for kind in ("weight", "bias"):
+            sd[f"{module}.{kind}"] = _t(_array(state_dict[f"{module}.{kind}"]))
     return sd

@@ -69,7 +69,7 @@ Phases, each of which raises on failure (exit code != 0):
    holds 3.1e9 values, past 2^31: bit-equal to its plain version,
    computed in slices of 40 clips, and timed;
 8. MGFN training through the port's ``run`` (``main``, or ``train`` with
-   ``MGFN_RUN_CONFIG`` where PyYAML is missing) at the full
+   ``RUN_CONFIGS`` where PyYAML is missing) at the full
    ``runner=mgfn`` width: the committed ``docs/i3d_segments_seed0.npz``
    bags (six normal, six abnormal) as train features and, transposed to
    (32, 10, 2048), as test features with a ground truth built by the
@@ -82,7 +82,21 @@ Phases, each of which raises on failure (exit code != 0):
    Then the train step at the reference batch
    (16 normal + 16 abnormal bags of (10, 32, 2049), made from a seed) in
    ``32-true`` and ``bf16-mixed``: median ms per step, steps/s, peak
-   memory and one profiled step's device time.
+   memory and one profiled step's device time;
+9. the three scorer families served through the scoring CLI: RTFM (20
+   steps) and Sultani (100 steps: its hinge loss is noisy under dropout
+   0.6) trained at the full ``runner=rtfm`` / ``runner=sultani`` width
+   through ``run`` on the same bags at lr 1e-4 (the rate at which the JAX
+   trainer's loss falls on them), under phase 8's gates (Sultani's over
+   windows of 10 losses), and their train steps at 16 + 16 bags in
+   ``32-true``; the 4-clip video extracted in bfloat16 (launches K1 / K2 /
+   K3 = 1 / 1 / 3) and cached as ``<stem>_i3d.npy``; ``infer.main`` on the
+   card from that ``--features-dir`` with ``--checkpoint`` of the RTFM,
+   the Sultani and phase 8's MGFN run (MGFN with ``--threshold 0.5
+   --min-event-frames 16 --warmup 4``). Gates: scores finite and in [0, 1],
+   clip scores equal to the same checkpoint scored on the CPU (float32,
+   TF32 off) at atol 1e-5, ``events`` equal to ``anomaly_events`` of the
+   written frame scores. Each scorer's median scoring time is printed.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -91,6 +105,7 @@ repository beside it and a CUDA card; without either it exits non-zero.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
 import ctypes
@@ -139,6 +154,22 @@ MGFN_RUN_CONFIG = {
     "wandb_key": None,
     "_choices_": {"data": "default", "runner": "mgfn", "trainer": "default"},
 }
+# runner=rtfm and runner=sultani: the same config with their runner group
+RUN_CONFIGS = {"mgfn": MGFN_RUN_CONFIG}
+for _name, _model, _config, _optimizer in (
+        ("rtfm", "RTFM", {"channels": 2048, "hidden_dims": [512, 128], "dropout_rate": 0.7, "k": 3,
+                          "margin": 100.0, "alpha": 0.0001},
+         {"learning_rate": 0.001, "weight_decay": 0.005}),
+        ("sultani", "Sultani", {"channels": 2048, "hidden_dims": [512, 32], "dropout_rate": 0.6,
+                                "smoothness_lambda": 8e-05, "sparsity_lambda": 8e-05},
+         {"learning_rate": 0.001, "weight_decay": 0.001})):
+    RUN_CONFIGS[_name] = dict(
+        MGFN_RUN_CONFIG,
+        runner={"cls": f"{REFERENCE}.training.VideoAnomalyDetectionRunner",
+                "model_class": f"{REFERENCE}.models.{_model}ForVideoAnomalyDetection",
+                "model_config": {"_target_": f"{REFERENCE}.models.{_model}Config", **_config},
+                "optimizer": _optimizer},
+        _choices_={"data": "default", "runner": _name, "trainer": "default"})
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -851,10 +882,11 @@ def write_training_data(root: str):
     return train, test, gt, len(bags.files)
 
 
-def run_training(overrides: dict):
-    """The port's run entry: ``main`` with ``key=value`` overrides where
-    PyYAML is installed, else ``train`` on ``MGFN_RUN_CONFIG`` with the
-    same overrides set. Returns what it printed."""
+def run_training(overrides: dict, runner: str = "mgfn"):
+    """The port's run entry for ``runner=<runner>``: ``main`` with
+    ``key=value`` overrides where PyYAML is installed, else ``train`` on
+    ``RUN_CONFIGS[runner]`` with the same overrides set. Returns what it
+    printed."""
     from anomaly_detection_on_video_tpu_torch import run
 
     out = io.StringIO()
@@ -862,7 +894,7 @@ def run_training(overrides: dict):
         try:
             import yaml  # noqa: F401
         except ImportError:
-            cfg = copy.deepcopy(MGFN_RUN_CONFIG)
+            cfg = copy.deepcopy(RUN_CONFIGS[runner])
             for key, value in overrides.items():
                 node = cfg
                 *path, last = key.split(".")
@@ -872,80 +904,98 @@ def run_training(overrides: dict):
             run.train(cfg, "cuda")
         else:
             # key= is null; booleans are YAML's true / false
-            run.main(["runner=mgfn"] + [
+            run.main([f"runner={runner}"] + [
                 f"{k}={'' if v is None else json.dumps(v) if isinstance(v, bool) else v}"
                 for k, v in overrides.items()])
     sys.stdout.write(out.getvalue())
     return out.getvalue()
 
 
-def check_training(torch):
-    """MGFN training at the full runner=mgfn width through the port's run
-    entry, then eval_only from its checkpoint; returns the wall time."""
+# runner -> (learning rate, steps, epochs, eval every n epochs, loss window):
+# the rates at which the JAX trainer's loss falls on the committed bags
+# (PERF.md, section 6); Sultani's hinge loss is noisy under its 0.6 dropout
+# and falls over 100 steps, not 20
+TRAINING = {"mgfn": (1e-4, 20, 10, 5, 5), "rtfm": (1e-4, 20, 10, 5, 5),
+            "sultani": (1e-4, 100, 50, 25, 10)}
+
+
+def check_training(torch, root: str, runner: str = "mgfn", eval_only: bool = False):
+    """Training at the full ``runner=<runner>`` width through the port's
+    run entry on the committed bags under ``root``, batch 3 + 3, two
+    evals; with ``eval_only`` the run's last checkpoint is evaluated again.
+    Gates: every loss finite, the mean of the last window of losses below
+    the first, AUCs in [0, 1], eval_only repeating the last AUCs. Returns
+    the checkpoint directory and the wall time."""
     import numpy as np
 
     start = time.perf_counter()
-    root = tempfile.mkdtemp(prefix="mgfn_train_")
-    try:
-        train, test, gt, n_videos = write_training_data(root)
-        # lr 1e-4: at the config's 1e-3 the JAX trainer, and the port with
-        # it, diverge to NaN by step 4 on these bags (PERF.md, section 6)
-        overrides = {"data.train_path": train, "data.test_path": test,
-                     "data.ground_truth_path": gt, "data.batch_size": 3,
-                     "runner.optimizer.learning_rate": 1e-4,
-                     "trainer.max_epochs": 10, "trainer.max_steps": 20, "trainer.eval_every": 5,
-                     "trainer.log_path": os.path.join(root, "metrics.jsonl"),
-                     "trainer.checkpoint.dirpath": os.path.join(root, "checkpoints")}
-        run_training(overrides)
-        with open(overrides["trainer.log_path"]) as f:
-            records = [json.loads(line) for line in f]
-        losses = [r["train_loss"] for r in records if "train_loss" in r]
-        evals = [r for r in records if "valid/rec_auc" in r]
-        if len(losses) != 20 or not np.isfinite(losses).all():
-            raise AssertionError(f"training: {len(losses)} losses, expected 20 finite: {losses}")
-        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
-            raise AssertionError(f"training: the loss did not fall: {losses}")
-        aucs = [(r["valid/rec_auc"], r["valid/pr_auc"]) for r in evals]
-        if len(evals) != 2 or not all(np.isfinite(a) and 0.0 <= a <= 1.0 for pair in aucs
-                                      for a in pair):
-            raise AssertionError(f"training: eval AUCs {aucs}")
-        wall = time.perf_counter() - start
-        print(f"training: {n_videos} videos, 20 steps at batch 3 + 3, losses "
-              f"{np.round(losses, 5).tolist()}; first 5 mean {np.mean(losses[:5]):.5f}, last 5 "
-              f"mean {np.mean(losses[-5:]):.5f}; eval at steps {[r['step'] for r in evals]}: "
-              f"rec_auc / pr_auc {aucs}; {wall:.1f} s", flush=True)
+    lr, steps, epochs, every, window = TRAINING[runner]
+    data = os.path.join(root, "data")
+    if not os.path.isdir(data):
+        write_training_data(data)
+    train, test = os.path.join(data, "train"), os.path.join(data, "test")
+    gt = os.path.join(data, "ground_truth.json")
+    ckpt = os.path.join(root, f"checkpoints_{runner}")
+    # at the configs' 1e-3 the JAX trainer, and the port with it, diverge
+    # on these bags (PERF.md, section 6)
+    overrides = {"data.train_path": train, "data.test_path": test,
+                 "data.ground_truth_path": gt, "data.batch_size": 3,
+                 "runner.optimizer.learning_rate": lr,
+                 "trainer.max_epochs": epochs, "trainer.max_steps": steps,
+                 "trainer.eval_every": every,
+                 "trainer.log_path": os.path.join(root, f"metrics_{runner}.jsonl"),
+                 "trainer.checkpoint.dirpath": ckpt}
+    run_training(overrides, runner)
+    with open(overrides["trainer.log_path"]) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    evals = [r for r in records if "valid/rec_auc" in r]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{runner} training: {len(losses)} losses, expected {steps} finite: "
+                             f"{losses}")
+    first, last = np.mean(losses[:window]), np.mean(losses[-window:])
+    if not last < first:
+        raise AssertionError(f"{runner} training: the loss did not fall: {losses}")
+    aucs = [(r["valid/rec_auc"], r["valid/pr_auc"]) for r in evals]
+    if len(evals) != 2 or not all(np.isfinite(a) and 0.0 <= a <= 1.0 for pair in aucs
+                                  for a in pair):
+        raise AssertionError(f"{runner} training: eval AUCs {aucs}")
+    wall = time.perf_counter() - start
+    print(f"{runner} training: {steps} steps at batch 3 + 3, lr {lr:g}, losses "
+          f"{np.round(losses, 5).tolist()}; first {window} mean {first:.5f}, last {window} "
+          f"mean {last:.5f}; eval at steps {[r['step'] for r in evals]}: rec_auc / pr_auc "
+          f"{aucs}; {wall:.1f} s", flush=True)
+    if eval_only:
         printed = run_training(dict(overrides, **{"trainer.eval_only": True,
-                                                  "trainer.log_path": None}))
+                                                  "trainer.log_path": None}), runner)
         line = json.loads(printed.strip().splitlines()[-1])
-        if line["step"] != 20 or abs(line["valid/rec_auc"] - aucs[-1][0]) > 1e-6 or abs(
+        if line["step"] != steps or abs(line["valid/rec_auc"] - aucs[-1][0]) > 1e-6 or abs(
                 line["valid/pr_auc"] - aucs[-1][1]) > 1e-6:
-            raise AssertionError(f"eval_only from the step-20 checkpoint gave {line}, "
+            raise AssertionError(f"eval_only from the step-{steps} checkpoint gave {line}, "
                                  f"training's last eval {aucs[-1]}")
         print(f"eval_only from the checkpoint at step {line['step']}: rec_auc "
               f"{line['valid/rec_auc']:.6f}, pr_auc {line['valid/pr_auc']:.6f} (training's last "
               f"eval {aucs[-1][0]:.6f}, {aucs[-1][1]:.6f})", flush=True)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    return time.perf_counter() - start
+    return ckpt, time.perf_counter() - start
 
 
-def time_train_step(torch, precision: str, steps: int = 20):
+def time_train_step(torch, precision: str, runner: str = "mgfn", steps: int = 20):
     """The train step at the reference batch, 16 normal + 16 abnormal bags
-    of (10, 32, 2049) made from a seed, at the full MGFN width: median ms
-    per step (host clock around a synchronized step), steps/s, peak memory,
-    and one profiled step's device time. lr 1e-4, as in check_training:
-    at 1e-3 these inputs drive the losses to NaN within a few steps."""
+    of (10, 32, 2049) made from a seed, at the full width of ``runner``'s
+    default config: median ms per step (host clock around a synchronized
+    step), steps/s, peak memory, and one profiled step's device time. lr
+    1e-4, as in check_training: at 1e-3 these inputs drive MGFN's losses to
+    NaN within a few steps. Returns the median ms."""
     import numpy as np
 
-    from anomaly_detection_on_video_tpu_torch.models import seeded_init_
-    from anomaly_detection_on_video_tpu_torch.models.mgfn import MGFN, MGFNConfig
+    from anomaly_detection_on_video_tpu_torch.models import build_model, seeded_init_
     from anomaly_detection_on_video_tpu_torch.training.optim import adam_with_l2
     from anomaly_detection_on_video_tpu_torch.training.runner import TrainState, make_train_step
 
     rng = np.random.RandomState(3)
     feature = torch.from_numpy(np.abs(rng.randn(32, 10, 32, 2049)).astype(np.float32)).cuda()
     n_labels, a_labels = torch.zeros(16, device="cuda"), torch.ones(16, device="cuda")
-    model = seeded_init_(MGFN(MGFNConfig()), seed=0).cuda()
+    model = seeded_init_(build_model(runner)[1], seed=0).cuda()
     state = TrainState.create(model, adam_with_l2(model.parameters(), learning_rate=1e-4), seed=2)
     step = make_train_step(precision)
     for _ in range(3):
@@ -964,13 +1014,99 @@ def time_train_step(torch, precision: str, steps: int = 20):
         raise AssertionError(f"train step {precision}: losses {losses}")
     breakdown = device_breakdown(torch, lambda: step(state, feature, n_labels, a_labels))
     median = float(np.median(times)) * 1e3
-    print(f"train step {precision} at 16 + 16 bags of (10, 32, 2049): median {median:.3f} ms "
+    print(f"{runner} train step {precision} at 16 + 16 bags of (10, 32, 2049): median "
+          f"{median:.3f} ms "
           f"({min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}) over {steps} steps = "
           f"{1e3 / median:.2f} steps/s; peak memory {peak_gib:.2f} GiB; one profiled step: busy "
           f"{breakdown['device_busy_ms']:.2f} ms of {breakdown['wall_ms']:.2f} ms wall, idle share "
           f"{breakdown['idle_share']:.1%}; {json.dumps(breakdown['top_other_ms'])}", flush=True)
     del state, model, feature
     torch.cuda.empty_cache()
+    return median
+
+
+def window(event: dict) -> tuple:
+    return event["start_frame"], event["end_frame"], event["frames"]
+
+
+def check_serving(torch, root: str, extractor, video, checkpoints: dict) -> None:
+    """Phase 9: the three scorer families served from the port's own
+    checkpoints through ``infer.main``. The 4-clip video is extracted in
+    bfloat16 (launches K1 / K2 / K3 = 1 / 1 / 3) and cached as
+    ``<stem>_i3d.npy``; ``infer.main`` then scores it from that
+    ``--features-dir`` on the card once per checkpoint (MGFN's with
+    ``--threshold 0.5 --min-event-frames 16 --warmup 4``). Gates: scores
+    finite and in [0, 1]; clip scores equal to the same checkpoint scored
+    on the CPU (float32, TF32 off) at atol 1e-5, the written ones and the
+    card's unrounded ones; ``events`` equal to ``anomaly_events`` of the
+    written frame scores (windows; peak and mean within the JSON's
+    rounding). Prints each scorer's median scoring time."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import infer
+    from anomaly_detection_on_video_tpu_torch.data.extraction import feature_filename
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+    from anomaly_detection_on_video_tpu_torch.ops.metrics import anomaly_events
+    from anomaly_detection_on_video_tpu_torch.utils.npyio import atomic_save
+
+    kernels.reset_launch_counts()
+    features = extractor.extract_frames(video)
+    counts = kernels.launch_counts()
+    launches = (counts["ten_crop_standardize"], counts["stem_conv_pool"],
+                counts["bottleneck_block"])
+    print(f"serving: the 4-clip video extracted in bfloat16, launches K1 / K2 / K3 = "
+          f"{launches[0]} / {launches[1]} / {launches[2]}", flush=True)
+    if launches != (1, 1, 3) or features.shape != (4, 10, 2048):
+        raise AssertionError(f"serving extraction: launches {counts}, features {features.shape}")
+    stem = "Abuse028_x264"
+    videos, feats = os.path.join(root, "videos"), os.path.join(root, "features")
+    os.makedirs(os.path.join(videos, "Abuse"))
+    open(os.path.join(videos, "Abuse", f"{stem}.mp4"), "wb").close()  # never decoded: cached
+    atomic_save(os.path.join(feats, feature_filename(stem)), features)
+    for runner in ("rtfm", "sultani", "mgfn"):
+        outdir = os.path.join(root, f"scores_{runner}")
+        extra = (["--threshold", "0.5", "--min-event-frames", "16", "--warmup", "4"]
+                 if runner == "mgfn" else [])
+        argv = ["--videos", videos, "--outdir", outdir, "--checkpoint", checkpoints[runner],
+                "--features-dir", feats] + extra
+        start = time.perf_counter()
+        infer.main(argv + ["--device", "cuda"])
+        wall = time.perf_counter() - start
+        with open(os.path.join(outdir, f"{stem}_scores.json")) as f:
+            out = json.load(f)
+        clip, frame = np.asarray(out["clip_scores"]), np.asarray(out["frame_scores"])
+        if out["model"] != runner or clip.shape != (4,) or frame.shape != (64,) or not (
+                np.isfinite(frame).all() and (frame >= 0).all() and (frame <= 1).all()):
+            raise AssertionError(f"{runner} served: {out}")
+        args = infer.build_parser().parse_args(argv)
+        cpu_scorer, _ = infer.build_scorer(argparse.Namespace(**dict(vars(args), device="cpu")))
+        card_scorer, _ = infer.build_scorer(argparse.Namespace(**dict(vars(args), device="cuda")))
+        ref = infer.score_features(features, cpu_scorer)
+        on_card = infer.score_features(features, card_scorer)
+        err = max(float(np.abs(clip - ref).max()), float(np.abs(on_card - ref).max()))
+        if err > 1e-5:
+            raise AssertionError(f"{runner} served scores {clip} (card {on_card}) against the "
+                                 f"CPU's {ref}: max |err| {err:.2e}")
+        if runner == "mgfn":
+            want = anomaly_events(frame, 0.5, 16)
+            # the JSON rounds scores to 6 decimals, so peaks and means
+            # recomputed from them may differ by a rounding step
+            if out["threshold"] != 0.5 or [window(e) for e in out["events"]] != [
+                    window(e) for e in want] or any(
+                    abs(g[k] - w[k]) > 1.5e-6 for g, w in zip(out["events"], want)
+                    for k in ("peak", "mean")):
+                raise AssertionError(f"events {out['events']} against {want}")
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            infer.score_features(features, card_scorer)  # ends in a copy to the host
+            times.append(time.perf_counter() - t0)
+        print(f"{runner} served from its checkpoint: clip scores {clip.tolist()}, max |err| "
+              f"against the CPU {err:.2e}"
+              + (f", {len(out['events'])} events at 0.5: {out['events']}" if runner == "mgfn"
+                 else "")
+              + f"; infer.main {wall:.2f} s; scoring median {np.median(times) * 1e3:.3f} ms "
+              f"({min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}) over 20 calls", flush=True)
 
 
 def main() -> int:
@@ -982,8 +1118,8 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
-    from anomaly_detection_on_video_tpu_torch.infer import build_scorer, score_features
-    from anomaly_detection_on_video_tpu_torch.models import seeded_init_
+    from anomaly_detection_on_video_tpu_torch.infer import score_features
+    from anomaly_detection_on_video_tpu_torch.models import MGFN, seeded_init_
     from anomaly_detection_on_video_tpu_torch.ops import kernels
     from anomaly_detection_on_video_tpu_torch.ops.kernels._build import build
     from anomaly_detection_on_video_tpu_torch.ops.kernels.crop_norm import ten_crop_standardize_plain
@@ -1045,7 +1181,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 3. the main path, through the entry points a user calls
-    scorer = seeded_init_(build_scorer(device=dev), seed=1)
+    scorer = seeded_init_(MGFN(), seed=1).to(dev).eval()
     features, clip_scores, counts = drive_path(torch, "main path", extractor, video, scorer)
     frame_scores = frame_level_scores(clip_scores, extractor.frames_per_clip)
     print(f"frame scores ({frame_scores.size}): {np.round(frame_scores[::16], 6).tolist()} (every 16th)",
@@ -1133,13 +1269,27 @@ def main() -> int:
     check_int8_stem_past_2g(torch)
     torch.cuda.empty_cache()
 
-    # 8. MGFN training through the run entry, then the reference batch's step
-    t_train = time.perf_counter()
-    run_s = check_training(torch)
-    for precision in ("32-true", "bf16-mixed"):
-        time_train_step(torch, precision)
-    print(f"training phase: {time.perf_counter() - t_train:.1f} s ({run_s:.1f} s for the run and "
-          f"its eval_only)", flush=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # 8. MGFN training through the run entry, then the reference batch's step
+        t_train = time.perf_counter()
+        checkpoints = {}
+        checkpoints["mgfn"], run_s = check_training(torch, work, "mgfn", eval_only=True)
+        for precision in ("32-true", "bf16-mixed"):
+            time_train_step(torch, precision)
+        print(f"training phase: {time.perf_counter() - t_train:.1f} s ({run_s:.1f} s for the run "
+              f"and its eval_only)", flush=True)
+
+        # 9. RTFM and Sultani trained through the run entry; all three families
+        # served from their checkpoints through infer.main
+        t_serve = time.perf_counter()
+        for runner in ("rtfm", "sultani"):
+            checkpoints[runner], _ = check_training(torch, work, runner)
+            time_train_step(torch, "32-true", runner)
+        check_serving(torch, work, extractor, video, checkpoints)
+        print(f"serving phase: {time.perf_counter() - t_serve:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     pallas = "anomaly_detection_on_video_tpu/ops/pallas"
     sources = {"ten_crop_standardize": ("crop_norm.cu", f"{pallas}/crop_norm.py:49"),

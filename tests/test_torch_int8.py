@@ -22,6 +22,7 @@ from anomaly_detection_on_video_tpu.models import i3d as ji3d
 from anomaly_detection_on_video_tpu_torch import extract_features as port_extract_features
 from anomaly_detection_on_video_tpu_torch import infer as port_infer
 from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor, extract_videos
+from anomaly_detection_on_video_tpu_torch.data.video import find_videos
 from anomaly_detection_on_video_tpu_torch.models import i3d as ti3d
 from anomaly_detection_on_video_tpu_torch.models import seeded_init_
 from anomaly_detection_on_video_tpu_torch.models.mgfn import MGFN, MGFNConfig
@@ -429,7 +430,7 @@ def test_int8_entry_points(rng, tmp_path):
     videos = tmp_path / "videos"
     videos.mkdir()
     _write_video(videos / "clip.avi", rng)
-    paths = port_infer.list_videos(str(videos))
+    paths = find_videos(str(videos))
     _, quantized = _extractors(rng)
 
     feats_dir = tmp_path / "features"

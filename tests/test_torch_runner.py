@@ -38,7 +38,14 @@ from anomaly_detection_on_video_tpu_torch.data import extraction as textraction
 from anomaly_detection_on_video_tpu_torch.data import features as tfeatures
 from anomaly_detection_on_video_tpu_torch.data import gt as tgt
 from anomaly_detection_on_video_tpu_torch.data import segments as tsegments
-from anomaly_detection_on_video_tpu_torch.models import MGFN, MGFNConfig
+from anomaly_detection_on_video_tpu_torch.models import (
+    MGFN,
+    RTFM,
+    MGFNConfig,
+    RTFMConfig,
+    Sultani,
+    SultaniConfig,
+)
 from anomaly_detection_on_video_tpu_torch.models import i3d as ti3d
 from anomaly_detection_on_video_tpu_torch.training import VideoAnomalyDetectionRunner
 from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
@@ -293,8 +300,14 @@ def test_config_names_map_to_port_classes_without_jax():
     assert locate(cfg["runner"]["cls"]) is VideoAnomalyDetectionRunner
     config = instantiate(cfg["runner"]["model_config"])
     assert isinstance(config, MGFNConfig) and tuple(config.dims) == (64, 128, 1024)
+    for runner, model_cls, config_cls in (("rtfm", RTFM, RTFMConfig),
+                                          ("sultani", Sultani, SultaniConfig)):
+        cfg = compose(CONFIGS, "default", [f"runner={runner}"])
+        assert chip_smoke.RUN_CONFIGS[runner] == cfg
+        assert locate(cfg["runner"]["model_class"]) is model_cls
+        assert isinstance(instantiate(cfg["runner"]["model_config"]), config_cls)
     with pytest.raises(ImportError):
-        locate(compose(CONFIGS, "default", ["runner=rtfm"])["runner"]["model_class"])
+        locate(f"{cfg['runner']['model_class']}Missing")
     code = ("import sys\n"
             "from anomaly_detection_on_video_tpu_torch.config import compose, instantiate, locate\n"
             f"cfg = compose({CONFIGS!r}, 'default', ['runner=mgfn'])\n"

@@ -24,7 +24,8 @@ from anomaly_detection_on_video_tpu.ops import gtransforms as jgt
 from anomaly_detection_on_video_tpu.ops.resize import resize_bilinear_exact, short_side_size
 from anomaly_detection_on_video_tpu.training.runner import eval_bucket as j_eval_bucket
 from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
-from anomaly_detection_on_video_tpu_torch.infer import list_videos, process_video, score_features
+from anomaly_detection_on_video_tpu_torch.data.video import find_videos
+from anomaly_detection_on_video_tpu_torch.infer import process_video, score_features
 from anomaly_detection_on_video_tpu_torch.models.i3d import I3DResNet
 from anomaly_detection_on_video_tpu_torch.utils.convert import i3res50_state_dict_from_flax
 from test_torch_i3d import NARROW, _randomize_bn
@@ -97,7 +98,7 @@ def test_infer_writes_score_json(rng, tmp_path):
     extractor = FeatureExtractor(model=port_i3d, state_dict=port_i3d.state_dict(),
                                  dtype=torch.float32, batch=20, resize=64, cropsize=56,
                                  device="cpu")
-    assert list_videos(str(tmp_path)) == [path]
+    assert find_videos(str(tmp_path)) == [path]
     out = process_video(path, extractor, scorer, str(tmp_path / "scores"))
     on_disk = json.loads((tmp_path / "scores" / "clip_scores.json").read_text())
     assert on_disk == out
