@@ -1,39 +1,60 @@
 """Extract I3D features for a directory of videos::
 
     python -m anomaly_detection_on_video_tpu_torch.extract_features \\
-        --videos clips/ --outdir features/ [--weights i3res50.pt] \\
-        [--dtype bfloat16|float32|int8] [--batch 240] [--device cuda]
+        --videos clips/ --outdir features/ [--split train|test] \\
+        [--weights i3res50.pt] [--dtype bfloat16|float32|int8] [--batch 240] \\
+        [--crops ten|center] [--decode-workers N] [--profile] \\
+        [--segment-length 32 | --no-segments] [--device cuda]
 
 Writes ``<stem>_i3d.npy`` of shape ``(n_clips, 10, 2048)`` float32 per
-video, the reference's on-disk contract, and skips videos whose file is
-already there. ``--videos`` is a video file, a glob, or a directory
-searched recursively (the UCF-Crime class subfolders); videos of
-different folders that share a stem share one output file, and a warning
-names them. Single host, RGB stream, ten crops. ``--dtype int8`` runs
-the convs in int8 (kernels K4 and K5) around bfloat16 compute; its scales
-calibrate on the first chunk extracted and are pinned to ``--outdir`` as
-``act_scales_rgb.json``, the JAX package's sidecar, so a resumed run
-quantizes as the first did. On an H100 int8 is currently slower than
-bfloat16 and uses more memory (PERF.md, section 5). ``--weights`` is an
-I3Res50 state dict (seeded random weights when unset).
+video, the reference's on-disk contract, into ``--outdir`` (or
+``<outdir>/<split>``), and skips videos whose file is already there. Then,
+unless ``--no-segments`` or ``--split test``, pools every feature file into
+``(10, L, 2048)`` training segments in ``<outdir>/segment_features_<L>``
+(``--segment-length`` L, default 32), the training contract the port's
+trainer reads. ``--videos`` is a video file, a glob, or a directory
+searched recursively (the UCF-Crime class subfolders); videos of different
+folders that share a stem share one output file, and a warning names them.
+
+``--crops center`` is the serving protocol: one center crop per clip,
+``(n_clips, 1, 2048)``, exactly ten-crop row 4, pinned per directory in
+``crops.json``; it skips the segments (their contract is ten-crop).
+``--decode-workers`` (default: one per core, at most 8) decodes that many
+videos at once into one device queue; 1 is the serial path, which
+``--profile`` forces to print its ``pipeline stages:`` timers.
+``--dtype int8`` runs the convs in int8 (kernels K4 and K5) around
+bfloat16 compute; its scales calibrate on the first chunk extracted and
+are pinned to the feature directory as ``act_scales_rgb.json``, the JAX
+package's sidecar, so a resumed run quantizes as the first did. On an H100
+int8 is currently slower than bfloat16 and uses more memory (PERF.md,
+section 5). ``--weights`` is an I3Res50 state dict (seeded random weights
+when unset). Single host, RGB stream, model ``tushar-n-baseline``: the JAX
+CLI's ``--stream``, ``--flow-backend``, ``--model``, ``--multihost``,
+``--data-parallel``, ``--compile-cache`` and ``--hf-dataset`` are not
+ported (ROADMAP.md, queue 1, modules 5-7), and the parser refuses them.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 from typing import List, Optional
 
-from .data.extraction import FeatureExtractor, extract_videos
+from .data.extraction import FeatureExtractor, extract_videos, extract_videos_pooled
+from .data.segments import segment_video_features
 from .data.video import find_videos, warn_duplicate_stems
 from .infer import extractor_kwargs, load_state_dict
 from .utils.device import resolve_device
-
+from .utils.profiling import StageTimer
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--videos", required=True,
                         help="video file, glob, or directory (searched recursively)")
     parser.add_argument("--outdir", required=True)
+    parser.add_argument("--split", default=None, choices=[None, "train", "test"],
+                        help="subdirectory under outdir; train also gets segments")
     parser.add_argument("--weights", default=None,
                         help="I3Res50 state dict (.pt); seeded random weights if unset")
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"],
@@ -41,12 +62,28 @@ def build_parser() -> argparse.ArgumentParser:
                              "convs, currently slower than bfloat16 on an H100 (PERF.md sec. 5)")
     parser.add_argument("--batch", type=int, default=240,
                         help="(clip, crop) forwards per extraction step")
+    parser.add_argument("--segment-length", type=int, default=32)
+    parser.add_argument("--no-segments", action="store_true")
+    parser.add_argument("--profile", action="store_true",
+                        help="report decode/device stage timers")
+    parser.add_argument("--crops", default="ten", choices=["ten", "center"],
+                        help="ten = the reference ten-crop protocol ((n_clips, 10, 2048), "
+                             "required for the training contract); center = 1-crop serving "
+                             "mode ((n_clips, 1, 2048), equal to ten-crop row 4 at a tenth of "
+                             "the FLOPs); the protocol pins per outdir so resumes cannot mix "
+                             "the two")
+    parser.add_argument("--decode-workers", type=int, default=None,
+                        help=">1 decodes that many videos concurrently to keep the device "
+                             "fed; default: one per host core (capped at 8), 1 = serial")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.batch < 1:
+        parser.error(f"--batch must be >= 1 (got {args.batch})")
     videos = find_videos(args.videos)
     if not videos:
         raise SystemExit(f"no videos found under {args.videos!r}")
@@ -56,8 +93,34 @@ def main(argv: Optional[List[str]] = None) -> int:
         device=resolve_device(args.device),
         **extractor_kwargs(args),
     )
-    n_done = extract_videos(videos, args.outdir, extractor)
-    print(f"extracted {n_done} of {len(videos)} videos into {args.outdir}")
+    timer = StageTimer() if args.profile else None
+    decode_workers = args.decode_workers
+    if decode_workers is None:
+        decode_workers = min(8, os.cpu_count() or 1)
+    if timer is not None and decode_workers > 1:
+        # the pooled path has no per-stage timers (decode runs in a pool)
+        print("--profile forces --decode-workers 1 (serial path)", file=sys.stderr)
+        decode_workers = 1
+
+    outdir = os.path.join(args.outdir, args.split) if args.split else args.outdir
+    if decode_workers > 1:
+        n = extract_videos_pooled(videos, outdir, extractor, decode_workers=decode_workers)
+    else:
+        n = extract_videos(videos, outdir, extractor, timer=timer)
+    print(f"extracted {n} new videos ({len(videos)} total) -> {outdir}")
+    train_dir = outdir if args.split in (None, "train") else None
+    if timer is not None:
+        print("pipeline stages:", timer.report())
+    if args.crops == "center" and train_dir and not args.no_segments:
+        # 32-segment pooling is the ten-crop training contract; 1-crop
+        # features are a serving protocol and cannot feed it
+        print("--crops center is a serving protocol; skipping 32-segment pooling (the "
+              "training contract requires ten-crop)", file=sys.stderr)
+        train_dir = None
+    if train_dir and not args.no_segments:
+        seg_dir = os.path.join(args.outdir, f"segment_features_{args.segment_length}")
+        written = segment_video_features(train_dir, seg_dir, args.segment_length)
+        print(f"segmented {written} feature files -> {seg_dir}")
     return 0
 
 

@@ -9,7 +9,8 @@ and the one-shot scoring of a video set::
         [--model mgfn|rtfm|sultani] [--model-config k=v ...] \\
         [--threshold t --min-event-frames n] [--features-dir <cache>] \\
         [--frames-per-clip n] [--group-mode adaptive|fixed] [--warmup clips] \\
-        [--i3d-weights i3res50.pt] [--dtype bfloat16|float32|int8] [--batch 240] [--device cuda]
+        [--i3d-weights i3res50.pt] [--dtype bfloat16|float32|int8] [--batch 240] \\
+        [--crops ten|center] [--device cuda]
 
 Writes ``<stem>_scores.json`` per video with the JAX CLI's keys (video,
 model, stream, n_clips, frames_per_clip, clip_scores, frame_scores,
@@ -34,8 +35,10 @@ unset, as the JAX CLI initializes randomly).
 bfloat16 compute, with scales calibrated on the first video's first chunk
 and pinned to ``--features-dir`` (else ``--outdir``) as
 ``act_scales_rgb.json``. On an H100 it is currently slower than bfloat16
-and uses more memory (PERF.md, section 5). Not ported: ``--stream`` flow
-and both, ``--crops center``, other ``--i3d-model`` values, ``--figure``,
+and uses more memory (PERF.md, section 5). ``--crops center`` is the
+throughput serving mode: one center crop per clip (ten-crop row 4), its
+features cached as ``<stem>_i3d_center.npy``. Not ported: ``--stream`` flow
+and both, other ``--i3d-model`` values, ``--figure``,
 ``--watch``, ``--serve``, ``--export`` / ``--from-export``,
 ``--data-parallel`` and ``--compile-cache``.
 """
@@ -188,10 +191,18 @@ def process_video(
 ) -> dict:
     """Extract (or load ``features_dir``'s ``<stem>_i3d.npy``, writing it
     on a miss), score, and write ``<stem>_scores.json``; returns its
-    content. With ``threshold`` the JSON carries the event windows."""
+    content. With ``threshold`` the JSON carries the event windows.
+    Center-crop features, ``(n, 1, C)``, are cached as
+    ``<stem>_i3d_center.npy``, so they neither shadow nor are shadowed by
+    the ten-crop contract files."""
     start = time.time()
     stem = os.path.splitext(os.path.basename(path))[0]
-    cache = os.path.join(features_dir, feature_filename(stem)) if features_dir else None
+    cache = None
+    if features_dir:
+        name = feature_filename(stem)
+        if extractor.crops == "center":
+            name = name[: -len(".npy")] + "_center.npy"
+        cache = os.path.join(features_dir, name)
     if cache and os.path.exists(cache):
         features = np.load(cache)
     else:
@@ -224,12 +235,14 @@ def process_video(
 
 
 def extractor_kwargs(args: argparse.Namespace) -> dict:
-    """``FeatureExtractor`` arguments for ``--dtype``: int8 quantizes the
-    convs around bfloat16 compute, as the JAX CLI does."""
+    """``FeatureExtractor`` arguments for ``--dtype``, ``--batch`` and
+    ``--crops``: int8 quantizes the convs around bfloat16 compute, as the
+    JAX CLI does."""
     return {
         "dtype": torch.float32 if args.dtype == "float32" else torch.bfloat16,
         "quantize": args.dtype == "int8",
         "batch": args.batch,
+        "crops": args.crops,
     }
 
 
@@ -283,6 +296,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="'adaptive' (default) sizes each video's extraction group to the "
                              "video by a power-of-two ladder capped at --batch; 'fixed' always "
                              "uses the --batch-derived group")
+    parser.add_argument("--crops", default="ten", choices=["ten", "center"],
+                        help="'ten' = the reference ten-crop protocol; 'center' = serving mode, "
+                             "one center crop per clip (scores equal running the scorer on "
+                             "ten-crop row 4)")
     parser.add_argument("--frames-per-clip", type=int, default=16)
     parser.add_argument("--features-dir", default=None,
                         help="cache and reuse <stem>_i3d.npy features here")
@@ -312,6 +329,12 @@ def main(argv: Optional[List[str]] = None) -> int:
               "may not transfer (frame scores shift up to ~0.5; AUC is stable). Re-derive the "
               "operating point on int8-scored data (scripts/operating_point.py); see "
               "docs/ROOFLINE.md.", file=sys.stderr)
+    if args.crops == "center":
+        # scorers are trained on ten-crop features; center-crop scores see crop row 4 only
+        print("note: --crops center is the throughput serving mode; it scores ONE center crop "
+              "per clip and measurably costs accuracy vs the reference ten-crop protocol "
+              "(multi-seed AUC deltas: docs/int8_e2e.json protocol_cost; docs/ROOFLINE.md). "
+              "Use --crops ten where accuracy matters more than latency.", file=sys.stderr)
     videos = find_videos(args.videos)
     if not videos:
         raise SystemExit(f"no videos match {args.videos!r}")

@@ -1,19 +1,24 @@
-"""Group video transforms: ten-crop, standardize, loop-pad.
+"""Group video transforms: ten-crop, center crop, standardize, loop-pad,
+the whole-video preprocess and the reference's min-max alternatives.
 
 Counterpart of the JAX package's ``ops/gtransforms.py`` (reference
-semantics: GroupTenCrop, GroupStandardizationTenCrop and LoopPad). Layout is
-channels-last ``(..., H, W, C)`` as in the JAX package. On the extraction
-path the crop and the standardization run fused in kernel K1
+semantics: GroupTenCrop, GroupStandardizationTenCrop, LoopPad,
+GroupPixelMinmaxTenCrop and GroupRGBChannelMinmaxTenCrop). Layout is
+channels-last ``(..., H, W, C)`` as in the JAX package. On the ten-crop
+extraction path the crop and the standardization run fused in kernel K1
 (``ops/kernels/crop_norm.py``); these functions are its plain building
-blocks.
+blocks. The center-crop path runs ``center_crop`` and ``standardize`` as
+they are, as the JAX package runs them through XLA.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Tuple, Union
 
 import numpy as np
 import torch
+
+from .resize import resize_bilinear_exact, short_side_size
 
 MEAN = 114.75
 STD = 57.375
@@ -72,3 +77,40 @@ def loop_pad_indices(n_frames: int, frames_per_clip: int = 16) -> np.ndarray:
         for i in range(frames_per_clip):
             idx[clip, i] = start + (i % length)
     return idx
+
+
+def preprocess_frames(
+    frames: Union[np.ndarray, torch.Tensor],
+    resize: int = 256,
+    cropsize: int = 224,
+    frames_per_clip: int = 16,
+) -> torch.Tensor:
+    """Whole-video preprocessing, the reference's five-stage Compose: uint8
+    ``(n_frames, H, W, 3)`` -> float32 ``(n_clips, 10, frames_per_clip,
+    cropsize, cropsize, 3)``, exactly resized (short side ``resize``),
+    ten-cropped, loop-padded and standardized, on the frames' device."""
+    frames = torch.as_tensor(frames)
+    n_frames, height, width = frames.shape[:3]
+    out_h, out_w = short_side_size(height, width, resize)
+    crops = ten_crop(resize_bilinear_exact(frames, out_h, out_w), cropsize)  # (10, n, c, c, 3)
+    clip_idx = torch.from_numpy(loop_pad_indices(n_frames, frames_per_clip).astype(np.int64))
+    clips = standardize(crops[:, clip_idx.to(frames.device)])  # (10, n_clips, fpc, c, c, 3)
+    return clips.transpose(0, 1)
+
+
+def pixel_minmax(x: torch.Tensor, new_min: float = 0.0, new_max: float = 1.0) -> torch.Tensor:
+    """Min-max normalization over all pixels of each ``(..., H, W, C)``
+    image (the reference's unused GroupPixelMinmaxTenCrop), in float32."""
+    lo = torch.amin(x, dim=(-3, -2, -1), keepdim=True)
+    hi = torch.amax(x, dim=(-3, -2, -1), keepdim=True)
+    x = (x.to(torch.float32) - lo) / (hi - lo)
+    return x * (new_max - new_min) + new_min
+
+
+def rgb_channel_minmax(x: torch.Tensor, new_min: float = 0.0, new_max: float = 1.0) -> torch.Tensor:
+    """Per-channel min-max normalization of each ``(..., H, W, C)`` image
+    (the reference's GroupRGBChannelMinmaxTenCrop), in float32."""
+    lo = torch.amin(x, dim=(-3, -2), keepdim=True)
+    hi = torch.amax(x, dim=(-3, -2), keepdim=True)
+    x = (x.to(torch.float32) - lo) / (hi - lo)
+    return x * (new_max - new_min) + new_min

@@ -96,7 +96,35 @@ Phases, each of which raises on failure (exit code != 0):
    --min-event-frames 16 --warmup 4``). Gates: scores finite and in [0, 1],
    clip scores equal to the same checkpoint scored on the CPU (float32,
    TF32 off) at atol 1e-5, ``events`` equal to ``anomaly_events`` of the
-   written frame scores. Each scorer's median scoring time is printed.
+   written frame scores. Each scorer's median scoring time is printed;
+10. extraction breadth: the 4-clip request's ``extract_frames`` (on the
+   calling thread) against the same work through the dispatch thread
+   (``dispatch_frames`` + ``materialize_features``), in turns;
+   (a) K2 and K3 at B = 1 and B = 60 (center crops of
+   a seeded 960-frame 240x320 video) and every K4 and K5 call of one int8
+   forward at the same batches, under phase 2's and phase 4's gates, with
+   times; (b) ``FeatureExtractor(crops="center", batch=240)`` in bf16 and
+   int8 on that video (60 clips, one group of 60 crops): launches K1 = 0,
+   K2 = 1, K3 = 3 (bf16) and K1 = K2 = K3 = 0, K4 >= 27, K5 >= 26 (int8);
+   bf16 features against the plain float32 forward of the center crops and,
+   on the first 24 clips, against row 4 of the ten-crop extractor (cosine
+   >= 0.999 per row); int8 against the plain int8 forward (cosine >=
+   0.99999, the unequal count printed); five timed passes, one profiled
+   pass, and the frames' copy to the card timed alone and profiled alone;
+   (c) decode replaced
+   by ``StandInDecoder`` (seeded frames in memory, 320-frame chunks; this
+   script's, not the package's): ``extract_features.main --split train``
+   over videos of 24, 40 and 70 clips, pooled (``--decode-workers 3``) and
+   serial (``--decode-workers 1 --profile``), one of them treated as over
+   1 GB. Gates: both runs' features equal at atol 1e-5, (10, 32, 2048)
+   segment files, a second pooled run extracting 0 videos, and the large
+   video's file rebuilt from its chunk caches with no kernel launch; the
+   extraction loop alone timed pooled and serial; then, where OpenCV is
+   importable, the same contents as MJPG files decoded for real, pooled and
+   serial (features equal at atol 1e-5, clips/s); (d) ``infer.main --crops
+   center`` on the 24-clip video with phase 8's MGFN checkpoint: scores
+   finite, in [0, 1] and equal at 1e-5 to ``score_features`` of a center
+   extractor's features of the same video.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -685,8 +713,9 @@ def drive_path(torch, name, extractor, video, scorer):
     then five timed passes (median and range); launch counts are reset just
     before the first timed pass and read just after it, and peak memory is
     taken over it. Gates: every kernel of the path launched (K1, K2, K3 on
-    the bf16 path; K1, K4, K5 and neither K2 nor K3 on the int8 path),
-    features of shape (clips, 10, 2048), scores finite and in [0, 1]."""
+    the bf16 path; K1, K4, K5 and neither K2 nor K3 on the int8 path; for
+    center crops no K1, and in bf16 exactly one K2 and three K3 launches),
+    features of shape (clips, n_crops, 2048), scores finite and in [0, 1]."""
     import numpy as np
 
     from anomaly_detection_on_video_tpu_torch.infer import score_features
@@ -712,18 +741,22 @@ def drive_path(torch, name, extractor, video, scorer):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - start)
     print(f"launches on the {name}: {counts}", flush=True)
+    # K1 crops ten; the center crop is torch ops, as the JAX package's XLA
+    k1 = counts["ten_crop_standardize"]
+    k1_wrong = k1 < 1 if extractor.n_crops == 10 else k1 != 0
     if extractor.quantize:
-        skipped = (counts["ten_crop_standardize"] < 1 or counts["int8_matmul"] < 27
-                   or counts["int8_conv"] < 26 or counts["stem_conv_pool"]
-                   or counts["bottleneck_block"])
-    else:
-        skipped = (counts["ten_crop_standardize"] < 1 or counts["stem_conv_pool"] < 1
-                   or counts["bottleneck_block"] < 3)
+        skipped = (k1_wrong or counts["int8_matmul"] < 27 or counts["int8_conv"] < 26
+                   or counts["stem_conv_pool"] or counts["bottleneck_block"])
+    elif extractor.n_crops == 10:
+        skipped = k1_wrong or counts["stem_conv_pool"] < 1 or counts["bottleneck_block"] < 3
+    else:  # one group of center crops: one stem launch and three blocks
+        skipped = k1_wrong or counts["stem_conv_pool"] != 1 or counts["bottleneck_block"] != 3
     if skipped:
         raise AssertionError(f"{name}: wrong kernels launched: {counts}")
     clips = (video.shape[0] - 1) // extractor.frames_per_clip + 1
-    if features.shape != (clips, 10, 2048):
-        raise AssertionError(f"{name}: features {features.shape}, expected ({clips}, 10, 2048)")
+    if features.shape != (clips, extractor.n_crops, 2048):
+        raise AssertionError(f"{name}: features {features.shape}, expected ({clips}, "
+                             f"{extractor.n_crops}, 2048)")
     if not (np.isfinite(scores).all() and (scores >= 0).all() and (scores <= 1).all()):
         raise AssertionError(f"{name}: clip scores out of [0, 1]: {scores}")
     print(f"{name} clip scores: {np.round(scores, 6).tolist()}", flush=True)
@@ -767,12 +800,18 @@ def device_breakdown(torch, run) -> dict:
     groups = {"K1 crop_norm_kernel": 0.0, "K2 stem_kernel": 0.0, "K3 bottleneck_kernel": 0.0,
               "K4 int8_matmul_kernel": 0.0, "K5 int8_conv_kernel": 0.0}
     other = {}
+    h2d_ms = 0.0
+    copies = {}  # every copy the profiler recorded, by name
     for evt in prof.events():
         # device-side events only: kernels and copies, not the ranges a
         # record_function (such as Optimizer.step) spans over them
         if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         us = evt.time_range.elapsed_us()
+        if "HtoD" in evt.key:
+            h2d_ms += us / 1e3
+        if "emcpy" in evt.key:
+            copies[evt.key[:60]] = copies.get(evt.key[:60], 0.0) + us / 1e3
         for group in groups:
             if group.split()[1] in evt.key:
                 groups[group] += us / 1e3
@@ -783,7 +822,8 @@ def device_breakdown(torch, run) -> dict:
     top = dict(sorted(other.items(), key=lambda kv: -kv[1])[:6])
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
-            "kernels_ms": groups, "other_kernels_ms": sum(other.values()), "top_other_ms": top}
+            "kernels_ms": groups, "other_kernels_ms": sum(other.values()), "top_other_ms": top,
+            "h2d_copy_ms": h2d_ms, "copies_ms": copies}
 
 
 def check_eight_frame_extractor(torch, model, video):
@@ -1109,6 +1149,398 @@ def check_serving(torch, root: str, extractor, video, checkpoints: dict) -> None
               f"({min(times) * 1e3:.3f}-{max(times) * 1e3:.3f}) over 20 calls", flush=True)
 
 
+class StandInDecoder:
+    """Phase 10's stand-in for ``data/video.py``'s ``VideoFrameSource``:
+    seeded uint8 240x320 frames made in memory once per video, then handed
+    out in chunks of ``STAND_IN_CHUNK`` frames (so every video spans several
+    chunks) at the cost of no decode: ``STAND_IN_VIDEOS[name]`` clips of 16
+    frames per file name. This script swaps it in (``stand_in_decode``) for
+    the extraction module's decoder, to drive the host pipeline without the
+    decoder's cost; the package has no such decoder."""
+
+    chunks: dict = {}  # file name -> its chunks, made at first use
+
+    def __init__(self, path: str, chunk_frames: int = 0, depth: int = 2, native=None):
+        self.name = os.path.basename(path)
+
+    def __iter__(self):
+        import numpy as np
+
+        if self.name not in self.chunks:
+            n_frames = STAND_IN_VIDEOS[self.name] * 16
+            gen = np.random.default_rng(sum(map(ord, self.name)))
+            self.chunks[self.name] = [
+                gen.integers(0, 256, (min(STAND_IN_CHUNK, n_frames - start), 240, 320, 3),
+                             dtype=np.uint8)
+                for start in range(0, n_frames, STAND_IN_CHUNK)]
+        yield from self.chunks[self.name]
+
+    def close(self) -> None:
+        pass
+
+
+STAND_IN_CHUNK = 320  # 20 clips
+FEATURE_DIM = 2048  # i3res50's features per crop
+STAND_IN_VIDEOS = {"Abuse030_x264.mp4": 24, "Arson011_x264.mp4": 40,
+                   "Normal_Videos_015_x264.mp4": 70}
+LARGE_STAND_IN = "Normal_Videos_015_x264.mp4"
+
+
+@contextlib.contextmanager
+def stand_in_decode():
+    """Decode through ``StandInDecoder``, with ``LARGE_STAND_IN`` treated
+    as a video over 1 GB (per-chunk caches), inside the block."""
+    from anomaly_detection_on_video_tpu_torch.data import extraction
+
+    saved = extraction.VideoFrameSource, extraction.is_large_video
+    extraction.VideoFrameSource = StandInDecoder
+    extraction.is_large_video = lambda path, *a: os.path.basename(path) == LARGE_STAND_IN
+    try:
+        yield
+    finally:
+        extraction.VideoFrameSource, extraction.is_large_video = saved
+
+
+def center_crops(torch, resized, dtype):
+    """(clips, 16, H', W', 3) resized uint8 -> standardized center crops."""
+    from anomaly_detection_on_video_tpu_torch.ops.gtransforms import center_crop, standardize
+
+    return standardize(center_crop(resized, 224)).to(dtype).contiguous()
+
+
+def check_small_and_center_batches(torch, model, qmodel, crops32):
+    """Phase 10 (a): K2 and K3 at B = 1 and B = 60 (``crops32``: 60 center
+    crops), and every K4 and K5 call of one int8 forward of ``qmodel`` at
+    the same batches, against their plain versions under phase 2's and
+    phase 4's gates, with times."""
+    for b in (1, 60):
+        x32 = crops32[:b].contiguous()
+        print(f"K2 and K3 at B = {b}:", flush=True)
+        stem_out, k2 = check_stem(torch, model, x32)
+        k3 = check_bottlenecks(torch, model, stem_out)
+        del stem_out
+        print(f"int8 forward at B = {b}:", flush=True)
+        k45 = check_int8_path_calls(torch, qmodel, x32.to(torch.bfloat16))
+        print(f"B={b} summary: K2 {k2['ms']:.3f} ms (bound {k2['bound_ms']:.3f}), K3 "
+              f"{k3['ms']:.3f} ms for 3 blocks (bound {k3['bound_ms']:.3f}), " + ", ".join(
+                  f"{e['name']} {e['ms']:.3f} ms ({e['device_ms']:.3f} device; bound "
+                  f"{e['bound_ms']:.3f})" for e in k45), flush=True)
+        torch.cuda.empty_cache()
+
+
+def check_center_paths(torch, model, ten_extractor, frames, scorer):
+    """Phase 10 (b): ``FeatureExtractor(crops="center", batch=240)`` in
+    bf16 and int8 on ``frames`` (60 clips, one group of 60 crops) through
+    ``drive_path`` (launch gates, five timed passes, peak memory), one
+    profiled pass each (busy, idle share, host-to-device copy). Gates:
+    bf16 against the plain float32 forward of the same center crops
+    (cosine >= 0.999 per row) and, on the first 24 clips, against row 4 of
+    ``ten_extractor``'s features (cosine >= 0.999); int8 against the plain
+    int8 forward (cosine >= 0.99999, unequal values printed)."""
+    from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
+    from anomaly_detection_on_video_tpu_torch.infer import score_features
+    from anomaly_detection_on_video_tpu_torch.ops.resize import resize_bilinear_fast, short_side_size
+
+    clips = frames.shape[0] // 16
+    h, w = short_side_size(frames.shape[1], frames.shape[2], 256)
+    resized = resize_bilinear_fast(torch.from_numpy(frames).cuda(), h, w).reshape(clips, 16, h, w, 3)
+    with torch.no_grad():
+        ref = plain_features(torch, model, center_crops(torch, resized, torch.float32))
+    ten = ten_extractor.extract_frames(frames[: 24 * 16])
+    copy_ms = cuda_ms(lambda: torch.from_numpy(frames).to("cuda"), 3)
+    print(f"the 60 clips' frames ({frames.nbytes / 1e6:.0f} MB, pageable) copied to the card "
+          f"alone: {copy_ms:.3f} ms by CUDA events", flush=True)
+    for n in (384, 960):  # the ten-crop B = 240 group's frames, then this group's
+        seen = device_breakdown(torch, lambda: torch.from_numpy(frames[:n]).to("cuda"))
+        print(f"the profiler on the copy alone of {n} frames ({frames[:n].nbytes / 1e6:.0f} MB): "
+              f"wall {seen['wall_ms']:.3f} ms, copies recorded {seen['copies_ms']}", flush=True)
+    for quantize in (False, True):
+        name = f"center-crop {'int8 ' if quantize else ''}path at B = 240"
+        extractor = FeatureExtractor(state_dict=model.state_dict(), dtype=torch.bfloat16,
+                                     batch=240, device="cuda", quantize=quantize, crops="center")
+        if extractor.group_clips != 60:
+            raise AssertionError(f"{name}: {extractor.group_clips}-clip groups, expected 60")
+        features, _, _ = drive_path(torch, name, extractor, frames, scorer)
+        got = torch.from_numpy(features[:, 0]).cuda()
+        if quantize:
+            check_int8_features(torch, f"{name} features", extractor.model,
+                                center_crops(torch, resized, torch.bfloat16), features, ref)
+        else:
+            cos = check_cosine(f"{name} features vs plain float32", got, ref, 0.999)
+            row4 = check_cosine(f"{name} vs ten-crop row 4", got[:24],
+                                torch.from_numpy(ten[:, 4]).cuda(), 0.999)
+            print(f"{name} features vs plain float32 forward: min row cosine {cos:.6f}; first 24 "
+                  f"clips vs the ten-crop extractor's row 4: min row cosine {row4:.6f}", flush=True)
+        run = device_breakdown(torch, lambda: score_features(extractor.extract_frames(frames),
+                                                             scorer))
+        print(f"{name}, one profiled pass: busy {run['device_busy_ms']:.2f} ms of "
+              f"{run['wall_ms']:.2f} ms wall, idle share {run['idle_share']:.1%}, host-to-device "
+              f"copy {run['h2d_copy_ms']:.3f} ms; {json.dumps(run)}", flush=True)
+        del extractor
+        torch.cuda.empty_cache()
+
+
+def run_cli(module, argv):
+    """``module.main(argv)``, its standard output echoed and returned."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        module.main(argv)
+    sys.stdout.write(out.getvalue())
+    return out.getvalue()
+
+
+def time_extraction_loops(torch, videos: str, weights: str, root: str, label: str) -> None:
+    """The extraction loop alone, without the CLI's model build and
+    segments: ``extract_videos_pooled`` (3 decode workers) and
+    ``extract_videos`` (serial) over ``videos`` with one warmed bf16
+    extractor at B = 240, into fresh directories; clips/s of each."""
+    from anomaly_detection_on_video_tpu_torch.data import extraction
+    from anomaly_detection_on_video_tpu_torch.data.video import find_videos
+    from anomaly_detection_on_video_tpu_torch.infer import load_state_dict
+
+    paths = find_videos(videos)
+    extractor = extraction.FeatureExtractor(state_dict=load_state_dict(weights),
+                                            dtype=torch.bfloat16, batch=240, device="cuda")
+    extractor.extract_video(paths[0])  # warm-up: cuDNN plans, the allocator
+    total = sum(STAND_IN_VIDEOS.values())
+    rates = []
+    for name, run in (("pooled, 3 decode workers", lambda out: extraction.extract_videos_pooled(
+            paths, out, extractor, decode_workers=3, progress=False)),
+                      ("serial", lambda out: extraction.extract_videos(
+                          paths, out, extractor, progress=False))):
+        out = os.path.join(root, f"{label}_{len(rates)}")
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run(out)
+        torch.cuda.synchronize()
+        rates.append(f"{name} {total / (time.perf_counter() - start):.2f}")
+    print(f"{label}, the extraction loop alone (a warmed bf16 extractor at B = 240): clips/s "
+          f"{'; '.join(rates)}", flush=True)
+
+
+def check_bulk_cli(torch, root: str, weights: str) -> None:
+    """Phase 10 (c): ``extract_features.main --split train`` over the
+    stand-in videos with ``--decode-workers 3`` (pooled) and, into another
+    outdir, ``--decode-workers 1 --profile`` (serial). Gates: both runs'
+    features equal at atol 1e-5; (10, 32, 2048) segment files; a second
+    pooled run extracts 0 videos; with the large video's file deleted, a
+    re-run rebuilds it from its chunk caches with zero kernel launches."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import extract_features
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    videos = os.path.join(root, "stand_in_videos")
+    os.makedirs(videos)
+    for name in STAND_IN_VIDEOS:
+        open(os.path.join(videos, name), "wb").close()  # decoded by the stand-in
+    total = sum(STAND_IN_VIDEOS.values())
+    outs = {}
+    for label, extra in (("pooled", ["--decode-workers", "3"]),
+                         ("serial", ["--decode-workers", "1", "--profile"])):
+        outs[label] = os.path.join(root, f"bulk_{label}")
+        argv = ["--videos", videos, "--outdir", outs[label], "--split", "train", "--weights",
+                weights, "--device", "cuda"] + extra
+        start = time.perf_counter()
+        printed = run_cli(extract_features, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        if "extracted 3 new videos (3 total)" not in printed:
+            raise AssertionError(f"bulk CLI {label}: {printed}")
+        print(f"bulk CLI {label}: {total} clips of 3 videos in {seconds:.2f} s = "
+              f"{total / seconds:.2f} clips/s end to end (stand-in decode, segments included)",
+              flush=True)
+    diff = 0.0
+    for name, clips in STAND_IN_VIDEOS.items():
+        feature = f"{os.path.splitext(name)[0]}_i3d.npy"
+        a, b = (np.load(os.path.join(outs[k], "train", feature)) for k in ("pooled", "serial"))
+        if a.shape != (clips, 10, FEATURE_DIM) or b.shape != a.shape:
+            raise AssertionError(f"bulk CLI {feature}: shapes {a.shape}, {b.shape}")
+        diff = max(diff, float(np.abs(a - b).max()))
+        seg = np.load(os.path.join(outs["pooled"], "segment_features_32", feature))
+        if seg.shape != (10, 32, FEATURE_DIM) or not np.isfinite(seg).all():
+            raise AssertionError(f"bulk CLI segments {feature}: {seg.shape}")
+    print(f"bulk CLI pooled vs serial features: max |diff| {diff:.3e}; segment files (10, 32, "
+          f"{FEATURE_DIM}) written", flush=True)
+    if diff > 1e-5:
+        raise AssertionError(f"bulk CLI pooled vs serial: max |diff| {diff:.3e} > 1e-5")
+    argv = ["--videos", videos, "--outdir", outs["pooled"], "--split", "train", "--weights",
+            weights, "--device", "cuda", "--decode-workers", "3"]
+    if "extracted 0 new videos (3 total)" not in run_cli(extract_features, argv):
+        raise AssertionError("a second pooled run extracted videos again")
+    large = os.path.join(outs["pooled"], "train", f"{os.path.splitext(LARGE_STAND_IN)[0]}_i3d.npy")
+    before = np.load(large)
+    caches = os.path.join(outs["pooled"], "train", os.path.splitext(LARGE_STAND_IN)[0])
+    n_caches = len(os.listdir(caches))
+    os.remove(large)
+    kernels.reset_launch_counts()
+    printed = run_cli(extract_features, argv)
+    counts = kernels.launch_counts()
+    if "extracted 1 new videos (3 total)" not in printed or any(counts.values()):
+        raise AssertionError(f"rebuild from chunk caches: launches {counts}, {printed}")
+    if not np.array_equal(np.load(large), before):
+        raise AssertionError("the rebuilt file differs from the first one")
+    print(f"bulk CLI: a second pooled run extracted 0 videos; {LARGE_STAND_IN}'s file rebuilt "
+          f"from its {n_caches} chunk caches with launches {counts}", flush=True)
+    time_extraction_loops(torch, videos, weights, root, "stand-in decode")
+
+
+def check_real_decode(torch, root: str, weights: str) -> None:
+    """Phase 10 (c'): where OpenCV is importable, the stand-in videos'
+    contents (coarse 8x8-pixel blocks, so JPEG compresses them as it does
+    real scenes) are written as MJPG files and extracted by
+    ``extract_features.main`` with real decode, pooled (3 workers) and
+    serial with ``--profile``: clips/s end to end, and both runs' features
+    equal at atol 1e-5. Without OpenCV this is not measured."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import extract_features
+    from anomaly_detection_on_video_tpu_torch.data import framepipe
+
+    try:
+        import cv2
+    except ImportError:
+        print("real decode: not measured (OpenCV is not importable on this machine)", flush=True)
+        return
+    videos = os.path.join(root, "mjpg_videos")
+    os.makedirs(videos)
+    mb = 0.0
+    for name, clips in STAND_IN_VIDEOS.items():
+        gen = np.random.default_rng(sum(map(ord, name)))
+        coarse = gen.integers(0, 256, (clips * 16, 30, 40, 3), dtype=np.uint8)
+        path = os.path.join(videos, f"{os.path.splitext(name)[0]}.avi")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 30, (320, 240))
+        for frame in coarse.repeat(8, axis=1).repeat(8, axis=2):
+            writer.write(np.ascontiguousarray(frame[..., ::-1]))
+        writer.release()
+        mb += os.path.getsize(path) / 1e6
+    total = sum(STAND_IN_VIDEOS.values())
+    engine = ("the native decoder" if framepipe.available()
+              else f"OpenCV {cv2.__version__}")
+    outs = {}
+    for label, extra in (("pooled", ["--decode-workers", "3"]),
+                         ("serial", ["--decode-workers", "1", "--profile"])):
+        outs[label] = os.path.join(root, f"decoded_{label}")
+        start = time.perf_counter()
+        run_cli(extract_features, ["--videos", videos, "--outdir", outs[label], "--weights",
+                                   weights, "--device", "cuda", "--no-segments"] + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        print(f"real decode ({engine}, {mb:.1f} MB of MJPG), extract_features {label}: {total} "
+              f"clips in {seconds:.2f} s = {total / seconds:.2f} clips/s end to end", flush=True)
+    diff = max(float(np.abs(np.load(os.path.join(outs["pooled"], f)) - np.load(
+        os.path.join(outs["serial"], f))).max()) for f in os.listdir(outs["serial"])
+        if f.endswith("_i3d.npy"))
+    if diff > 1e-5:
+        raise AssertionError(f"real decode: pooled vs serial features differ by {diff:.3e}")
+    print(f"real decode: pooled vs serial features max |diff| {diff:.3e}", flush=True)
+    time_extraction_loops(torch, videos, weights, root, f"real decode ({engine})")
+
+
+def check_center_serving(torch, root: str, weights: str, checkpoint: str) -> None:
+    """Phase 10 (d): ``infer.main --crops center`` on the 24-clip stand-in
+    video with phase 8's MGFN checkpoint. Gates: scores finite and in
+    [0, 1], equal at 1e-5 to ``score_features`` of a center extractor's
+    features of the same video."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import infer
+    from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
+
+    name = "Abuse030_x264.mp4"
+    request = os.path.join(root, "request")
+    os.makedirs(request)
+    open(os.path.join(request, name), "wb").close()
+    outdir, feats = os.path.join(root, "scores_center"), os.path.join(root, "features_center")
+    argv = ["--videos", request, "--outdir", outdir, "--checkpoint", checkpoint, "--crops",
+            "center", "--i3d-weights", weights, "--features-dir", feats, "--device", "cuda"]
+    start = time.perf_counter()
+    infer.main(argv)
+    wall = time.perf_counter() - start
+    stem = os.path.splitext(name)[0]
+    with open(os.path.join(outdir, f"{stem}_scores.json")) as f:
+        out = json.load(f)
+    clip = np.asarray(out["clip_scores"])
+    cached = np.load(os.path.join(feats, f"{stem}_i3d_center.npy"))
+    if clip.shape != (24,) or cached.shape != (24, 1, FEATURE_DIM) or not (
+            np.isfinite(clip).all() and (clip >= 0).all() and (clip <= 1).all()):
+        raise AssertionError(f"center serving: scores {clip.shape}, features {cached.shape}")
+    extractor = FeatureExtractor(state_dict=infer.load_state_dict(weights), dtype=torch.bfloat16,
+                                 adaptive_groups=True, device="cuda", crops="center")
+    features = extractor.extract_video(os.path.join(request, name))
+    scorer, _ = infer.build_scorer(infer.build_parser().parse_args(argv))
+    ref = infer.score_features(features, scorer)
+    err = float(np.abs(clip - ref).max())
+    if err > 1e-5:
+        raise AssertionError(f"center serving scores {clip} against {ref}: max |err| {err:.2e}")
+    print(f"infer --crops center with the MGFN checkpoint: 24 clips scored in {wall:.2f} s "
+          f"(infer.main); clip scores vs score_features of the center extractor's features: "
+          f"max |err| {err:.2e}; features cached as {stem}_i3d_center.npy", flush=True)
+
+
+def time_dispatch_hop(torch, extractor, video, passes: int = 10) -> None:
+    """The cost of the hop to the extractor's dispatch thread on a
+    request: ``dispatch_frames`` + ``materialize_features`` against
+    ``extract_frames`` (the same work on this thread), in turns (each
+    first in every other pass), median ms each."""
+    import numpy as np
+
+    n_clips = (video.shape[0] - 1) // extractor.frames_per_clip + 1
+    gc = extractor._group_for(n_clips)
+    runs = [("dispatched", lambda: extractor.materialize_features(extractor.dispatch_frames(video))),
+            ("extract_frames, on this thread", lambda: extractor.extract_frames(video))]
+    times = {name: [] for name, _ in runs}
+    for i in range(passes):
+        for name, run in runs[::1 if i % 2 else -1]:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            run()
+            times[name].append((time.perf_counter() - start) * 1e3)
+    print(f"dispatch thread hop on the {n_clips}-clip video ({str(extractor.dtype)[6:]}, B = "
+          f"{gc * extractor.n_crops}), {passes} passes "
+          f"in turns: " + "; ".join(f"{k} median {np.median(v):.3f} ms ({min(v):.3f}-"
+                                    f"{max(v):.3f})" for k, v in times.items()), flush=True)
+
+
+def check_extraction_breadth(torch, root, model, qmodel, ten_extractor, scorer, checkpoint,
+                             extractor, video):
+    """Phase 10: extraction breadth. (a) K2-K5 at B = 1 and B = 60,
+    (b) center-crop extraction at full width in bf16 and int8, (c) the bulk
+    CLI pooled and serial over stand-in videos, (d) center-crop serving;
+    first the dispatch thread's cost on the 4-clip request."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.data import framepipe
+    from anomaly_detection_on_video_tpu_torch.ops.resize import resize_bilinear_fast
+
+    start = time.perf_counter()
+    try:
+        import cv2  # noqa: F401
+        have_cv2 = "yes"
+    except ImportError:
+        have_cv2 = "no"
+    time_dispatch_hop(torch, extractor, video)
+    print(f"phase 10 decodes with a stand-in (seeded frames in memory, not a package decoder); "
+          f"on this machine OpenCV importable: {have_cv2}, libframepipe usable: "
+          f"{'yes' if framepipe.available() else 'no'}", flush=True)
+    frames = np.random.RandomState(10).randint(0, 256, (960, 240, 320, 3), dtype=np.uint8)
+    resized = resize_bilinear_fast(torch.from_numpy(frames).cuda(), 256, 341).reshape(
+        60, 16, 256, 341, 3)
+    crops32 = center_crops(torch, resized, torch.float32)
+    del resized
+    check_small_and_center_batches(torch, model, qmodel, crops32)
+    del crops32
+    torch.cuda.empty_cache()
+    check_center_paths(torch, model, ten_extractor, frames, scorer)
+    weights = os.path.join(root, "i3res50.pt")
+    torch.save(model.state_dict(), weights)
+    with stand_in_decode():
+        check_bulk_cli(torch, root, weights)
+        check_center_serving(torch, root, weights, checkpoint)
+    check_real_decode(torch, root, weights)
+    print(f"extraction breadth phase: {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1288,6 +1720,14 @@ def main() -> int:
             time_train_step(torch, "32-true", runner)
         check_serving(torch, work, extractor, video, checkpoints)
         print(f"serving phase: {time.perf_counter() - t_serve:.1f} s", flush=True)
+
+        # 10. extraction breadth: K2-K5 at B = 1 and 60, center crops at
+        # full width, the bulk CLI pooled and serial, center-crop serving
+        bulk_ten = FeatureExtractor(state_dict=model.state_dict(), dtype=torch.bfloat16,
+                                    batch=240, device=dev)
+        check_extraction_breadth(torch, work, model, qextractor.model, bulk_ten, scorer,
+                                 checkpoints["mgfn"], extractor, video)
+        del bulk_ten
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -42,7 +42,7 @@ from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtracto
 from anomaly_detection_on_video_tpu_torch.data.video import find_videos, warn_duplicate_stems
 from anomaly_detection_on_video_tpu_torch.models import MGFN, MGFNConfig, build_model, seeded_init_
 from anomaly_detection_on_video_tpu_torch.models.i3d import I3DResNet
-from anomaly_detection_on_video_tpu_torch.ops.metrics import anomaly_events
+from anomaly_detection_on_video_tpu_torch.ops.metrics import anomaly_events, frame_level_scores
 from anomaly_detection_on_video_tpu_torch.training import VideoAnomalyDetectionRunner
 from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
 from anomaly_detection_on_video_tpu_torch.training.runner import buckets_up_to
@@ -162,7 +162,8 @@ def test_extract_features_finds_class_subfolders(rng, tmp_path, monkeypatch, cap
     t_extract_features.main(["--videos", str(vids), "--outdir", str(tmp_path / "out"),
                              "--device", "cpu", "--batch", "20"])
     assert sorted(os.listdir(tmp_path / "out")) == ["Abuse001_x264_i3d.npy",
-                                                    "Normal_Videos_003_x264_i3d.npy"]
+                                                    "Normal_Videos_003_x264_i3d.npy",
+                                                    "segment_features_32"]
     assert np.load(tmp_path / "out" / "Abuse001_x264_i3d.npy").shape == (2, 10, 64)
     assert "2 videos share the stem 'Abuse001_x264'" in capsys.readouterr().err
     empty = tmp_path / "empty"
@@ -447,7 +448,9 @@ def test_process_video_caches_and_reuses_features(rng, tmp_path, monkeypatch):
     again = t_infer.process_video(path, extractor, scorer, str(tmp_path / "o"), "sultani", 0.3, 2,
                                   str(tmp_path / "f"))
     assert again["clip_scores"] == first["clip_scores"] and again["model"] == "sultani"
-    assert again["events"] == anomaly_events(np.asarray(again["frame_scores"]), 0.3, 2)
+    # the events come from the unrounded frame scores, not the JSON's 6-place ones
+    frame_scores = frame_level_scores(t_infer.score_features(cached, scorer), 16)
+    assert again["events"] == anomaly_events(frame_scores, 0.3, 2)
 
 
 # ------------------------------------------ serving the port's checkpoints

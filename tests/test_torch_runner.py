@@ -180,7 +180,8 @@ def test_crop_protocol_pin_matches_jax(tmp_path):
     jextraction.record_crop_protocol(pinned, "center")
     before = {name: open(os.path.join(pinned, name), "rb").read() for name in os.listdir(pinned)}
     with pytest.raises(ValueError, match="center-crop"):
-        textraction.extract_videos([str(tmp_path / "missing.avi")], pinned, extractor=None)
+        textraction.extract_videos([str(tmp_path / "missing.avi")], pinned, textraction.FeatureExtractor(
+            model=ti3d.I3DResNet(stages=NARROW), dtype=torch.float32, device="cpu"))
     after = {name: open(os.path.join(pinned, name), "rb").read() for name in os.listdir(pinned)}
     assert after == before == {"crops.json": before["crops.json"]}
 
