@@ -8,7 +8,8 @@
 // from the probe's fixed (128, 28 x 28) planes to the convs of the i3res50
 // int8 path: k(1,3,3) with stride 1 or 2 and k(3,1,1) over Cin % 16 == 0
 // channels (any kernel, stride and padding with such Cin), and the stem's
-// k(5,7,7) s2 p(2,3,3) over Cin = 3. It also writes float32,
+// k(5,7,7) s2 p(2,3,3) over Cin = 3 (RGB) or Cin = 2 (the flow stream's dx,
+// dy). It also writes float32,
 // ConvBN._int8_conv's dequantize in a float32 model. Other geometries are
 // refused (the wrapper raises). x (B, T, H, W, Cin) int8 -> out
 // (B, To, Ho, Wo, Cout); the epilogue converts each exact int32 sum once,
@@ -42,15 +43,17 @@
 // wgmma. Two CTAs share an SM. TMA is not used: the A rows are gathered
 // taps (an implicit im2col) with zero padding per tap.
 //
-// int8_conv_kernel_stem (Cin = 3), on mma.sync m16n8k32 s8.s8.s32 fed by
-// ldmatrix: one CTA per (clip, stem frame pair, 8 x 16 output positions).
-// It stages its input once as one 32-byte vector per pixel, [j][16] int8
-// for the two stem frames 2u + j (j = 0: relative
-// input frames 0-4 x 3 channels, j = 1: frames 2-6, byte 15 zero), loaded
-// as 4-byte words along each input row (four pixels, 12 bytes) and
-// transposed in registers. One m16n8k32 K step then covers two (kh, kw)
-// taps: K = 25 x 32 = 800, the 50th tap zero in the weights, which arrive
-// as the (64, 800) matrix of pack_int8_conv_weight. Even and odd input
+// int8_conv_kernel_stem<C> (Cin = C, 3 or 2), on mma.sync m16n8k32
+// s8.s8.s32 fed by ldmatrix: one CTA per (clip, stem frame pair, 8 x 16
+// output positions). It stages its input once as one 32-byte vector per
+// pixel, [j][16] int8 for the two stem frames 2u + j (j = 0: relative
+// input frames 0-4 x C channels, j = 1: frames 2-6; element kt * C + c,
+// bytes 5 * C .. 15 zero), loaded as C 4-byte words along each input row
+// (four pixels of C bytes) and transposed in registers. The flow stream's
+// two channels fill 10 of the 16 bytes, so its input is never padded to a
+// third zero channel. One m16n8k32 K step then covers two (kh, kw) taps:
+// K = 25 x 32 = 800, the 50th tap zero in the weights, which arrive as the
+// (64, 800) matrix of pack_int8_conv_weight for either C. Even and odd input
 // columns are split and a pixel padded to 48 bytes, so the 8 rows of an
 // ldmatrix (stem columns two pixels apart) fall on distinct banks.
 #include "common.cuh"
@@ -306,7 +309,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 // ------------------------------------------------------------- the stem
 
-constexpr int S_CO = 64, S_KT = 5, S_KH = 7, S_KW = 7, S_C = 3;
+constexpr int S_CO = 64, S_KT = 5, S_KH = 7, S_KW = 7;
 constexpr int S_TR = 8, S_TC = 16;                 // stem rows / cols per CTA
 constexpr int S_POS = 2 * S_TR * S_TC;             // 256 positions: 2 stem frames
 constexpr int S_IR = 2 * (S_TR - 1) + S_KH;        // 21 input rows
@@ -329,7 +332,7 @@ __host__ __device__ constexpr int stem_tap(int tap) {
          (((tap % S_KW) + 1) >> 1) * S_PIX;
 }
 
-template <int MODE>
+template <int MODE, int C>
 __global__ void __launch_bounds__(THREADS, 2)
     int8_conv_kernel_stem(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                           const float* __restrict__ scale, void* __restrict__ out, int T, int H,
@@ -351,24 +354,26 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
   cp_async_commit();
 
-  // the slab: four input pixels (12 bytes, three 4-byte words) per frame
+  static_assert((C == 2 || C == 3) && S_KT * C <= 16, "five taps of C channels fit 16 bytes");
+  // the slab: four input pixels (4 * C bytes, C 4-byte words) per frame
   // and unit, transposed in registers into four [j][16] pixel vectors
   for (int unit = tid; unit < S_IR * (S_Q / 2); unit += THREADS) {
     const int r = unit / (S_Q / 2), grp = unit % (S_Q / 2);
     const int ih = ih0 + r;
     const int iw = ic0 + 4 * grp;        // W % 4 == 0: all four pixels inside or outside
     const bool inside = ih >= 0 && ih < H && iw >= 0 && iw < W;
-    uint32_t wd[7][3];
+    uint32_t wd[7][C];
 #pragma unroll
     for (int f = 0; f < 7; ++f) {
       const int frame = 4 * u - 2 + f;
-      wd[f][0] = wd[f][1] = wd[f][2] = 0u;
+#pragma unroll
+      for (int q = 0; q < C; ++q) wd[f][q] = 0u;
       if (inside && frame >= 0 && frame < T) {
+        // 4-byte aligned: x is, and iw % 4 == 0 with W % 4 == 0
         const uint32_t* src = reinterpret_cast<const uint32_t*>(
-            x + (((static_cast<size_t>(b) * T + frame) * H + ih) * W + iw) * S_C);
-        wd[f][0] = __ldg(src);
-        wd[f][1] = __ldg(src + 1);
-        wd[f][2] = __ldg(src + 2);
+            x + (((static_cast<size_t>(b) * T + frame) * H + ih) * W + iw) * C);
+#pragma unroll
+        for (int q = 0; q < C; ++q) wd[f][q] = __ldg(src + q);
       }
     }
 #pragma unroll
@@ -383,10 +388,10 @@ __global__ void __launch_bounds__(THREADS, 2)
           uint32_t word = 0u;
 #pragma unroll
           for (int e4 = 0; e4 < 4; ++e4) {
-            const int e = 4 * q + e4;  // element kt*3 + c
-            if (e < S_KT * S_C) {
-              const int f = 2 * j + e / S_C;
-              const int byte = px * S_C + e % S_C;  // of the 12-byte group
+            const int e = 4 * q + e4;  // element kt * C + c
+            if (e < S_KT * C) {
+              const int f = 2 * j + e / C;
+              const int byte = px * C + e % C;  // of the 4 * C-byte group
               word |= ((wd[f][byte >> 2] >> (8 * (byte & 3))) & 0xFFu) << (8 * e4);
             }
           }
@@ -476,10 +481,10 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int MODE>
+template <int MODE, int C>
 int launch_stem(const void* x, const void* w, const float* scale, void* out, const Geometry& g,
                 cudaStream_t stream) {
-  auto kernel = int8_conv_kernel_stem<MODE>;
+  auto kernel = int8_conv_kernel_stem<MODE, C>;
   cudaError_t err = set_smem(kernel, S_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int pairs = (g.To + 1) / 2;
@@ -506,7 +511,10 @@ int launch_c16(const void* x, const void* w, const float* scale, void* out, cons
 template <int MODE>
 int launch(const void* x, const void* w, const float* scale, void* out, const Geometry& g,
            bool stem, cudaStream_t stream) {
-  if (stem) return launch_stem<MODE>(x, w, scale, out, g, stream);
+  if (stem) {
+    return g.Cin == 2 ? launch_stem<MODE, 2>(x, w, scale, out, g, stream)
+                      : launch_stem<MODE, 3>(x, w, scale, out, g, stream);
+  }
   if (g.Cout == 64) return launch_c16<64, MODE>(x, w, scale, out, g, stream);
   return launch_c16<128, MODE>(x, w, scale, out, g, stream);
 }
@@ -515,8 +523,8 @@ int launch(const void* x, const void* w, const float* scale, void* out, const Ge
 
 // x int8 (B, T, H, W, Cin) channels last; w int8 (Cout, K): for Cin % 16
 // == 0 pack_int8_weight_nk's rows (kt, kh, kw, cin), for the stem
-// (Cin = 3, k(5,7,7), s2, p(2,3,3), Cout = 64, W % 4 == 0) the (64, 800)
-// tap-pair layout. Any other geometry returns cudaErrorInvalidValue.
+// (Cin = 3 or 2, k(5,7,7), s2, p(2,3,3), Cout = 64, W % 4 == 0, x 4-byte
+// aligned) the (64, 800) tap-pair layout. Any other geometry returns cudaErrorInvalidValue.
 extern "C" int adv_int8_conv(const void* x, const void* w, const float* scale, void* out, int B,
                              int T, int H, int W, int Cin, int Cout, int KT, int KH, int KW,
                              int ST, int SH, int SW, int PT, int PH, int PW, int mode,
@@ -525,7 +533,7 @@ extern "C" int adv_int8_conv(const void* x, const void* w, const float* scale, v
   g.To = (T + 2 * PT - KT) / ST + 1;
   g.Ho = (H + 2 * PH - KH) / SH + 1;
   g.Wo = (W + 2 * PW - KW) / SW + 1;
-  const bool stem = Cin == S_C && Cout == S_CO && KT == S_KT && KH == S_KH && KW == S_KW &&
+  const bool stem = (Cin == 2 || Cin == 3) && Cout == S_CO && KT == S_KT && KH == S_KH && KW == S_KW &&
                     ST == 2 && SH == 2 && SW == 2 && PT == 2 && PH == 3 && PW == 3 && W % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(w) % 16 == 0;

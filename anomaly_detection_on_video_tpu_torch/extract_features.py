@@ -4,6 +4,7 @@
         --videos clips/ --outdir features/ [--split train|test] \\
         [--weights i3res50.pt] [--dtype bfloat16|float32|int8] [--batch 240] \\
         [--crops ten|center] [--decode-workers N] [--profile] \\
+        [--stream rgb|flow|both] [--flow-backend host|device|tvl1] \\
         [--segment-length 32 | --no-segments] [--device cuda]
 
 Writes ``<stem>_i3d.npy`` of shape ``(n_clips, 10, 2048)`` float32 per
@@ -22,16 +23,22 @@ folders that share a stem share one output file, and a warning names them.
 ``--decode-workers`` (default: one per core, at most 8) decodes that many
 videos at once into one device queue; 1 is the serial path, which
 ``--profile`` forces to print its ``pipeline stages:`` timers.
+``--stream flow`` writes the optical-flow stream's ``<stem>_flow.npy``
+instead, ``--stream both`` both files from one decode pass (one extractor
+per stream from one weight tree: the flow stem's two input channels start
+from the RGB stem's mean). ``--flow-backend`` is ``host`` (OpenCV on the
+host), ``device`` (Farneback on the card, the default there) or ``tvl1``
+(TV-L1 on the card), pinned per directory in ``flow_backend.json``.
 ``--dtype int8`` runs the convs in int8 (kernels K4 and K5) around
 bfloat16 compute; its scales calibrate on the first chunk extracted and
-are pinned to the feature directory as ``act_scales_rgb.json``, the JAX
-package's sidecar, so a resumed run quantizes as the first did. On an H100
+are pinned to the feature directory as ``act_scales_<stream>.json``, the
+JAX package's sidecars, so a resumed run quantizes as the first did. On an H100
 int8 is currently slower than bfloat16 and uses more memory (PERF.md,
 section 5). ``--weights`` is an I3Res50 state dict (seeded random weights
-when unset). Single host, RGB stream, model ``tushar-n-baseline``: the JAX
-CLI's ``--stream``, ``--flow-backend``, ``--model``, ``--multihost``,
-``--data-parallel``, ``--compile-cache`` and ``--hf-dataset`` are not
-ported (ROADMAP.md, queue 1, modules 5-7), and the parser refuses them.
+when unset). Single host, model ``tushar-n-baseline``: the JAX CLI's
+``--model``, ``--multihost``, ``--data-parallel``, ``--compile-cache`` and
+``--hf-dataset`` are not ported (ROADMAP.md, queue 1, modules 5 and 7), and
+the parser refuses them.
 """
 
 from __future__ import annotations
@@ -41,7 +48,12 @@ import os
 import sys
 from typing import List, Optional
 
-from .data.extraction import FeatureExtractor, extract_videos, extract_videos_pooled
+from .data.extraction import (
+    FeatureExtractor,
+    extract_videos,
+    extract_videos_pooled,
+    extract_videos_two_stream,
+)
 from .data.segments import segment_video_features
 from .data.video import find_videos, warn_duplicate_stems
 from .infer import extractor_kwargs, load_state_dict
@@ -75,6 +87,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--decode-workers", type=int, default=None,
                         help=">1 decodes that many videos concurrently to keep the device "
                              "fed; default: one per host core (capped at 8), 1 = serial")
+    parser.add_argument("--stream", default="rgb", choices=["rgb", "flow", "both"],
+                        help="RGB, optical flow, or both from one shared decode pass")
+    parser.add_argument("--flow-backend", default=None, choices=["host", "device", "tvl1"],
+                        help="Farneback on the host (OpenCV), Farneback on the device, or "
+                             "TV-L1 on the device (the original two-stream I3D protocol's "
+                             "flow); default: device on a CUDA device, host on the CPU")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
 
@@ -84,15 +102,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     if args.batch < 1:
         parser.error(f"--batch must be >= 1 (got {args.batch})")
+    if args.flow_backend and args.stream == "rgb":
+        print("warning: --flow-backend has no effect with --stream rgb (no optical-flow stream "
+              "is extracted)", file=sys.stderr)
     videos = find_videos(args.videos)
     if not videos:
         raise SystemExit(f"no videos found under {args.videos!r}")
     warn_duplicate_stems(videos, what="extracted")
-    extractor = FeatureExtractor(
-        state_dict=load_state_dict(args.weights) if args.weights else None,
-        device=resolve_device(args.device),
-        **extractor_kwargs(args),
-    )
+    # one weight tree for both streams: the flow stem adapts from it
+    state_dict = load_state_dict(args.weights) if args.weights else None
+    device = resolve_device(args.device)
+
+    def make_extractor(stream: str) -> FeatureExtractor:
+        return FeatureExtractor(state_dict=state_dict, device=device, stream=stream,
+                                flow_backend=args.flow_backend if stream == "flow" else None,
+                                **extractor_kwargs(args))
+
+    extractor = make_extractor("rgb" if args.stream == "both" else args.stream)
+    flow_extractor = make_extractor("flow") if args.stream == "both" else None
     timer = StageTimer() if args.profile else None
     decode_workers = args.decode_workers
     if decode_workers is None:
@@ -104,7 +131,10 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     outdir = os.path.join(args.outdir, args.split) if args.split else args.outdir
     if decode_workers > 1:
-        n = extract_videos_pooled(videos, outdir, extractor, decode_workers=decode_workers)
+        n = extract_videos_pooled(videos, outdir, extractor, flow_extractor,
+                                  decode_workers=decode_workers)
+    elif flow_extractor is not None:
+        n = extract_videos_two_stream(videos, outdir, extractor, flow_extractor, timer=timer)
     else:
         n = extract_videos(videos, outdir, extractor, timer=timer)
     print(f"extracted {n} new videos ({len(videos)} total) -> {outdir}")

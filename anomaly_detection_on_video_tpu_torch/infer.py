@@ -10,7 +10,8 @@ and the one-shot scoring of a video set::
         [--threshold t --min-event-frames n] [--features-dir <cache>] \\
         [--frames-per-clip n] [--group-mode adaptive|fixed] [--warmup clips] \\
         [--i3d-weights i3res50.pt] [--dtype bfloat16|float32|int8] [--batch 240] \\
-        [--crops ten|center] [--device cuda]
+        [--crops ten|center] [--stream rgb|flow|both] \\
+        [--flow-backend host|device|tvl1] [--device cuda]
 
 Writes ``<stem>_scores.json`` per video with the JAX CLI's keys (video,
 model, stream, n_clips, frames_per_clip, clip_scores, frame_scores,
@@ -34,12 +35,20 @@ unset, as the JAX CLI initializes randomly).
 ``--dtype int8`` runs the I3D convs in int8 (kernels K4 and K5) around
 bfloat16 compute, with scales calibrated on the first video's first chunk
 and pinned to ``--features-dir`` (else ``--outdir``) as
-``act_scales_rgb.json``. On an H100 it is currently slower than bfloat16
-and uses more memory (PERF.md, section 5). ``--crops center`` is the
-throughput serving mode: one center crop per clip (ten-crop row 4), its
-features cached as ``<stem>_i3d_center.npy``. Not ported: ``--stream`` flow
-and both, other ``--i3d-model`` values, ``--figure``,
-``--watch``, ``--serve``, ``--export`` / ``--from-export``,
+``act_scales_<stream>.json``. On an H100 it is currently slower than
+bfloat16 and uses more memory (PERF.md, section 5). ``--crops center`` is
+the throughput serving mode: one center crop per clip (ten-crop row 4), its
+features cached as ``<stem>_i3d_center.npy``.
+
+``--stream`` picks the features scored: ``rgb`` (2048-d), ``flow`` (the
+optical-flow stream, 2048-d, cached as ``<stem>_flow.npy``) or ``both``
+(RGB and flow from one decode pass, concatenated to 4096-d, as training's
+``data.stream=both`` concatenates them). Unset, it is the checkpoint's
+persisted ``data.stream`` (else ``rgb``), so a two-stream checkpoint is
+scored two-stream with no flag. ``--flow-backend`` as in
+``extract_features``; with ``--features-dir`` the backend is pinned there
+in ``flow_backend.json``. Not ported: other ``--i3d-model`` values,
+``--figure``, ``--watch``, ``--serve``, ``--export`` / ``--from-export``,
 ``--data-parallel`` and ``--compile-cache``.
 """
 
@@ -50,7 +59,7 @@ import json
 import os
 import sys
 import time
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,7 +67,12 @@ from torch import nn
 
 from .config import instantiate, locate
 from .config.compose import parse_value
-from .data.extraction import FeatureExtractor, feature_filename
+from .data.extraction import (
+    FeatureExtractor,
+    extract_video_two_stream,
+    feature_filename,
+    record_flow_backend,
+)
 from .data.features import pad_eval_batch
 from .data.video import find_videos, warn_duplicate_stems
 from .models import build_model
@@ -70,7 +84,7 @@ from .utils.convert import mgfn_state_dict_from_official, rtfm_state_dict_from_o
 from .utils.device import resolve_device
 from .utils.npyio import atomic_save
 
-FEATURE_DIM = 2048  # the RGB stream's features per crop
+FEATURE_DIM = 2048  # one stream's features per crop
 
 
 def load_state_dict(path: str) -> dict:
@@ -179,6 +193,49 @@ def score_features(features: np.ndarray, scorer: nn.Module, eval_step=None) -> n
     return scores[0, :n_clips, 0].cpu().numpy()
 
 
+def _cache_path(features_dir: Optional[str], stem: str, stream: str,
+                crops: str) -> Optional[str]:
+    """``features_dir``'s file of one stream's features: ``<stem>_i3d.npy``
+    or ``<stem>_flow.npy``, ``_center`` before ``.npy`` for center crops,
+    so ``(n, 1, C)`` features neither shadow nor are shadowed by the
+    ten-crop contract files."""
+    if not features_dir:
+        return None
+    name = feature_filename(stem, stream)
+    if crops == "center":
+        name = name[: -len(".npy")] + "_center.npy"
+    return os.path.join(features_dir, name)
+
+
+def load_or_extract(path: str, extractor: FeatureExtractor,
+                    flow_extractor: Optional[FeatureExtractor] = None,
+                    features_dir: Optional[str] = None) -> np.ndarray:
+    """One video's features for the active stream through the per-stream
+    cache in ``features_dir`` (read where present, written on a miss):
+    ``extractor``'s stream, or with ``flow_extractor`` both streams from
+    one decode pass (``extract_video_two_stream``), concatenated RGB then
+    flow on the feature axis, as training's ``data.stream=both``."""
+    stem = os.path.splitext(os.path.basename(path))[0]
+    if flow_extractor is not None:
+        rgb_p = _cache_path(features_dir, stem, "rgb", extractor.crops)
+        flow_p = _cache_path(features_dir, stem, "flow", extractor.crops)
+        if rgb_p and os.path.exists(rgb_p) and os.path.exists(flow_p):
+            rgb, flow = np.load(rgb_p), np.load(flow_p)
+        else:
+            rgb, flow = extract_video_two_stream(extractor, flow_extractor, path)
+            if rgb_p:
+                atomic_save(rgb_p, rgb)
+                atomic_save(flow_p, flow)
+        return np.concatenate([rgb, flow], axis=-1)
+    cache = _cache_path(features_dir, stem, extractor.stream, extractor.crops)
+    if cache and os.path.exists(cache):
+        return np.load(cache)
+    features = extractor.extract_video(path)
+    if cache:
+        atomic_save(cache, features)
+    return features
+
+
 def process_video(
     path: str,
     extractor: FeatureExtractor,
@@ -188,33 +245,22 @@ def process_video(
     threshold: Optional[float] = None,
     min_event_frames: int = 1,
     features_dir: Optional[str] = None,
+    flow_extractor: Optional[FeatureExtractor] = None,
 ) -> dict:
-    """Extract (or load ``features_dir``'s ``<stem>_i3d.npy``, writing it
-    on a miss), score, and write ``<stem>_scores.json``; returns its
-    content. With ``threshold`` the JSON carries the event windows.
-    Center-crop features, ``(n, 1, C)``, are cached as
-    ``<stem>_i3d_center.npy``, so they neither shadow nor are shadowed by
-    the ten-crop contract files."""
+    """Extract (or load from ``features_dir``, writing it on a miss, see
+    ``load_or_extract``), score, and write ``<stem>_scores.json``; returns
+    its content. The stream is ``extractor``'s, or ``both`` with
+    ``flow_extractor``. With ``threshold`` the JSON carries the event
+    windows."""
     start = time.time()
     stem = os.path.splitext(os.path.basename(path))[0]
-    cache = None
-    if features_dir:
-        name = feature_filename(stem)
-        if extractor.crops == "center":
-            name = name[: -len(".npy")] + "_center.npy"
-        cache = os.path.join(features_dir, name)
-    if cache and os.path.exists(cache):
-        features = np.load(cache)
-    else:
-        features = extractor.extract_video(path)
-        if cache:
-            atomic_save(cache, features)
+    features = load_or_extract(path, extractor, flow_extractor, features_dir)
     clip_scores = score_features(features, scorer)
     frame_scores = frame_level_scores(clip_scores, extractor.frames_per_clip)
     out = {
         "video": os.path.basename(path),
         "model": model_name,
-        "stream": "rgb",
+        "stream": "both" if flow_extractor is not None else extractor.stream,
         "n_clips": int(features.shape[0]),
         "frames_per_clip": extractor.frames_per_clip,
         "clip_scores": np.round(clip_scores, 6).tolist(),
@@ -246,21 +292,24 @@ def extractor_kwargs(args: argparse.Namespace) -> dict:
     }
 
 
-def warmup(extractor: FeatureExtractor, scorer: nn.Module, max_clips: int, channels: int) -> None:
-    """Run the I3D forward once on a constant 240x320 clip (unless int8
-    still awaits calibration, which a constant chunk would degrade) and
-    the scorer on every eval bucket a video of ``max_clips`` clips can
-    hit: on the card this builds the kernels and picks cuDNN's algorithms
-    before the first video."""
+def warmup(extractors: Sequence[FeatureExtractor], scorer: nn.Module, max_clips: int,
+           channels: int) -> None:
+    """Run each extractor's I3D forward once on a constant 240x320 clip
+    (127: zero flow for the flow stream), unless its int8 still awaits
+    calibration, which a constant chunk would degrade, and the scorer on
+    every eval bucket a video of ``max_clips`` clips can hit: on the card
+    this builds the kernels and picks cuDNN's algorithms before the first
+    video."""
     start = time.time()
-    if extractor._needs_calibration:
-        print("warmup: skipping rgb extractor (int8 awaits calibration on the first real video)",
-              flush=True)
-    else:
-        extractor.extract_frames(np.full((extractor.frames_per_clip, 240, 320, 3), 127, np.uint8))
+    for ex in extractors:
+        if ex._needs_calibration:
+            print(f"warmup: skipping {ex.stream} extractor (int8 awaits calibration on the "
+                  "first real video)", flush=True)
+        else:
+            ex.extract_frames(np.full((ex.frames_per_clip, 240, 320, ex.channels), 127, np.uint8))
     buckets = buckets_up_to(max_clips)
     for bucket in buckets:
-        score_features(np.zeros((bucket, extractor.n_crops, channels), np.float32), scorer)
+        score_features(np.zeros((bucket, extractors[0].n_crops, channels), np.float32), scorer)
     print(f"warmup done in {time.time() - start:.1f}s (eval buckets {buckets})", flush=True)
 
 
@@ -300,6 +349,15 @@ def build_parser() -> argparse.ArgumentParser:
                         help="'ten' = the reference ten-crop protocol; 'center' = serving mode, "
                              "one center crop per clip (scores equal running the scorer on "
                              "ten-crop row 4)")
+    parser.add_argument("--stream", default=None, choices=["rgb", "flow", "both"],
+                        help="feature stream(s) to extract and score: 'both' concatenates RGB + "
+                             "optical-flow features (4096-d) for checkpoints trained with "
+                             "data.stream=both; defaults to the checkpoint's persisted "
+                             "data.stream (else rgb)")
+    parser.add_argument("--flow-backend", default=None, choices=["host", "device", "tvl1"],
+                        help="optical-flow algorithm for --stream flow/both (see "
+                             "extract_features); default: device Farneback on a CUDA device, "
+                             "host OpenCV on the CPU")
     parser.add_argument("--frames-per-clip", type=int, default=16)
     parser.add_argument("--features-dir", default=None,
                         help="cache and reuse <stem>_i3d.npy features here")
@@ -339,31 +397,61 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not videos:
         raise SystemExit(f"no videos match {args.videos!r}")
     os.makedirs(args.outdir, exist_ok=True)
+    stream = args.stream
+    if stream is None and args.checkpoint:
+        # a data.stream=both run is scored two-stream with no flag
+        stream = ((TopKCheckpointer.load_metadata(args.checkpoint) or {}).get("data")
+                  or {}).get("stream")
+    stream = stream or "rgb"
     # the scorer first: its path and weights checks fail before the extractor is built
     scorer, model_name = build_scorer(args)
-    scorer_dim = getattr(getattr(scorer, "config", None), "channels", FEATURE_DIM)
-    if scorer_dim != FEATURE_DIM:
-        hint = ("two-stream (RGB + flow) scoring is not ported" if scorer_dim == 2 * FEATURE_DIM
-                else f"pass --model-config channels={FEATURE_DIM}")
-        raise SystemExit(f"--stream rgb extracts {FEATURE_DIM}-d features but the {model_name} "
-                         f"scorer expects {scorer_dim}-d input; {hint}")
-    extractor = FeatureExtractor(
-        state_dict=load_state_dict(args.i3d_weights) if args.i3d_weights else None,
-        frames_per_clip=args.frames_per_clip,
-        adaptive_groups=args.group_mode == "adaptive",
-        device=resolve_device(args.device),
-        **extractor_kwargs(args),
-    )
-    # one quantization per feature directory, as the JAX CLI pins it (no-op unless int8)
-    extractor.pin_calibration(args.features_dir or args.outdir)
+    extracted_dim = 2 * FEATURE_DIM if stream == "both" else FEATURE_DIM
+    scorer_dim = getattr(getattr(scorer, "config", None), "channels", extracted_dim)
+    if scorer_dim != extracted_dim:
+        if stream == "both":
+            hint = f"retrain with data.stream=both or pass --model-config channels={extracted_dim}"
+        elif scorer_dim == 2 * FEATURE_DIM:
+            hint = "pass --stream both (this scorer was trained on concatenated RGB+flow features)"
+        else:
+            hint = f"pass --model-config channels={extracted_dim}"
+        raise SystemExit(f"--stream {stream} extracts {extracted_dim}-d features but the "
+                         f"{model_name} scorer expects {scorer_dim}-d input; {hint}")
+    # one weight tree for both streams: the flow stem adapts from it
+    state_dict = load_state_dict(args.i3d_weights) if args.i3d_weights else None
+    device = resolve_device(args.device)
+
+    def make_extractor(s: str) -> FeatureExtractor:
+        return FeatureExtractor(
+            state_dict=state_dict,
+            frames_per_clip=args.frames_per_clip,
+            adaptive_groups=args.group_mode == "adaptive",
+            device=device,
+            stream=s,
+            flow_backend=args.flow_backend if s == "flow" else None,
+            **extractor_kwargs(args),
+        )
+
+    extractor = make_extractor("flow" if stream == "flow" else "rgb")
+    flow_extractor = make_extractor("flow") if stream == "both" else None
+    if args.features_dir and stream != "rgb":
+        # one flow definition per cache directory, as extract_features pins it
+        try:
+            record_flow_backend(args.features_dir, (flow_extractor or extractor).flow_backend)
+        except ValueError as exc:
+            raise SystemExit(str(exc))
+    # one quantization per feature directory and stream, as the JAX CLI pins
+    # it (no-op unless int8)
+    extractors = [ex for ex in (extractor, flow_extractor) if ex is not None]
+    for ex in extractors:
+        ex.pin_calibration(args.features_dir or args.outdir)
     if args.warmup > 0:
-        warmup(extractor, scorer, args.warmup, scorer_dim)
+        warmup(extractors, scorer, args.warmup, scorer_dim)
     # score JSONs are stem-keyed: same-stem videos of different subfolders would collide
     warn_duplicate_stems(videos, what="scored")
     for path in videos:
         try:
             process_video(path, extractor, scorer, args.outdir, model_name, args.threshold,
-                          args.min_event_frames, args.features_dir)
+                          args.min_event_frames, args.features_dir, flow_extractor)
         except ValueError as exc:  # an undecodable file: a user problem, not a traceback
             raise SystemExit(f"{path}: {exc}")
     return 0

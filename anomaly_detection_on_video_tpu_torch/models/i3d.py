@@ -7,7 +7,8 @@ the reference's torch state-dict names (``conv1``, ``bn1``,
 reference checkpoint, or the JAX package's ``export_i3res50_state_dict``
 output, loads with ``load_state_dict``.
 
-The public layout is the JAX package's: clips ``(B, T, H, W, 3)`` in,
+The public layout is the JAX package's: clips ``(B, T, H, W, C)`` in (C = 3
+for RGB, ``in_channels`` = 2 for the flow stream's dx, dy),
 ``(B, 2048)`` features out, in at least float32. Parameters stay float32;
 ``dtype`` is the compute type the input and weights are cast to.
 
@@ -193,12 +194,15 @@ class Bottleneck(nn.Module):
 
 
 class I3DResNet(nn.Module):
-    """i3res50 topology: stem Conv3d 3->64 k(5,7,7) s2 p(2,3,3) + BN + ReLU
-    + MaxPool k(2,3,3) s2, bottleneck stages, temporal max pool k(2,1,1)
-    after the first stage, global mean head.
+    """i3res50 topology: stem Conv3d in_channels->64 k(5,7,7) s2 p(2,3,3) +
+    BN + ReLU + MaxPool k(2,3,3) s2, bottleneck stages, temporal max pool
+    k(2,1,1) after the first stage, global mean head.
 
     ``stages`` defaults to i3res50's; tests pass narrow ones. The stem must
-    keep 64 channels (K2's width). Assigning ``act_scales`` (JAX-package
+    keep 64 channels (K2's width). ``in_channels`` is 3 for RGB and 2 for
+    the flow stream, whose clips the JAX rule sends down the plain chain
+    (``kernel_paths``: K2 and K3 take 3-channel clips only; under int8, K5
+    takes the stem over either). Assigning ``act_scales`` (JAX-package
     keys) makes the forward the int8 chain and gives every block its scales;
     ``None`` restores the float chain.
     """
@@ -207,11 +211,12 @@ class I3DResNet(nn.Module):
         self,
         stages: Sequence[Stage] = I3RES50_STAGES,
         dtype: torch.dtype = torch.float32,
+        in_channels: int = 3,
     ):
         super().__init__()
         self.dtype = dtype
         self.stages = tuple(stages)
-        self.conv1 = nn.Conv3d(3, 64, (5, 7, 7), stride=(2, 2, 2), padding=(2, 3, 3), bias=False)
+        self.conv1 = nn.Conv3d(in_channels, 64, (5, 7, 7), stride=(2, 2, 2), padding=(2, 3, 3), bias=False)
         self.bn1 = nn.BatchNorm3d(64)
         in_planes = 64
         self.n_stages = len(stages)
@@ -245,7 +250,8 @@ class I3DResNet(nn.Module):
                                     else block_act_scales(scales, stage_idx + 1, block_idx))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, T, H, W, 3)`` standardized pixels -> ``(B, C)`` features."""
+        """``(B, T, H, W, in_channels)`` standardized pixels (or dequantized
+        flow) -> ``(B, C)`` features."""
         x = x.to(self.dtype)
         fused_stem, fused_stage1 = kernel_paths(self.stages, x.shape[1:])
         if self._act_scales is not None or not fused_stem:
@@ -294,9 +300,9 @@ def _temporal_pool(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.maximum(*x.narrow(dim, 0, t).unflatten(dim, (t // 2, 2)).unbind(dim + 1))
 
 
-def i3res50(dtype: torch.dtype = torch.float32) -> I3DResNet:
-    """The "tushar-n-baseline" I3Res50."""
-    return I3DResNet(I3RES50_STAGES, dtype=dtype)
+def i3res50(dtype: torch.dtype = torch.float32, in_channels: int = 3) -> I3DResNet:
+    """The "tushar-n-baseline" I3Res50 (``in_channels`` 2 for flow)."""
+    return I3DResNet(I3RES50_STAGES, dtype=dtype, in_channels=in_channels)
 
 
 MODEL_ZOO = {"tushar-n-baseline": i3res50}
@@ -305,12 +311,14 @@ MODEL_ZOO = {"tushar-n-baseline": i3res50}
 def build_i3d_feature_extractor(
     model_name: str = "tushar-n-baseline",
     dtype: torch.dtype = torch.float32,
+    in_channels: int = 3,
 ) -> I3DResNet:
-    """Factory by reference model name. Weight loading is separate
+    """Factory by reference model name, over ``in_channels`` input
+    channels (3 RGB, 2 flow). Weight loading is separate
     (``load_state_dict``), and so are int8 scales (``act_scales``)."""
     if model_name not in MODEL_ZOO:
         raise AttributeError(f"unknown I3D variant {model_name!r}; options: {sorted(MODEL_ZOO)}")
-    return MODEL_ZOO[model_name](dtype=dtype)
+    return MODEL_ZOO[model_name](dtype=dtype, in_channels=in_channels)
 
 
 @torch.no_grad()

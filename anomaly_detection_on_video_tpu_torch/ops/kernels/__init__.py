@@ -18,10 +18,17 @@ WRAPPERS = (ten_crop_standardize, stem_conv_pool, bottleneck_block, int8_matmul,
 def reset_launch_counts() -> None:
     for wrapper in WRAPPERS:
         wrapper.launches = 0
+    int8_conv.stem_launches = dict.fromkeys(int8_conv.stem_launches, 0)
 
 
 def launch_counts() -> dict:
     return {wrapper.__name__: wrapper.launches for wrapper in WRAPPERS}
+
+
+def stem_launch_counts() -> dict:
+    """K5's stem launches by input channels (3: RGB, 2: the flow stream),
+    a part of ``launch_counts()["int8_conv"]``."""
+    return dict(int8_conv.stem_launches)
 
 
 __all__ = [
@@ -37,6 +44,7 @@ __all__ = [
     "pack_int8_conv_weight",
     "pack_stem_params",
     "reset_launch_counts",
+    "stem_launch_counts",
     "stem_conv_pool",
     "stem_plain",
     "ten_crop_standardize",

@@ -6,8 +6,8 @@ padding, int32 accumulation, and a per-output-channel float32 scale whose
 product is either requantized to int8 (``clip(round(.), -127, 127)``, round
 half to even) or written as bfloat16. Generalized to the i3res50 int8
 path's geometries (k(1,3,3) with stride 1 or 2 and k(3,1,1) over Cin % 16
-== 0 channels, the stem's k(5,7,7) s2 p(2,3,3) over 3 channels) and to a
-float32 output.
+== 0 channels, the stem's k(5,7,7) s2 p(2,3,3) over 3 channels, or over 2
+for the flow stream) and to a float32 output.
 
 On the H100 it is bound by operations for the k(1,3,3) convs and by bytes
 for the k(3,1,1) convs and the stem: about 0.57 ms for the 26 convs of an
@@ -17,9 +17,12 @@ im2col copy reaches device memory. For Cin % 16 == 0, an implicit GEMM on
 ``wgmma`` s32.s8.s8 whose 16-byte A pieces and (Cout, K) weight rows
 arrive by ``cp.async`` in a 3-4 stage ring of 128-byte-swizzled tiles. For
 the stem, ``mma.sync`` fed by ``ldmatrix`` from a slab that holds the
-3-channel input once as one 32-byte vector per pixel (two stem frames x 5
-temporal taps x 3 channels), two (kh, kw) taps per k32 step against the
-(64, 800) operand of ``pack_int8_conv_weight``. Any other geometry raises on the card. The
+C-channel input (C = 3, or 2 for flow) once as one 32-byte vector per pixel
+(two stem frames x 5 temporal taps x C channels, zero-padded to 16 bytes
+each), two (kh, kw) taps per k32 step against the (64, 800) operand of
+``pack_int8_conv_weight``. A 2-channel input is read as it is, never padded
+to a third channel: the padding would copy the largest int8 tensor of the
+forward to multiply zeros. Any other geometry raises on the card. The
 plain version is ``F.conv3d`` in float64 on the int8 values, exact for the
 path's sums.
 """
@@ -36,10 +39,11 @@ from .int8_matmul import MODES
 
 Triple = Tuple[int, int, int]
 
-STEM_KERNEL = (5, 7, 7)  # a k(5,7,7) weight over 3 channels is packed in the stem layout
+STEM_KERNEL = (5, 7, 7)  # a k(5,7,7) weight over STEM_CHANNELS is packed in the stem layout
+STEM_CHANNELS = (2, 3)  # flow (dx, dy) and RGB
 STEM_GEOMETRY = (STEM_KERNEL, (2, 2, 2), (2, 3, 3))  # the stem kernel's only geometry
 STEM_TAPS = 7 * 7
-STEM_TAP_K = 16  # bytes per (kh, kw) tap: 5 temporal taps x 3 channels, padded
+STEM_TAP_K = 16  # bytes per (kh, kw) tap: 5 temporal taps x C channels, padded
 STEM_K = (STEM_TAPS + 1) * STEM_TAP_K  # 800: 25 k32 steps of two taps, the 50th zero
 MAX_POSITIONS = 2 ** 31 - 1 - 128  # B*To*Ho*Wo: a 32-bit row index plus one 128-row tile
 
@@ -57,7 +61,7 @@ def conv_output_shape(shape, kernel: Triple, stride: Triple, padding: Triple) ->
 
 
 def _stem_layout(cin: int, kernel: Sequence[int]) -> bool:
-    return cin == 3 and tuple(kernel) == STEM_KERNEL
+    return cin in STEM_CHANNELS and tuple(kernel) == STEM_KERNEL
 
 
 def _packed_k(cin: int, kernel: Sequence[int]) -> int:
@@ -68,16 +72,16 @@ def _packed_k(cin: int, kernel: Sequence[int]) -> int:
 
 def pack_int8_conv_weight(w_q: torch.Tensor) -> torch.Tensor:
     """int8 ``(O, I, kt, kh, kw)`` -> K5's ``(O, K)`` operand, each output
-    channel's row K-contiguous. A k(5,7,7) weight over 3 channels (the
-    stem) takes the stem kernel's layout, ``(O, 800)``: 49 (kh, kw) taps of
-    16 bytes ``[kt * 3 + c]`` (the 16th zero), then one zero tap, so one
-    k32 step holds two taps. Any other weight is ``pack_int8_weight_nk``'s
+    channel's row K-contiguous. A k(5,7,7) weight over C = 3 or 2 channels
+    (the stem) takes the stem kernel's layout, ``(O, 800)``: 49 (kh, kw)
+    taps of 16 bytes ``[kt * C + c]`` (bytes 5 * C .. 15 zero), then one zero
+    tap, so one k32 step holds two taps. Any other weight is ``pack_int8_weight_nk``'s
     ``(O, kt*kh*kw*I)``, rows (kt, kh, kw, cin)."""
     o, cin = w_q.shape[:2]
     if not _stem_layout(cin, w_q.shape[2:]):
         return pack_int8_weight_nk(w_q)
-    taps = w_q.permute(0, 3, 4, 2, 1).reshape(o, STEM_TAPS, 5 * 3)
-    taps = F.pad(taps, (0, STEM_TAP_K - 5 * 3, 0, 1))
+    taps = w_q.permute(0, 3, 4, 2, 1).reshape(o, STEM_TAPS, 5 * cin)
+    taps = F.pad(taps, (0, STEM_TAP_K - 5 * cin, 0, 1))
     return taps.reshape(o, STEM_K).contiguous()
 
 
@@ -86,8 +90,8 @@ def unpack_int8_conv_weight(w_packed: torch.Tensor, cin: int, kernel: Triple) ->
     weight."""
     o = w_packed.shape[0]
     if _stem_layout(cin, kernel):
-        taps = w_packed.reshape(o, STEM_TAPS + 1, STEM_TAP_K)[:, :STEM_TAPS, :5 * 3]
-        return taps.reshape(o, 7, 7, 5, 3).permute(0, 4, 3, 1, 2)
+        taps = w_packed.reshape(o, STEM_TAPS + 1, STEM_TAP_K)[:, :STEM_TAPS, :5 * cin]
+        return taps.reshape(o, 7, 7, 5, cin).permute(0, 4, 3, 1, 2)
     return w_packed.reshape(o, *kernel, cin).permute(0, 4, 1, 2, 3)
 
 
@@ -116,8 +120,9 @@ def int8_conv(
     ``pack_int8_conv_weight``, its int32 sum times the float32 ``(Cout,)``
     ``scale``. A CPU tensor takes the plain version (any geometry); a CUDA
     tensor launches a kernel, which takes Cin % 16 == 0 with Cout % 16 == 0,
-    or the stem (Cin = 3, k(5,7,7), s2, p(2,3,3), Cout = 64, W % 4 == 0),
-    and anything else raises.
+    or the stem (Cin = 3 or 2, k(5,7,7), s2, p(2,3,3), Cout = 64, W % 4 ==
+    0 and ``x`` 4-byte aligned, so each row load of four pixels is C whole
+    4-byte words), and anything else raises.
     """
     kernel, stride, padding = (_triple(v, n) for v, n in
                                ((kernel, "kernel"), (stride, "stride"), (padding, "padding")))
@@ -149,8 +154,9 @@ def int8_conv(
         raise ValueError("int8_conv operands must be contiguous")
     if _stem_layout(cin, kernel):
         if (kernel, stride, padding) != STEM_GEOMETRY or cout != 64 or w % 4 or x.data_ptr() % 4:
-            raise ValueError(f"the stem kernel takes k{STEM_KERNEL} s(2,2,2) p(2,3,3) into 64 "
-                             f"channels over a width that is a multiple of 4, got kernel {kernel}, "
+            raise ValueError(f"the stem kernel takes k{STEM_KERNEL} s(2,2,2) p(2,3,3) over "
+                             f"{STEM_CHANNELS} channels into 64 over a width that is a multiple "
+                             f"of 4 from a 4-byte aligned input, got kernel {kernel}, "
                              f"stride {stride}, padding {padding}, {cout} channels, "
                              f"input {tuple(x.shape)}")
     elif cin % 16 or cout % 16 or x.data_ptr() % 16:
@@ -176,7 +182,11 @@ def int8_conv(
         current_stream(x),
     )
     int8_conv.launches += 1
+    if _stem_layout(cin, kernel):
+        int8_conv.stem_launches[cin] += 1
     return out
 
 
 int8_conv.launches = 0
+# the stem's share of ``launches``, by input channels (3: RGB, 2: flow)
+int8_conv.stem_launches = dict.fromkeys(STEM_CHANNELS, 0)

@@ -8,6 +8,7 @@ Nothing here looks at ``torch.cuda.is_available()`` to pick a device.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Union
 
 import torch
@@ -41,13 +42,30 @@ def set_f32_parity() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+_F32_LOCK = threading.Lock()
+_f32_users = 0  # blocks inside full_f32, on any thread
+_f32_saved = (False, True)  # the flags the first of them found
+
+
 @contextlib.contextmanager
 def full_f32() -> Iterator[None]:
-    """TF32 off for cuBLAS and cuDNN inside the block, restored after."""
-    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    set_f32_parity()
+    """TF32 off for cuBLAS and cuDNN inside the block, restored after.
+
+    The flags are process-wide, and the extractors' threads enter such
+    blocks at once (a device flow beside another stream's resize): the
+    flags are restored when the last open block on any thread exits, so no
+    thread's block ends another's."""
+    global _f32_users, _f32_saved
+    with _F32_LOCK:
+        if _f32_users == 0:
+            _f32_saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            set_f32_parity()
+        _f32_users += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+        with _F32_LOCK:
+            _f32_users -= 1
+            if _f32_users == 0:
+                torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = _f32_saved
 

@@ -124,7 +124,30 @@ Phases, each of which raises on failure (exit code != 0):
    serial (features equal at atol 1e-5, clips/s); (d) ``infer.main --crops
    center`` on the 24-clip video with phase 8's MGFN checkpoint: scores
    finite, in [0, 1] and equal at 1e-5 to ``score_features`` of a center
-   extractor's features of the same video.
+   extractor's features of the same video;
+11. the optical-flow stream: a seeded 384-frame 240x320 scene translated by
+   (1.3, -0.7) px per frame (exactly, by a Fourier phase ramp); (a) device
+   Farneback and TV-L1 on its 383 pairs in sub-batches of 64 and 128 pairs,
+   ``FLOW_PAIRS`` and all at once: ms per frame and peak memory, sub-batched
+   flows equal to one batch, the translation recovered (median inside the
+   frame within 0.3 and 0.03 px, the JAX tests' tolerances), the card
+   against the port's CPU flow on frames 0-8 (max within 1e-3 px, the
+   99.9th percentile printed), and the host OpenCV backend's frames/s;
+   (b) K5's int8 stem over two channels at B = 40 and 240, bit-equal to its
+   plain version, timed beside its bound, and refusing a stem it does not
+   take; (c) ``FeatureExtractor(stream="flow", batch=240)`` on the scene's
+   flow in bf16 and int8 (launches: no K1, K2 or K3; int8 K4 >= 27, K5 >=
+   26), bf16 against the plain float32 forward (cosine >= 0.999), int8
+   against the plain int8 forward (cosine >= 0.99999, unequal values
+   printed) with every K4 and K5 call of one int8 flow forward bit-equal,
+   and the flow stream end to end from RGB frames; (d) ``extract_features
+   --stream both --flow-backend device --split train`` over two stand-in
+   videos, pooled and serial: features equal, ``flow_backend.json``
+   pinned, a rebuild from chunk caches with no launch and no flow; (e)
+   MGFN trained through ``run`` with ``data.stream=both`` and 4096
+   channels, served by ``infer --checkpoint`` with no ``--stream``: the
+   stream resolves to ``both``, scores in [0, 1] and equal to the CPU's
+   within 1e-5.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -334,11 +357,12 @@ def check_crop_norm(torch, rng, bulk):
         for shape, size in (((1, 16, 341, 256, 3), 224), ((1, 16, 256, 455, 3), 224),
                             ((1, 16, 224, 224, 3), 224), ((1, 16, 257, 301, 3), 224),
                             ((2, 3, 41, 50, 3), 36))]
+    max_err = 0.0
     for frames, size in cases:
         for dtype in (f32, bf16):
-            check_equal(f"K1 {tuple(frames.shape)} S={size} {dtype}",
-                        ten_crop_standardize(frames, size, dtype),
-                        ten_crop_standardize_plain(frames, size, dtype))
+            max_err = max(max_err, check_equal(f"K1 {tuple(frames.shape)} S={size} {dtype}",
+                                               ten_crop_standardize(frames, size, dtype),
+                                               ten_crop_standardize_plain(frames, size, dtype)))
         plan = crop_norm_plan(frames.shape[2], frames.shape[3], size, bf16)
         print(f"K1 crop_norm {tuple(frames.shape)} S={size}: bit-equal f32/bf16; bf16 plan: band "
               f"{plan.band} rows x {plan.n_bands}, {len(plan.segments)} staged segment(s), "
@@ -361,7 +385,7 @@ def check_crop_norm(torch, rng, bulk):
         if dtype == bf16:
             entry = {"name": "ten_crop_standardize", "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-                     "max_abs_err": 0.0}
+                     "max_abs_err": max_err}
     # the band height against the shared memory a CTA may take (bf16, bulk shape)
     lib = build()
     out = torch.empty((gc * 10, fpc, 224, 224, 3), dtype=bf16, device=bulk.device)
@@ -471,18 +495,23 @@ def int_mm_ms(torch, a, w, iters: int, timer=cuda_ms):
     return timer(lambda: torch._int_mm(a, rhs), iters)
 
 
-def check_equal(name, got, ref) -> None:
-    """Raise unless ``got`` equals ``ref`` bit for bit."""
+def check_equal(name, got, ref) -> float:
+    """Raise unless ``got`` equals ``ref`` bit for bit; returns max |got -
+    ref|, computed in float64 over slices of 2^26 values."""
     import torch
 
     torch.cuda.synchronize()
     if got.dtype != ref.dtype or got.shape != ref.shape:
         raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} against "
                              f"{ref.dtype} {tuple(ref.shape)}")
+    flat_got, flat_ref, diff = got.reshape(-1), ref.reshape(-1), 0.0
+    for i in range(0, flat_got.numel(), 1 << 26):
+        part = flat_got[i:i + (1 << 26)].double() - flat_ref[i:i + (1 << 26)].double()
+        diff = max(diff, part.abs().max().item())
     if not torch.equal(got, ref):
         bad = (got != ref).sum().item()
-        diff = (got.double() - ref.double()).abs().max().item()
         raise AssertionError(f"{name}: {bad} of {ref.numel()} elements differ, max |err| {diff}")
+    return diff
 
 
 def check_int8_probe_shapes(torch):
@@ -565,10 +594,10 @@ def int8_forward_with(torch, model, crops, matmul, conv):
 
 
 def k5_class(cin, kernel, stride) -> str:
-    """K5's geometry classes on the int8 path: the stem, k(1,3,3) s1 / s2,
-    k(3,1,1)."""
-    if cin == 3:
-        return "stem k(5,7,7) s2"
+    """K5's geometry classes on the int8 path: the stem (over 3 channels,
+    or the flow stream's 2), k(1,3,3) s1 / s2, k(3,1,1)."""
+    if tuple(kernel) == (5, 7, 7):
+        return "stem k(5,7,7) s2" + (" over 2 channels" if cin == 2 else "")
     return f"k({kernel[0]},{kernel[1]},{kernel[2]}) s{stride[1]}"
 
 
@@ -592,7 +621,7 @@ def check_int8_path_calls(torch, model, crops):
            "int8_conv": (int8_conv, int8_conv_plain)}
     totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "library_refused": 0,
                      "device_ms": 0.0, "library_device_ms": 0.0, "bytes": 0.0, "ops": 0.0,
-                     "n": 0} for name in fns}
+                     "n": 0, "max_abs_err": 0.0} for name in fns}
     geometries = {}
     classes = {}
 
@@ -601,9 +630,10 @@ def check_int8_path_calls(torch, model, crops):
 
         def check(*args):
             got = kernel_fn(*args)
-            check_equal(f"{name} {tuple(args[0].shape)}", got, plain_fn(*args))
+            err = check_equal(f"{name} {tuple(args[0].shape)}", got, plain_fn(*args))
             out_bytes = got.numel() * got.element_size()
             entry = totals[name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
             ms = cuda_ms(lambda: kernel_fn(*args), 10)
             dev_ms = device_ms(lambda: kernel_fn(*args), 5)
             entry["ms"] += ms
@@ -684,7 +714,7 @@ def check_int8_path_calls(torch, model, crops):
             library = entry["library_ms"]
         results.append({"name": name, "ms": entry["ms"], "plain_ms": entry["plain_ms"],
                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library,
-                        "max_abs_err": 0.0, "device_ms": entry["device_ms"],
+                        "max_abs_err": entry["max_abs_err"], "device_ms": entry["device_ms"],
                         "library_device_ms": entry["library_device_ms"]})
     return results
 
@@ -714,8 +744,12 @@ def drive_path(torch, name, extractor, video, scorer):
     before the first timed pass and read just after it, and peak memory is
     taken over it. Gates: every kernel of the path launched (K1, K2, K3 on
     the bf16 path; K1, K4, K5 and neither K2 nor K3 on the int8 path; for
-    center crops no K1, and in bf16 exactly one K2 and three K3 launches),
-    features of shape (clips, n_crops, 2048), scores finite and in [0, 1]."""
+    center crops no K1, and in bf16 exactly one K2 and three K3 launches;
+    for the flow stream neither K1, K2 nor K3, and K4 and K5 only under
+    int8; under int8, K5's stem over the stream's channels, 3 or 2, and
+    never over the other's), features of shape (clips, n_crops, 2048),
+    scores finite and in [0, 1]. The counts returned hold the stem's by
+    input channels under ``"int8_conv stem by Cin"``."""
     import numpy as np
 
     from anomaly_detection_on_video_tpu_torch.infer import score_features
@@ -734,6 +768,8 @@ def drive_path(torch, name, extractor, video, scorer):
     torch.cuda.synchronize()
     seconds = [time.perf_counter() - start]
     counts = kernels.launch_counts()
+    # K5's stem launches by input channels: 3 on the RGB int8 path, 2 on the flow one
+    counts["int8_conv stem by Cin"] = stems = kernels.stem_launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     for _ in range(4):  # four more timed passes for the median and range
         start = time.perf_counter()
@@ -744,9 +780,20 @@ def drive_path(torch, name, extractor, video, scorer):
     # K1 crops ten; the center crop is torch ops, as the JAX package's XLA
     k1 = counts["ten_crop_standardize"]
     k1_wrong = k1 < 1 if extractor.n_crops == 10 else k1 != 0
+    int8_wrong = counts["int8_matmul"] < 27 or counts["int8_conv"] < 26
     if extractor.quantize:
-        skipped = (k1_wrong or counts["int8_matmul"] < 27 or counts["int8_conv"] < 26
-                   or counts["stem_conv_pool"] or counts["bottleneck_block"])
+        # K5's stem over the stream's channels, never over the other's
+        own, other = (2, 3) if extractor.stream == "flow" else (3, 2)
+        int8_wrong = int8_wrong or stems[own] < 1 or stems[other] > 0
+    if extractor.stream == "flow":
+        # two channels: no K1 (the JAX package's Pallas crop takes three),
+        # no K2 or K3 (not their clip shape); int8 runs K4 and K5
+        skipped = (k1 or counts["stem_conv_pool"] or counts["bottleneck_block"]
+                   or (int8_wrong if extractor.quantize
+                       else counts["int8_matmul"] or counts["int8_conv"]))
+    elif extractor.quantize:
+        skipped = (k1_wrong or int8_wrong or counts["stem_conv_pool"]
+                   or counts["bottleneck_block"])
     elif extractor.n_crops == 10:
         skipped = k1_wrong or counts["stem_conv_pool"] < 1 or counts["bottleneck_block"] < 3
     else:  # one group of center crops: one stem launch and three blocks
@@ -1541,6 +1588,493 @@ def check_extraction_breadth(torch, root, model, qmodel, ten_extractor, scorer, 
     print(f"extraction breadth phase: {time.perf_counter() - start:.1f} s", flush=True)
 
 
+# ------------------------------------------------------------- phase 11: flow
+
+FLOW_SHIFT = (1.3, -0.7)  # (dx, dy) px per frame of phase 11's scene
+FLOW_GATES = {"Farneback": 0.3, "TV-L1": 0.03}  # px: tests/test_flow.py, tests/test_tvl1.py
+FLOW_CARD_VS_CPU_PX = 1e-3  # the port-vs-JAX gate of tests/test_torch_flow.py
+TWO_STREAM_VIDEOS = ("Abuse030_x264.mp4", LARGE_STAND_IN)  # 24 and 70 clips
+
+
+def moving_scene(n: int, h: int = 240, w: int = 320, shift=FLOW_SHIFT, seed: int = 11):
+    """uint8 RGB ``(n, h, w, 3)``: a smooth periodic random texture
+    translated by ``shift`` px per frame, exactly (a phase ramp on its
+    Fourier transform), with three different channels so the luma weights
+    matter. Noise has no meaningful flow; this has a known one."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    spectrum = np.fft.fft2(rng.rand(h, w))
+    ky, kx = np.fft.fftfreq(h)[:, None], np.fft.fftfreq(w)[None, :]
+    spectrum *= np.exp(-2 * (np.pi * 2.0) ** 2 * (ky ** 2 + kx ** 2))  # a Gaussian blur, sigma 2
+    frames = np.empty((n, h, w, 3), np.uint8)
+    lo = hi = None
+    for i in range(n):
+        phase = np.exp(-2j * np.pi * (ky * shift[1] * i + kx * shift[0] * i))
+        f = np.fft.ifft2(spectrum * phase).real
+        if lo is None:
+            lo, hi = f.min(), f.max()
+        f = np.clip((f - lo) / (hi - lo) * 255.0, 0, 255).astype(np.uint8)
+        frames[i] = np.stack([f, np.roll(f, 3, 1), f // 2 + 60], -1)
+    return frames
+
+
+def check_flows(torch, frames):
+    """Phase 11 (a): device Farneback and TV-L1 on every pair of ``frames``
+    (the moving scene): ms per frame and peak memory at sub-batches of 64
+    and 128 pairs, ``FLOW_PAIRS`` and all pairs at once, each sub-batched
+    flow equal to the one-batch flow; the translation recovered (median
+    flow 30 px inside the frame, gated at the JAX tests' tolerance); the
+    card against the port's CPU flow on a 9-frame slice (max and 99.9th
+    percentile in px, gated at 1e-3 px; unequal uint8 values printed).
+    Then the round trip a device flow no longer makes: a 3,008-frame
+    chunk's uint8 flow copied to pageable host memory and back, timed; and
+    the host OpenCV backend's frames/s. Returns the Farneback flow as uint8
+    on the host, the flow stream's input."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.data.flow import (
+        FLOW_BOUND, compute_flow, flow_to_uint8)
+    from anomaly_detection_on_video_tpu_torch.data.video import CHUNK_FRAMES
+    from anomaly_detection_on_video_tpu_torch.ops import flow as tflow
+    from anomaly_detection_on_video_tpu_torch.ops import tvl1 as ttvl1
+
+    dev = torch.from_numpy(frames).cuda()
+    n = frames.shape[0]
+    out = None
+    for name, fn in (("Farneback", tflow.compute_flow_device), ("TV-L1", ttvl1.compute_flow_tvl1)):
+        fn(dev[:17])  # warm-up: cuDNN plans, the allocator
+        flows = {}
+        for pairs in sorted({64, 128, tflow.FLOW_PAIRS, n - 1}):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            flows[pairs] = fn(dev, pairs=pairs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            print(f"{name} flow, {n - 1} pairs of {frames.shape[1]}x{frames.shape[2]} in "
+                  f"sub-batches of {pairs}: {seconds * 1e3 / (n - 1):.3f} ms per frame "
+                  f"({(n - 1) / seconds:.1f} frames/s), peak {peak:.2f} GiB above the "
+                  f"{base / 2 ** 30:.2f} GiB held", flush=True)
+        flow = flows[tflow.FLOW_PAIRS]
+        unequal = {p: int((f != flows[n - 1]).sum()) for p, f in flows.items()}
+        if any(unequal.values()):
+            raise AssertionError(f"{name}: sub-batched flow differs from one batch: {unequal}")
+        est = (flow[1:, 30:-30, 30:-30].reshape(-1, 2) * FLOW_BOUND).median(dim=0).values
+        err = float((est.cpu() - torch.tensor(FLOW_SHIFT)).abs().max())
+        print(f"{name}: sub-batched flows equal the one-batch flow; median flow {est.tolist()} "
+              f"px per frame against the scene's {list(FLOW_SHIFT)}: |err| {err:.4f} px (gate "
+              f"{FLOW_GATES[name]})", flush=True)
+        if err > FLOW_GATES[name]:
+            raise AssertionError(f"{name}: translation {est.tolist()} against {FLOW_SHIFT}")
+        cpu = fn(torch.from_numpy(frames[:9]))
+        diff = (flow[:9].cpu() - cpu).abs().flatten() * FLOW_BOUND
+        worst, p999 = float(diff.max()), float(torch.quantile(diff, 0.999))
+        flips = int((flow_to_uint8(flow[:9]).cpu() != flow_to_uint8(cpu)).sum())
+        print(f"{name}, the card against the port's CPU flow on frames 0-8: max {worst:.3e} px, "
+              f"99.9th percentile {p999:.3e} px (gate {FLOW_CARD_VS_CPU_PX} px); uint8 flow "
+              f"unequal in {flips} of {cpu.numel()} values", flush=True)
+        if worst > FLOW_CARD_VS_CPU_PX:
+            raise AssertionError(f"{name}: card vs CPU max {worst:.3e} px")
+        if out is None:
+            out = flow_to_uint8(flow).cpu().numpy()
+        del flows, flow
+        torch.cuda.empty_cache()
+    chunk = torch.randint(0, 256, (CHUNK_FRAMES, *frames.shape[1:3], 2), dtype=torch.uint8,
+                          device="cuda")
+    for _ in range(2):  # the second round trip is timed
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        host = chunk.cpu().numpy()
+        mid = time.perf_counter()
+        back = torch.from_numpy(host).cuda()
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    if not torch.equal(back, chunk):
+        raise AssertionError("the flow chunk's round trip changed it")
+    print(f"a {CHUNK_FRAMES}-frame chunk's uint8 flow ({chunk.numel() / 1e6:.1f} MB), the round "
+          f"trip device flows no longer make: to pageable host memory {(mid - start) * 1e3:.2f} "
+          f"ms, back {(end - mid) * 1e3:.2f} ms (against {CHUNK_FRAMES} frames of Farneback at "
+          f"the ms per frame above)", flush=True)
+    del chunk, host, back
+    torch.cuda.empty_cache()
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        print("host flow (OpenCV): not measured, OpenCV is not importable", flush=True)
+    else:
+        start = time.perf_counter()
+        compute_flow(frames[:33])
+        seconds = time.perf_counter() - start
+        print(f"host flow (OpenCV Farneback on the host CPU): 32 pairs in {seconds:.2f} s "
+              f"= {32 / seconds:.1f} frames/s", flush=True)
+    return out
+
+
+def check_flow_stem(torch, launches: int):
+    """Phase 11 (c): K5's int8 stem over two channels (the flow stream's)
+    at B = 40 and B = 240: bit-equal to its plain version (at B = 240 in
+    slices of 40), timed beside its bound, its plain version and a bf16
+    cuDNN conv of the same geometry (a yardstick the port never calls);
+    a stem the kernel does not take raises. Returns the JSON line's K5
+    ``stem_cin2`` entry: ``launches``, the stem's launches over 2 channels
+    counted in one int8 flow forward at B = 240 (``check_flow_extractor``),
+    and the largest difference of these comparisons."""
+    import torch.nn.functional as F
+
+    from anomaly_detection_on_video_tpu_torch.ops.kernels import (
+        int8_conv, int8_conv_plain, pack_int8_conv_weight)
+    from anomaly_detection_on_video_tpu_torch.ops.kernels.int8_conv import unpack_int8_conv_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    w = pack_int8_conv_weight(torch.randint(-20, 21, (64, 2, 5, 7, 7), generator=gen,
+                                            dtype=torch.int8, device="cuda"))
+    scale = torch.rand(64, generator=gen, device="cuda") * 1e-4 + 1e-5
+    geo = ((5, 7, 7), (2, 2, 2), (2, 3, 3))
+    entry = {"cin": 2, "launches_per_flow_forward": launches, "max_abs_err": 0.0}
+    for b in (40, 240):
+        x = torch.randint(-127, 128, (b, 16, 224, 224, 2), generator=gen, dtype=torch.int8,
+                          device="cuda")
+        out = int8_conv(x, w, scale, *geo, torch.bfloat16)
+        for i in range(0, b, 40):
+            err = check_equal(f"K5 stem Cin = 2 at B = {b}, clips {i}-{i + 39}", out[i:i + 40],
+                              int8_conv_plain(x[i:i + 40], w, scale, *geo, torch.bfloat16))
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        ms = cuda_ms(lambda: int8_conv(x, w, scale, *geo, torch.bfloat16), 10)
+        plain_ms = cuda_ms(lambda: int8_conv_plain(x, w, scale, *geo, torch.bfloat16), 1)
+        xb = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
+        wb = unpack_int8_conv_weight(w, 2, geo[0]).to(torch.bfloat16)
+        conv_ms = cuda_ms(lambda: F.conv3d(xb, wb, None, 2, (2, 3, 3)), 5)
+        del xb
+        taps = taps_inside(16, 8, 5, 2, 2) * taps_inside(224, 112, 7, 2, 3) ** 2
+        bound_ms, bound_by = bound(x.numel() + w.numel() + 4 * 64
+                                   + out.numel() * out.element_size(),
+                                   2.0 * b * 64 * 2 * taps, "int8")
+        print(f"K5 int8 stem over 2 channels at B = {b}: bit-equal; {ms:.3f} ms kernel, bound "
+              f"{bound_ms:.3f} ms ({bound_by}), {plain_ms:.3f} ms plain (float64), bf16 F.conv3d "
+              f"of the same geometry (yardstick) {conv_ms:.3f} ms", flush=True)
+        entry.update({f"ms_b{b}": ms, f"bound_ms_b{b}": bound_ms, f"plain_ms_b{b}": plain_ms,
+                      "bound_by": bound_by})
+        del x, out
+        torch.cuda.empty_cache()
+    for label, shape in (("one channel", (1, 16, 224, 224, 1)),
+                         ("a width not a multiple of 4", (1, 16, 224, 222, 2))):
+        x = torch.zeros(shape, dtype=torch.int8, device="cuda")
+        wx = pack_int8_conv_weight(torch.zeros((64, shape[-1], 5, 7, 7), dtype=torch.int8,
+                                               device="cuda"))
+        try:
+            int8_conv(x, wx, scale, *geo, torch.bfloat16)
+        except ValueError as exc:
+            print(f"K5 refuses a stem over {label}: {str(exc)[:100]}", flush=True)
+        else:
+            raise AssertionError(f"K5 took a stem over {label}")
+    return entry
+
+
+def flow_crops(torch, extractor, flow_u8, dtype):
+    """The flow extractor's input batch for ``flow_u8``, made from the
+    package's building blocks: loop-pad, the float resize, ten crops,
+    dequantized to [-1, 1] in ``dtype``."""
+    from anomaly_detection_on_video_tpu_torch.ops.gtransforms import ten_crop
+    from anomaly_detection_on_video_tpu_torch.ops.resize import resize_bilinear_fast, short_side_size
+
+    clips = (flow_u8.shape[0] - 1) // 16 + 1
+    padded = extractor.pad_frames(flow_u8, clips)
+    h, w = short_side_size(padded.shape[1], padded.shape[2], 256)
+    resized = resize_bilinear_fast(torch.from_numpy(padded).cuda(), h, w)
+    crops = ten_crop(resized.reshape(clips, 16, h, w, 2), 224).transpose(0, 1)
+    return (crops.reshape(-1, 16, 224, 224, 2).to(torch.float32) / 127.5 - 1.0).to(dtype)
+
+
+def check_flow_extractor(torch, model, frames, flow_u8, scorer):
+    """Phase 11 (b): the flow stream's ``FeatureExtractor(stream="flow",
+    batch=240)`` in bf16 and int8 on the scene's uint8 flow (24 clips, one
+    group of 240 crops) through ``drive_path`` (launches: no K1, K2 or K3;
+    int8 K4 >= 27, K5 >= 26, K5's stem over 2 channels), one profiled pass
+    each; the flow stream end to end from RGB frames (device flow, kept on
+    the card, + forward), clips/s. Gates: bf16 features against the plain
+    float32 forward (cosine >= 0.999); int8 against the plain int8 forward
+    (cosine >= 0.99999, unequal count printed), and every K4 and K5 call of
+    one int8 flow forward bit-equal. Returns K5's stem launches over 2
+    channels in the int8 path's counted pass (one forward)."""
+    from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
+    from anomaly_detection_on_video_tpu_torch.infer import score_features
+
+    clips = (flow_u8.shape[0] - 1) // 16 + 1
+    extractors = {}
+    for quantize in (False, True):
+        name = f"flow {'int8 ' if quantize else ''}path at B = 240"
+        ex = FeatureExtractor(state_dict=model.state_dict(), dtype=torch.bfloat16, batch=240,
+                              device="cuda", quantize=quantize, stream="flow")
+        if ex.flow_backend != "device" or ex.model.conv1.in_channels != 2:
+            raise AssertionError(f"{name}: backend {ex.flow_backend}, stem over "
+                                 f"{ex.model.conv1.in_channels} channels")
+        features, _, counts = drive_path(torch, name, ex, flow_u8, scorer)
+        if quantize:
+            stem_launches = counts["int8_conv stem by Cin"][2]
+        crops = flow_crops(torch, ex, flow_u8, torch.float32)
+        with torch.no_grad():
+            ref = ex.model.forward_unfused(crops).mean(dim=(2, 3, 4)).reshape(clips, 10, -1)
+        if quantize:
+            crops16 = crops.to(torch.bfloat16)
+            del crops
+            check_int8_features(torch, f"{name} features", ex.model, crops16, features, ref)
+            print(f"every K4 and K5 call of one int8 flow forward at B = 240:", flush=True)
+            calls = check_int8_path_calls(torch, ex.model, crops16)
+            print("flow int8 B=240 summary: " + ", ".join(
+                f"{e['name']} {e['ms']:.3f} ms ({e['device_ms']:.3f} device; bound "
+                f"{e['bound_ms']:.3f}, plain {e['plain_ms']:.3f})" for e in calls), flush=True)
+            del crops16
+        else:
+            del crops
+            cos = check_cosine(f"{name} features vs plain float32",
+                               torch.from_numpy(features).cuda(), ref, 0.999)
+            print(f"{name} features vs plain float32 forward: min row cosine {cos:.6f}",
+                  flush=True)
+        run = device_breakdown(torch, lambda: score_features(ex.extract_frames(flow_u8), scorer))
+        print(f"{name}, one profiled pass: busy {run['device_busy_ms']:.2f} ms of "
+              f"{run['wall_ms']:.2f} ms wall, idle share {run['idle_share']:.1%}; "
+              f"{json.dumps(run)}", flush=True)
+        extractors[quantize] = ex
+        del ref
+        torch.cuda.empty_cache()
+    ex = extractors[False]
+    transform = ex._host_transform()
+    for _ in range(2):  # the second pass is timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        ex.extract_frames(transform(frames))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    print(f"flow stream end to end from RGB frames (device Farneback + the bf16 forward), "
+          f"{clips} clips: {seconds * 1e3:.2f} ms = {clips / seconds:.2f} clips/s; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    del extractors
+    torch.cuda.empty_cache()
+    return stem_launches
+
+
+def check_two_stream_cli(torch, root: str, weights: str) -> None:
+    """Phase 11 (d): ``extract_features.main --stream both --flow-backend
+    device --split train`` over two stand-in videos (24 and 70 clips, the
+    second treated as over 1 GB), pooled (``--decode-workers 3``) and
+    serial (``--decode-workers 1 --profile``). Gates: both runs' features
+    equal, both streams; ``flow_backend.json`` pins ``device``; segment
+    files of both streams; with the large video's two files deleted, a
+    re-run rebuilds them from their chunk caches with no kernel launch and
+    no flow computed."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import extract_features
+    from anomaly_detection_on_video_tpu_torch.data import extraction
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    videos = os.path.join(root, "two_stream_videos")
+    os.makedirs(videos)
+    for name in TWO_STREAM_VIDEOS:
+        open(os.path.join(videos, name), "wb").close()  # decoded by the stand-in
+    total = sum(STAND_IN_VIDEOS[name] for name in TWO_STREAM_VIDEOS)
+    outs = {}
+    for label, extra in (("pooled", ["--decode-workers", "3"]),
+                         ("serial", ["--decode-workers", "1", "--profile"])):
+        outs[label] = os.path.join(root, f"two_stream_{label}")
+        argv = ["--videos", videos, "--outdir", outs[label], "--split", "train", "--weights",
+                weights, "--stream", "both", "--flow-backend", "device", "--device",
+                "cuda"] + extra
+        start = time.perf_counter()
+        printed = run_cli(extract_features, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        if "extracted 2 new videos (2 total)" not in printed:
+            raise AssertionError(f"two-stream CLI {label}: {printed}")
+        print(f"two-stream CLI {label}: {total} clips of 2 videos, both streams, in {seconds:.2f} "
+              f"s = {total / seconds:.2f} clips/s end to end (stand-in decode, device flow, "
+              f"segments included)", flush=True)
+    unequal = 0
+    for name in TWO_STREAM_VIDEOS:
+        stem = os.path.splitext(name)[0]
+        for stream in ("rgb", "flow"):
+            feature = extraction.feature_filename(stem, stream)
+            a, b = (np.load(os.path.join(outs[k], "train", feature)) for k in outs)
+            if a.shape != (STAND_IN_VIDEOS[name], 10, FEATURE_DIM) or b.shape != a.shape:
+                raise AssertionError(f"two-stream CLI {feature}: shapes {a.shape}, {b.shape}")
+            unequal += int((a != b).sum())
+            seg = np.load(os.path.join(outs["pooled"], "segment_features_32", feature))
+            if seg.shape != (10, 32, FEATURE_DIM) or not np.isfinite(seg).all():
+                raise AssertionError(f"two-stream CLI segments {feature}: {seg.shape}")
+    with open(os.path.join(outs["pooled"], "train", "flow_backend.json")) as f:
+        pin = json.load(f)
+    print(f"two-stream CLI pooled vs serial: {unequal} unequal feature values over both streams; "
+          f"flow_backend.json {pin}; segment files of both streams written", flush=True)
+    if unequal or pin != {"flow_backend": "device"}:
+        raise AssertionError(f"two-stream CLI: {unequal} unequal values, pin {pin}")
+    argv = ["--videos", videos, "--outdir", outs["pooled"], "--split", "train", "--weights",
+            weights, "--stream", "both", "--flow-backend", "device", "--device", "cuda",
+            "--decode-workers", "3"]
+    stem = os.path.splitext(LARGE_STAND_IN)[0]
+    before = {}
+    for stream in ("rgb", "flow"):
+        path = os.path.join(outs["pooled"], "train", extraction.feature_filename(stem, stream))
+        before[path] = np.load(path)
+        os.remove(path)
+    flows = []
+    device_flow = extraction.compute_flow_device
+    extraction.compute_flow_device = lambda *a, **k: flows.append(1) or device_flow(*a, **k)
+    kernels.reset_launch_counts()
+    try:
+        printed = run_cli(extract_features, argv)
+    finally:
+        extraction.compute_flow_device = device_flow
+    counts = kernels.launch_counts()
+    if "extracted 1 new videos (2 total)" not in printed or any(counts.values()) or flows:
+        raise AssertionError(f"two-stream rebuild from chunk caches: launches {counts}, "
+                             f"{len(flows)} flows, {printed}")
+    if not all(np.array_equal(np.load(p), a) for p, a in before.items()):
+        raise AssertionError("the rebuilt two-stream files differ from the first ones")
+    print(f"two-stream CLI: {LARGE_STAND_IN}'s two files rebuilt from their chunk caches with "
+          f"launches {counts} and {len(flows)} flows computed", flush=True)
+
+
+def check_two_stream_float32(torch, root: str, weights: str) -> None:
+    """Phase 11 (e): ``extract_features.main --dtype float32 --stream both
+    --flow-backend device`` over the 24-clip stand-in video, pooled
+    (``--decode-workers 3``: a chunk's RGB forward runs on its dispatch
+    worker while this thread computes the chunk's flow) and serial, with
+    the TF32 flags at torch's defaults (cuDNN's on), as a user's process
+    has them. Gate: both streams' features equal, so no float32 forward
+    depends on the flags another thread's flow sets."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import extract_features
+    from anomaly_detection_on_video_tpu_torch.data import extraction
+    from anomaly_detection_on_video_tpu_torch.utils.device import set_f32_parity
+
+    videos = os.path.join(root, "float32_videos")
+    os.makedirs(videos)
+    name = TWO_STREAM_VIDEOS[0]
+    open(os.path.join(videos, name), "wb").close()  # decoded by the stand-in
+    outs = {}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        for label, workers in (("pooled", "3"), ("serial", "1")):
+            outs[label] = os.path.join(root, f"float32_{label}")
+            start = time.perf_counter()
+            printed = run_cli(extract_features, [
+                "--videos", videos, "--outdir", outs[label], "--weights", weights, "--dtype",
+                "float32", "--stream", "both", "--flow-backend", "device", "--device", "cuda",
+                "--decode-workers", workers, "--no-segments"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            if "extracted 1 new videos (1 total)" not in printed:
+                raise AssertionError(f"float32 two-stream CLI {label}: {printed}")
+            print(f"float32 two-stream CLI {label}: {STAND_IN_VIDEOS[name]} clips, both streams, "
+                  f"in {seconds:.2f} s", flush=True)
+    finally:
+        set_f32_parity()
+    stem = os.path.splitext(name)[0]
+    unequal = {}
+    for stream in ("rgb", "flow"):
+        feature = extraction.feature_filename(stem, stream)
+        a, b = (np.load(os.path.join(outs[k], feature)) for k in ("pooled", "serial"))
+        if a.shape != (STAND_IN_VIDEOS[name], 10, FEATURE_DIM) or b.shape != a.shape:
+            raise AssertionError(f"float32 two-stream CLI {feature}: shapes {a.shape}, {b.shape}")
+        unequal[stream] = int((a != b).sum())
+    print(f"float32 two-stream CLI pooled vs serial, TF32 flags at torch's defaults: unequal "
+          f"feature values {unequal}", flush=True)
+    if any(unequal.values()):
+        raise AssertionError(f"float32 two-stream CLI: pooled differs from serial: {unequal}")
+
+
+def check_two_stream_serving(torch, root: str, weights: str) -> None:
+    """Phase 11 (f): MGFN trained on two-stream features through the port's
+    ``run`` (``data.stream=both``, ``runner.model_config.channels=4096``,
+    the committed bags as RGB and their feature-reversed copies as flow,
+    6 steps), then ``infer.main --checkpoint`` with no ``--stream`` on the
+    24-clip stand-in video, extracting both streams on the card into a
+    fresh ``--features-dir``. Gates: losses finite; the score JSON's
+    stream is ``both``; scores in [0, 1] and equal at 1e-5 to the CPU's
+    scoring of the cached RGB || flow features."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import infer
+
+    data = os.path.join(root, "data_both")
+    train, test, gt, _ = write_training_data(data)
+    for split in (train, test):
+        for name in os.listdir(split):
+            if name.endswith("_i3d.npy"):
+                bags = np.load(os.path.join(split, name))
+                np.save(os.path.join(split, name[: -len("_i3d.npy")] + "_flow.npy"),
+                        np.ascontiguousarray(bags[..., ::-1]))
+    ckpt = os.path.join(root, "checkpoints_both")
+    log = os.path.join(root, "metrics_both.jsonl")
+    run_training({"data.train_path": train, "data.test_path": test,
+                  "data.ground_truth_path": gt, "data.batch_size": 3, "data.stream": "both",
+                  "runner.model_config.channels": 4096, "runner.optimizer.learning_rate": 1e-4,
+                  "trainer.max_epochs": 3, "trainer.max_steps": 6, "trainer.eval_every": 3,
+                  "trainer.log_path": log, "trainer.checkpoint.dirpath": ckpt})
+    with open(log) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    aucs = [r["valid/rec_auc"] for r in records if "valid/rec_auc" in r]
+    if len(losses) != 6 or not np.isfinite(losses).all() or not aucs:
+        raise AssertionError(f"two-stream training: losses {losses}, AUCs {aucs}")
+    print(f"two-stream MGFN (4096 channels) trained 6 steps: losses "
+          f"{np.round(losses, 5).tolist()}, rec_auc {aucs}", flush=True)
+    name = TWO_STREAM_VIDEOS[0]
+    request = os.path.join(root, "request_both")
+    os.makedirs(request)
+    open(os.path.join(request, name), "wb").close()
+    outdir, feats = os.path.join(root, "scores_both"), os.path.join(root, "features_both")
+    argv = ["--videos", request, "--outdir", outdir, "--checkpoint", ckpt, "--i3d-weights",
+            weights, "--features-dir", feats, "--device", "cuda"]
+    start = time.perf_counter()
+    with stand_in_decode():
+        infer.main(argv)
+    wall = time.perf_counter() - start
+    stem = os.path.splitext(name)[0]
+    with open(os.path.join(outdir, f"{stem}_scores.json")) as f:
+        out = json.load(f)
+    clip = np.asarray(out["clip_scores"])
+    features = np.concatenate([np.load(os.path.join(feats, f"{stem}_{s}.npy"))
+                               for s in ("i3d", "flow")], axis=-1)
+    if out["stream"] != "both" or features.shape != (24, 10, 2 * FEATURE_DIM) or not (
+            np.isfinite(clip).all() and (clip >= 0).all() and (clip <= 1).all()):
+        raise AssertionError(f"two-stream serving: stream {out['stream']}, features "
+                             f"{features.shape}, scores {clip}")
+    args = infer.build_parser().parse_args(argv)
+    cpu_scorer, _ = infer.build_scorer(argparse.Namespace(**dict(vars(args), device="cpu")))
+    err = float(np.abs(clip - infer.score_features(features, cpu_scorer)).max())
+    print(f"two-stream serving: infer --checkpoint with no --stream resolved stream "
+          f"{out['stream']!r}; 24 clips extracted in both streams and scored in {wall:.2f} s "
+          f"(infer.main); clip scores vs the CPU's on the cached RGB || flow features: max |err| "
+          f"{err:.2e}", flush=True)
+    if err > 1e-5:
+        raise AssertionError(f"two-stream serving: scores differ from the CPU's by {err:.2e}")
+
+
+def check_flow_stream(torch, root, model, scorer):
+    """Phase 11: the optical-flow stream and two-stream extraction and
+    serving; returns K5's ``stem_cin2`` entry of the JSON line."""
+    start = time.perf_counter()
+    frames = moving_scene(384)
+    print(f"phase 11: a seeded 384-frame 240x320 scene moving by {list(FLOW_SHIFT)} px per frame "
+          f"made in {time.perf_counter() - start:.2f} s", flush=True)
+    flow_u8 = check_flows(torch, frames)
+    stem_launches = check_flow_extractor(torch, model, frames, flow_u8, scorer)
+    stem_entry = check_flow_stem(torch, stem_launches)
+    weights = os.path.join(root, "i3res50.pt")
+    with stand_in_decode():
+        check_two_stream_cli(torch, root, weights)
+        check_two_stream_float32(torch, root, weights)
+    check_two_stream_serving(torch, root, weights)
+    print(f"flow stream phase: {time.perf_counter() - start:.1f} s", flush=True)
+    return stem_entry
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1728,6 +2262,11 @@ def main() -> int:
         check_extraction_breadth(torch, work, model, qextractor.model, bulk_ten, scorer,
                                  checkpoints["mgfn"], extractor, video)
         del bulk_ten
+        torch.cuda.empty_cache()
+
+        # 11. the optical-flow stream: device flows, K5's stem over two
+        # channels, the flow extractor, two-stream extraction and serving
+        stem_cin2 = check_flow_stream(torch, work, model, scorer)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1743,7 +2282,9 @@ def main() -> int:
          "replaces": sources[e["name"]][1],
          "launches": e["launches"], "max_abs_err": e["max_abs_err"], "ms": e["ms"],
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
-         "library_ms": e["library_ms"]} for e in results]}
+         "library_ms": e["library_ms"],
+         # K5's stem over the flow stream's two channels (phase 11)
+         **({"stem_cin2": stem_cin2} if e["name"] == "int8_conv" else {})} for e in results]}
     print(json.dumps(line), flush=True)
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

@@ -321,8 +321,8 @@ def test_chunk_caches_resume_and_producer_errors(narrow, rng, tmp_path, monkeypa
                                           _extractor(narrow, batch=20), decode_workers=2,
                                           chunk_frames=16, progress=False)
     assert _no_decode_threads()
-    with pytest.raises(NotImplementedError, match="module 6"):
-        textraction.extract_videos_pooled([path], outdir, ex, flow_extractor=object())
+    with pytest.raises(ValueError, match=r"extractors must be \(rgb, flow\) in that order"):
+        textraction.extract_videos_pooled([path], outdir, ex, flow_extractor=ex)
 
 
 # ------------------------------------------------------------------ decode
@@ -545,7 +545,7 @@ def test_extract_features_center_crops_and_flag_checks(narrow, rng, tmp_path, mo
         assert exc.value.code == 2
         errors.append(capsys.readouterr().err.strip().splitlines()[-1])
     assert errors[0] == errors[1]
-    for unported in (["--stream", "flow"], ["--model", "i3d_8x8_r50"], ["--multihost"],
+    for unported in (["--data-parallel"], ["--model", "i3d_8x8_r50"], ["--multihost"],
                      ["--hf-dataset", "jinmang2/ucf_crime"]):
         with pytest.raises(SystemExit) as exc:
             t_extract_features.main(["--videos", "v", "--outdir", "o"] + unported)

@@ -94,16 +94,17 @@ def test_stem_plain_matches_jax_chain(rng):
 
 def stem_slab(x):
     """The stem kernels' per-pixel vectors (csrc/stem.cu, csrc/int8_conv.cu)
-    for a whole plane: (B, T, H, W, 3) -> (B, To, H+6, 2, Q, 16), input rows
+    for a whole plane: (B, T, H, W, C) -> (B, To, H+6, 2, Q, 16), input rows
     from -3 and columns from -4 split by parity (column 2*i + parity), each
-    vector ``[kt * 3 + c]`` of stem frame s (input frames 2s-2 .. 2s+2),
-    the 16th zero; zeros in the padding."""
-    b, t, h, w, _ = x.shape
+    vector ``[kt * C + c]`` of stem frame s (input frames 2s-2 .. 2s+2),
+    zeros after its 5C values and in the padding (C = 3, or 2 for flow)."""
+    b, t, h, w, c = x.shape
     frames_out, cols = (t + 1) // 2, w + 8 + w % 2
     xp = F.pad(x, (0, 0, 4, cols - w - 4, 3, 3, 2, 2))
     frames = torch.stack([xp[:, 2 * s: 2 * s + 5] for s in range(frames_out)], 1)
-    vec = frames.permute(0, 1, 3, 4, 2, 5).reshape(b, frames_out, h + 6, cols, 15)
-    return F.pad(vec, (0, 1)).reshape(b, frames_out, h + 6, cols // 2, 2, 16).transpose(3, 4)
+    vec = frames.permute(0, 1, 3, 4, 2, 5).reshape(b, frames_out, h + 6, cols, 5 * c)
+    vec = F.pad(vec, (0, 16 - 5 * c))
+    return vec.reshape(b, frames_out, h + 6, cols // 2, 2, 16).transpose(3, 4)
 
 
 def stem_tap_rows(slab, kh, kw, ho, wo):
