@@ -8,8 +8,9 @@
 // from the probe's fixed (128, 28 x 28) planes to the convs of the i3res50
 // int8 path: k(1,3,3) with stride 1 or 2 and k(3,1,1) over Cin % 16 == 0
 // channels (any kernel, stride and padding with such Cin), and the stem's
-// k(5,7,7) s2 p(2,3,3) over Cin = 3 (RGB) or Cin = 2 (the flow stream's dx,
-// dy). It also writes float32,
+// k(5,7,7) p(2,3,3) at stride (2,2,2) (i3res50) or (1,2,2) (i3d_8x8_r50)
+// over Cin = 3 (RGB) or Cin = 2 (the flow stream's dx, dy). It also writes
+// float32,
 // ConvBN._int8_conv's dequantize in a float32 model. Other geometries are
 // refused (the wrapper raises). x (B, T, H, W, Cin) int8 -> out
 // (B, To, Ho, Wo, Cout); the epilogue converts each exact int32 sum once,
@@ -43,12 +44,14 @@
 // wgmma. Two CTAs share an SM. TMA is not used: the A rows are gathered
 // taps (an implicit im2col) with zero padding per tap.
 //
-// int8_conv_kernel_stem<C> (Cin = C, 3 or 2), on mma.sync m16n8k32
-// s8.s8.s32 fed by ldmatrix: one CTA per (clip, stem frame pair, 8 x 16
-// output positions). It stages its input once as one 32-byte vector per
-// pixel, [j][16] int8 for the two stem frames 2u + j (j = 0: relative
-// input frames 0-4 x C channels, j = 1: frames 2-6; element kt * C + c,
-// bytes 5 * C .. 15 zero), loaded as C 4-byte words along each input row
+// int8_conv_kernel_stem<C, ST> (Cin = C, 3 or 2; temporal stride ST, 2 or
+// 1), on mma.sync m16n8k32 s8.s8.s32 fed by ldmatrix: one CTA per (clip,
+// stem frame pair, 8 x 16 output positions). It stages its input once as
+// one 32-byte vector per pixel, [j][16] int8 for the two stem frames
+// 2u + j, which read input frames 2u*ST - 2 + ST*j + kt (kt = 0..4): the
+// CTA loads 5 + ST frames, 2u*ST - 2 .. 2u*ST + ST + 2 (7 at ST = 2, 6 at
+// ST = 1), and only this frame mapping depends on ST. Element kt * C + c,
+// bytes 5 * C .. 15 zero, loaded as C 4-byte words along each input row
 // (four pixels of C bytes) and transposed in registers. The flow stream's
 // two channels fill 10 of the 16 bytes, so its input is never padded to a
 // third zero channel. One m16n8k32 K step then covers two (kh, kw) taps:
@@ -332,7 +335,7 @@ __host__ __device__ constexpr int stem_tap(int tap) {
          (((tap % S_KW) + 1) >> 1) * S_PIX;
 }
 
-template <int MODE, int C>
+template <int MODE, int C, int ST>
 __global__ void __launch_bounds__(THREADS, 2)
     int8_conv_kernel_stem(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                           const float* __restrict__ scale, void* __restrict__ out, int T, int H,
@@ -355,6 +358,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   cp_async_commit();
 
   static_assert((C == 2 || C == 3) && S_KT * C <= 16, "five taps of C channels fit 16 bytes");
+  static_assert(ST == 1 || ST == 2, "temporal stride 1 or 2");
+  constexpr int NF = S_KT + ST;          // input frames of the pair: 2u*ST - 2 + f
   // the slab: four input pixels (4 * C bytes, C 4-byte words) per frame
   // and unit, transposed in registers into four [j][16] pixel vectors
   for (int unit = tid; unit < S_IR * (S_Q / 2); unit += THREADS) {
@@ -362,10 +367,10 @@ __global__ void __launch_bounds__(THREADS, 2)
     const int ih = ih0 + r;
     const int iw = ic0 + 4 * grp;        // W % 4 == 0: all four pixels inside or outside
     const bool inside = ih >= 0 && ih < H && iw >= 0 && iw < W;
-    uint32_t wd[7][C];
+    uint32_t wd[NF][C];
 #pragma unroll
-    for (int f = 0; f < 7; ++f) {
-      const int frame = 4 * u - 2 + f;
+    for (int f = 0; f < NF; ++f) {
+      const int frame = 2 * ST * u - 2 + f;
 #pragma unroll
       for (int q = 0; q < C; ++q) wd[f][q] = 0u;
       if (inside && frame >= 0 && frame < T) {
@@ -390,7 +395,7 @@ __global__ void __launch_bounds__(THREADS, 2)
           for (int e4 = 0; e4 < 4; ++e4) {
             const int e = 4 * q + e4;  // element kt * C + c
             if (e < S_KT * C) {
-              const int f = 2 * j + e / C;
+              const int f = ST * j + e / C;
               const int byte = px * C + e % C;  // of the 4 * C-byte group
               word |= ((wd[f][byte >> 2] >> (8 * (byte & 3))) & 0xFFu) << (8 * e4);
             }
@@ -481,10 +486,10 @@ cudaError_t set_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int MODE, int C>
+template <int MODE, int C, int ST>
 int launch_stem(const void* x, const void* w, const float* scale, void* out, const Geometry& g,
                 cudaStream_t stream) {
-  auto kernel = int8_conv_kernel_stem<MODE, C>;
+  auto kernel = int8_conv_kernel_stem<MODE, C, ST>;
   cudaError_t err = set_smem(kernel, S_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int pairs = (g.To + 1) / 2;
@@ -512,8 +517,11 @@ template <int MODE>
 int launch(const void* x, const void* w, const float* scale, void* out, const Geometry& g,
            bool stem, cudaStream_t stream) {
   if (stem) {
-    return g.Cin == 2 ? launch_stem<MODE, 2>(x, w, scale, out, g, stream)
-                      : launch_stem<MODE, 3>(x, w, scale, out, g, stream);
+    if (g.ST == 1)
+      return g.Cin == 2 ? launch_stem<MODE, 2, 1>(x, w, scale, out, g, stream)
+                        : launch_stem<MODE, 3, 1>(x, w, scale, out, g, stream);
+    return g.Cin == 2 ? launch_stem<MODE, 2, 2>(x, w, scale, out, g, stream)
+                      : launch_stem<MODE, 3, 2>(x, w, scale, out, g, stream);
   }
   if (g.Cout == 64) return launch_c16<64, MODE>(x, w, scale, out, g, stream);
   return launch_c16<128, MODE>(x, w, scale, out, g, stream);
@@ -523,8 +531,8 @@ int launch(const void* x, const void* w, const float* scale, void* out, const Ge
 
 // x int8 (B, T, H, W, Cin) channels last; w int8 (Cout, K): for Cin % 16
 // == 0 pack_int8_weight_nk's rows (kt, kh, kw, cin), for the stem
-// (Cin = 3 or 2, k(5,7,7), s2, p(2,3,3), Cout = 64, W % 4 == 0, x 4-byte
-// aligned) the (64, 800) tap-pair layout. Any other geometry returns cudaErrorInvalidValue.
+// (Cin = 3 or 2, k(5,7,7), s(2,2,2) or s(1,2,2), p(2,3,3), Cout = 64,
+// W % 4 == 0, x 4-byte aligned) the (64, 800) tap-pair layout. Any other geometry returns cudaErrorInvalidValue.
 extern "C" int adv_int8_conv(const void* x, const void* w, const float* scale, void* out, int B,
                              int T, int H, int W, int Cin, int Cout, int KT, int KH, int KW,
                              int ST, int SH, int SW, int PT, int PH, int PW, int mode,
@@ -534,7 +542,8 @@ extern "C" int adv_int8_conv(const void* x, const void* w, const float* scale, v
   g.Ho = (H + 2 * PH - KH) / SH + 1;
   g.Wo = (W + 2 * PW - KW) / SW + 1;
   const bool stem = (Cin == 2 || Cin == 3) && Cout == S_CO && KT == S_KT && KH == S_KH && KW == S_KW &&
-                    ST == 2 && SH == 2 && SW == 2 && PT == 2 && PH == 3 && PW == 3 && W % 4 == 0 &&
+                    (ST == 1 || ST == 2) && SH == 2 && SW == 2 && PT == 2 && PH == 3 && PW == 3 &&
+                    W % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
                     reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const bool c16 = Cin % 16 == 0 && Cout % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&

@@ -2,7 +2,8 @@
 
     python -m anomaly_detection_on_video_tpu_torch.extract_features \\
         --videos clips/ --outdir features/ [--split train|test] \\
-        [--weights i3res50.pt] [--dtype bfloat16|float32|int8] [--batch 240] \\
+        [--model tushar-n-baseline|i3d_8x8_r50] [--weights i3res50.pt|I3D_8x8_R50.pyth] \\
+        [--dtype bfloat16|float32|int8] [--batch 240] \\
         [--crops ten|center] [--decode-workers N] [--profile] \\
         [--stream rgb|flow|both] [--flow-backend host|device|tvl1] \\
         [--segment-length 32 | --no-segments] [--device cuda]
@@ -34,11 +35,14 @@ bfloat16 compute; its scales calibrate on the first chunk extracted and
 are pinned to the feature directory as ``act_scales_<stream>.json``, the
 JAX package's sidecars, so a resumed run quantizes as the first did. On an H100
 int8 is currently slower than bfloat16 and uses more memory (PERF.md,
-section 5). ``--weights`` is an I3Res50 state dict (seeded random weights
-when unset). Single host, model ``tushar-n-baseline``: the JAX CLI's
-``--model``, ``--multihost``, ``--data-parallel``, ``--compile-cache`` and
-``--hf-dataset`` are not ported (ROADMAP.md, queue 1, modules 5 and 7), and
-the parser refuses them.
+section 5). ``--model`` picks the backbone, ``tushar-n-baseline`` (the
+default) or ``i3d_8x8_r50``, for both streams; ``--weights`` is its weight
+file, read as the JAX CLI's ``load_weights`` reads it (an I3Res50 state
+dict, or for ``i3d_8x8_r50`` a pytorchvideo ``.pyth`` whose
+``model_state`` is converted), with seeded random weights when unset.
+Single host: the JAX CLI's ``--multihost``, ``--data-parallel``,
+``--compile-cache`` and ``--hf-dataset`` are not ported (ROADMAP.md, queue
+1, module 7), and the parser refuses them.
 """
 
 from __future__ import annotations
@@ -56,7 +60,8 @@ from .data.extraction import (
 )
 from .data.segments import segment_video_features
 from .data.video import find_videos, warn_duplicate_stems
-from .infer import extractor_kwargs, load_state_dict
+from .infer import extractor_kwargs, load_i3d_weights
+from .models.i3d import MODEL_ZOO
 from .utils.device import resolve_device
 from .utils.profiling import StageTimer
 
@@ -67,8 +72,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--outdir", required=True)
     parser.add_argument("--split", default=None, choices=[None, "train", "test"],
                         help="subdirectory under outdir; train also gets segments")
+    parser.add_argument("--model", default="tushar-n-baseline", choices=sorted(MODEL_ZOO),
+                        help="I3D backbone")
     parser.add_argument("--weights", default=None,
-                        help="I3Res50 state dict (.pt); seeded random weights if unset")
+                        help="the backbone's weights: an I3Res50 state dict (.pt), or for "
+                             "i3d_8x8_r50 a pytorchvideo file (.pyth); seeded random weights "
+                             "if unset")
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"],
                         help="float32 for parity runs (exact resize); int8 quantizes the "
                              "convs, currently slower than bfloat16 on an H100 (PERF.md sec. 5)")
@@ -110,11 +119,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(f"no videos found under {args.videos!r}")
     warn_duplicate_stems(videos, what="extracted")
     # one weight tree for both streams: the flow stem adapts from it
-    state_dict = load_state_dict(args.weights) if args.weights else None
+    state_dict = load_i3d_weights(args.weights, args.model) if args.weights else None
     device = resolve_device(args.device)
 
     def make_extractor(stream: str) -> FeatureExtractor:
-        return FeatureExtractor(state_dict=state_dict, device=device, stream=stream,
+        return FeatureExtractor(model_name=args.model, state_dict=state_dict, device=device,
+                                stream=stream,
                                 flow_backend=args.flow_backend if stream == "flow" else None,
                                 **extractor_kwargs(args))
 

@@ -9,7 +9,8 @@ and the one-shot scoring of a video set::
         [--model mgfn|rtfm|sultani] [--model-config k=v ...] \\
         [--threshold t --min-event-frames n] [--features-dir <cache>] \\
         [--frames-per-clip n] [--group-mode adaptive|fixed] [--warmup clips] \\
-        [--i3d-weights i3res50.pt] [--dtype bfloat16|float32|int8] [--batch 240] \\
+        [--i3d-model tushar-n-baseline|i3d_8x8_r50] [--i3d-weights i3res50.pt|I3D_8x8_R50.pyth] \\
+        [--dtype bfloat16|float32|int8] [--batch 240] \\
         [--crops ten|center] [--stream rgb|flow|both] \\
         [--flow-backend host|device|tvl1] [--device cuda]
 
@@ -29,8 +30,11 @@ export their weights with its ``utils/convert.py``
 ``--torch-weights``, a state dict in the reference's layout (MGFN: the HF
 names, ``--official`` for the official release's; RTFM: the official
 release's, BatchNorms after a conv folded; Sultani: ``fc1``-``fc3``).
-``--i3d-weights`` is an I3Res50 state dict (seeded random weights when
-unset, as the JAX CLI initializes randomly).
+``--i3d-model`` picks the backbone (``tushar-n-baseline``, the default, or
+``i3d_8x8_r50``); ``--i3d-weights`` is its weight file, read as the JAX
+CLI's ``load_weights`` reads it (``load_i3d_weights``: a ``.pyth`` file's
+``model_state`` unwrapped; ``i3d_8x8_r50`` weights in pytorchvideo's names),
+with seeded random weights when unset, as the JAX CLI initializes randomly.
 
 ``--dtype int8`` runs the I3D convs in int8 (kernels K4 and K5) around
 bfloat16 compute, with scales calibrated on the first video's first chunk
@@ -47,9 +51,9 @@ optical-flow stream, 2048-d, cached as ``<stem>_flow.npy``) or ``both``
 persisted ``data.stream`` (else ``rgb``), so a two-stream checkpoint is
 scored two-stream with no flag. ``--flow-backend`` as in
 ``extract_features``; with ``--features-dir`` the backend is pinned there
-in ``flow_backend.json``. Not ported: other ``--i3d-model`` values,
-``--figure``, ``--watch``, ``--serve``, ``--export`` / ``--from-export``,
-``--data-parallel`` and ``--compile-cache``.
+in ``flow_backend.json``. Not ported: ``--figure``, ``--watch``,
+``--serve``, ``--export`` / ``--from-export``, ``--data-parallel`` and
+``--compile-cache``.
 """
 
 from __future__ import annotations
@@ -76,11 +80,16 @@ from .data.extraction import (
 from .data.features import pad_eval_batch
 from .data.video import find_videos, warn_duplicate_stems
 from .models import build_model
+from .models.i3d import MODEL_ZOO
 from .ops.metrics import anomaly_events, frame_level_scores
 from .training.checkpoints import STATE_FILE, TopKCheckpointer
 from .training.optim import adam_with_l2
 from .training.runner import TrainState, buckets_up_to, eval_bucket, make_eval_step
-from .utils.convert import mgfn_state_dict_from_official, rtfm_state_dict_from_official
+from .utils.convert import (
+    i3d_state_dict_from_pytorchvideo,
+    mgfn_state_dict_from_official,
+    rtfm_state_dict_from_official,
+)
 from .utils.device import resolve_device
 from .utils.npyio import atomic_save
 
@@ -92,6 +101,21 @@ def load_state_dict(path: str) -> dict:
     if isinstance(state_dict, dict) and "state_dict" in state_dict:
         state_dict = state_dict["state_dict"]
     return state_dict
+
+
+def load_i3d_weights(path: str, model_name: str) -> dict:
+    """An I3D weight file -> the port's state dict for ``model_name``, as
+    the JAX CLIs' ``load_weights`` reads a torch file: a ``.pyth`` file's
+    ``model_state`` (or a ``state_dict`` wrapper) unwrapped, then
+    ``i3d_8x8_r50`` weights from pytorchvideo's names
+    (``i3d_state_dict_from_pytorchvideo``); i3res50 weights already carry
+    the reference's names."""
+    state_dict = load_state_dict(path)
+    if isinstance(state_dict, dict) and "model_state" in state_dict:
+        state_dict = state_dict["model_state"]  # pytorchvideo .pyth layout
+    if model_name == "tushar-n-baseline":
+        return state_dict
+    return i3d_state_dict_from_pytorchvideo(state_dict)
 
 
 def _weights_to_port(model_name: str, state_dict: dict, official: bool) -> dict:
@@ -333,8 +357,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--model-config", nargs="*", metavar="KEY=VALUE",
                         help="model config overrides (YAML-style values, e.g. dims=[64,128,1024]); "
                              "applied on top of the checkpoint's hparams")
+    parser.add_argument("--i3d-model", default="tushar-n-baseline", choices=sorted(MODEL_ZOO),
+                        help="I3D backbone of the features")
     parser.add_argument("--i3d-weights", default=None,
-                        help="I3Res50 state dict (.pt); seeded random weights if unset")
+                        help="the backbone's weights: an I3Res50 state dict (.pt), or for "
+                             "i3d_8x8_r50 a pytorchvideo file (.pyth); seeded random weights "
+                             "if unset")
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"],
                         help="I3D compute dtype; int8 quantizes the convs (scales calibrated "
                              "on the first chunk and pinned to --features-dir or --outdir); "
@@ -417,11 +445,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(f"--stream {stream} extracts {extracted_dim}-d features but the "
                          f"{model_name} scorer expects {scorer_dim}-d input; {hint}")
     # one weight tree for both streams: the flow stem adapts from it
-    state_dict = load_state_dict(args.i3d_weights) if args.i3d_weights else None
+    state_dict = load_i3d_weights(args.i3d_weights, args.i3d_model) if args.i3d_weights else None
     device = resolve_device(args.device)
 
     def make_extractor(s: str) -> FeatureExtractor:
         return FeatureExtractor(
+            model_name=args.i3d_model,
             state_dict=state_dict,
             frames_per_clip=args.frames_per_clip,
             adaptive_groups=args.group_mode == "adaptive",

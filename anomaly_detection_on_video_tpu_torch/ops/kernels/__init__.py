@@ -19,6 +19,7 @@ def reset_launch_counts() -> None:
     for wrapper in WRAPPERS:
         wrapper.launches = 0
     int8_conv.stem_launches = dict.fromkeys(int8_conv.stem_launches, 0)
+    int8_conv.stem_stride_launches = dict.fromkeys(int8_conv.stem_stride_launches, 0)
 
 
 def launch_counts() -> dict:
@@ -29,6 +30,12 @@ def stem_launch_counts() -> dict:
     """K5's stem launches by input channels (3: RGB, 2: the flow stream),
     a part of ``launch_counts()["int8_conv"]``."""
     return dict(int8_conv.stem_launches)
+
+
+def stem_stride_launch_counts() -> dict:
+    """K5's stem launches by temporal stride (2: i3res50, 1:
+    i3d_8x8_r50), the same launches as ``stem_launch_counts``."""
+    return dict(int8_conv.stem_stride_launches)
 
 
 __all__ = [
@@ -45,6 +52,7 @@ __all__ = [
     "pack_stem_params",
     "reset_launch_counts",
     "stem_launch_counts",
+    "stem_stride_launch_counts",
     "stem_conv_pool",
     "stem_plain",
     "ten_crop_standardize",

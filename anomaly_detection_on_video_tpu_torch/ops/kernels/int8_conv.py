@@ -4,10 +4,11 @@ Replaces ``make_conv3x3`` / ``_conv3x3_kernel``
 (scripts/int8_pallas_probe.py:159 / :116): an int8 3x3 conv with zero
 padding, int32 accumulation, and a per-output-channel float32 scale whose
 product is either requantized to int8 (``clip(round(.), -127, 127)``, round
-half to even) or written as bfloat16. Generalized to the i3res50 int8
-path's geometries (k(1,3,3) with stride 1 or 2 and k(3,1,1) over Cin % 16
-== 0 channels, the stem's k(5,7,7) s2 p(2,3,3) over 3 channels, or over 2
-for the flow stream) and to a float32 output.
+half to even) or written as bfloat16. Generalized to the I3D int8 paths'
+geometries (k(1,3,3) with stride 1 or 2 and k(3,1,1) over Cin % 16 == 0
+channels; the stem's k(5,7,7) p(2,3,3) at stride (2,2,2), i3res50's, or
+(1,2,2), i3d_8x8_r50's, over 3 channels, or over 2 for the flow stream)
+and to a float32 output.
 
 On the H100 it is bound by operations for the k(1,3,3) convs and by bytes
 for the k(3,1,1) convs and the stem: about 0.57 ms for the 26 convs of an
@@ -20,7 +21,9 @@ the stem, ``mma.sync`` fed by ``ldmatrix`` from a slab that holds the
 C-channel input (C = 3, or 2 for flow) once as one 32-byte vector per pixel
 (two stem frames x 5 temporal taps x C channels, zero-padded to 16 bytes
 each), two (kh, kw) taps per k32 step against the (64, 800) operand of
-``pack_int8_conv_weight``. A 2-channel input is read as it is, never padded
+``pack_int8_conv_weight``. The temporal stride only changes which input
+frames a CTA's two stem frames read (6 at stride 1, 7 at stride 2): the
+slab, the weights and the products are the same. A 2-channel input is read as it is, never padded
 to a third channel: the padding would copy the largest int8 tensor of the
 forward to multiply zeros. Any other geometry raises on the card. The
 plain version is ``F.conv3d`` in float64 on the int8 values, exact for the
@@ -41,7 +44,9 @@ Triple = Tuple[int, int, int]
 
 STEM_KERNEL = (5, 7, 7)  # a k(5,7,7) weight over STEM_CHANNELS is packed in the stem layout
 STEM_CHANNELS = (2, 3)  # flow (dx, dy) and RGB
-STEM_GEOMETRY = (STEM_KERNEL, (2, 2, 2), (2, 3, 3))  # the stem kernel's only geometry
+# the stem kernel's geometries: (kernel, stride, padding) of i3res50 and i3d_8x8_r50
+STEM_GEOMETRY = {(STEM_KERNEL, (2, 2, 2), (2, 3, 3)), (STEM_KERNEL, (1, 2, 2), (2, 3, 3))}
+STEM_STRIDES = (1, 2)  # the temporal strides of STEM_GEOMETRY
 STEM_TAPS = 7 * 7
 STEM_TAP_K = 16  # bytes per (kh, kw) tap: 5 temporal taps x C channels, padded
 STEM_K = (STEM_TAPS + 1) * STEM_TAP_K  # 800: 25 k32 steps of two taps, the 50th zero
@@ -120,9 +125,9 @@ def int8_conv(
     ``pack_int8_conv_weight``, its int32 sum times the float32 ``(Cout,)``
     ``scale``. A CPU tensor takes the plain version (any geometry); a CUDA
     tensor launches a kernel, which takes Cin % 16 == 0 with Cout % 16 == 0,
-    or the stem (Cin = 3 or 2, k(5,7,7), s2, p(2,3,3), Cout = 64, W % 4 ==
-    0 and ``x`` 4-byte aligned, so each row load of four pixels is C whole
-    4-byte words), and anything else raises.
+    or the stem (Cin = 3 or 2, k(5,7,7), s(2,2,2) or s(1,2,2), p(2,3,3),
+    Cout = 64, W % 4 == 0 and ``x`` 4-byte aligned, so each row load of four
+    pixels is C whole 4-byte words), and anything else raises.
     """
     kernel, stride, padding = (_triple(v, n) for v, n in
                                ((kernel, "kernel"), (stride, "stride"), (padding, "padding")))
@@ -153,8 +158,8 @@ def int8_conv(
     if not (x.is_contiguous() and w_packed.is_contiguous()):
         raise ValueError("int8_conv operands must be contiguous")
     if _stem_layout(cin, kernel):
-        if (kernel, stride, padding) != STEM_GEOMETRY or cout != 64 or w % 4 or x.data_ptr() % 4:
-            raise ValueError(f"the stem kernel takes k{STEM_KERNEL} s(2,2,2) p(2,3,3) over "
+        if (kernel, stride, padding) not in STEM_GEOMETRY or cout != 64 or w % 4 or x.data_ptr() % 4:
+            raise ValueError(f"the stem kernel takes k{STEM_KERNEL} s(2,2,2) or s(1,2,2) p(2,3,3) over "
                              f"{STEM_CHANNELS} channels into 64 over a width that is a multiple "
                              f"of 4 from a 4-byte aligned input, got kernel {kernel}, "
                              f"stride {stride}, padding {padding}, {cout} channels, "
@@ -184,9 +189,12 @@ def int8_conv(
     int8_conv.launches += 1
     if _stem_layout(cin, kernel):
         int8_conv.stem_launches[cin] += 1
+        int8_conv.stem_stride_launches[stride[0]] += 1
     return out
 
 
 int8_conv.launches = 0
-# the stem's share of ``launches``, by input channels (3: RGB, 2: flow)
+# the stem's share of ``launches``, by input channels (3: RGB, 2: flow) and
+# by temporal stride (2: i3res50, 1: i3d_8x8_r50)
 int8_conv.stem_launches = dict.fromkeys(STEM_CHANNELS, 0)
+int8_conv.stem_stride_launches = dict.fromkeys(STEM_STRIDES, 0)

@@ -33,11 +33,13 @@ STEM_OUTPUT = (4, 55, 55, 64)
 STEM_TAP_K = 16  # the bf16 operand's K per (kh, kw) tap: 5 x 3 values, padded
 
 
-def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inference BN as a float32 affine, as ``pack_stem_params`` folds it:
+def fold_bn(bn: nn.modules.batchnorm._BatchNorm,
+            dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference BN as an affine in ``dtype`` (float32, as
+    ``pack_stem_params`` folds it; float64 for a float64 forward):
     ``scale = gamma * rsqrt(var + eps)``, ``shift = beta - mean * scale``."""
-    scale = bn.weight.detach().float() * torch.rsqrt(bn.running_var.float() + bn.eps)
-    return scale, bn.bias.detach().float() - bn.running_mean.float() * scale
+    scale = bn.weight.detach().to(dtype) * torch.rsqrt(bn.running_var.to(dtype) + bn.eps)
+    return scale, bn.bias.detach().to(dtype) - bn.running_mean.to(dtype) * scale
 
 
 def pack_stem_params(conv_weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

@@ -5,7 +5,11 @@ The ``*_from_flax`` functions are the port's own copy of the JAX package's
 exporters (``export_{i3res50,mgfn,rtfm,sultani}_state_dict`` in its
 ``utils/convert.py``). Each takes the ``{"params", "batch_stats"}`` tree as
 nested dicts of numpy arrays and returns the state dict that
-``load_state_dict`` takes on the port's models (and the reference's):
+``load_state_dict`` takes on the port's models (and the reference's). One
+I3D tree serves every variant (i3res50 with or without non-local blocks,
+``i3d_8x8_r50``); ``i3d_state_dict_{from,to}_pytorchvideo`` move it to and
+from pytorchvideo's ``create_resnet`` names (the ``I3D_8x8_R50.pyth``
+layout):
 
 - flax Conv3d kernel (T, H, W, I, O) -> torch (O, I, T, H, W)
 - flax Conv1d kernel (K, I, O)       -> torch (O, I, K)
@@ -15,6 +19,7 @@ nested dicts of numpy arrays and returns the state dict that
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -46,8 +51,11 @@ def _bn(sd: Dict[str, torch.Tensor], key: str, p: Mapping, s: Mapping) -> None:
     sd[key + ".num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
 
 
-def i3res50_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """I3Res50 variables -> ``conv1``/``bn1``/``layer{L}.{i}...`` names."""
+def i3d_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """I3D variables (any variant) -> ``conv1``/``bn1``/``layer{L}.{i}...``
+    names, the non-local blocks' ``NonLocalBlock_0`` as
+    ``layer{L}.{i}.nl.{theta,phi,g,out,bn}`` (the JAX package's
+    ``export_i3res50_state_dict``)."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     sd: Dict[str, torch.Tensor] = {}
@@ -65,12 +73,77 @@ def i3res50_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torc
             if sub == "proj":
                 sd[base + ".downsample.0.weight"] = _conv3d(p["conv"]["kernel"])
                 _bn(sd, base + ".downsample.1", p["bn"], snode["bn"])
+            elif sub == "NonLocalBlock_0":
+                for conv in ("theta", "phi", "g", "out"):
+                    sd[base + f".nl.{conv}.weight"] = _conv3d(p[conv]["kernel"])
+                    sd[base + f".nl.{conv}.bias"] = _t(p[conv]["bias"])
+                _bn(sd, base + ".nl.bn", p["bn"], snode["bn"])
             elif sub in idx_of:
                 i = idx_of[sub]
                 sd[base + f".conv{i}.weight"] = _conv3d(p["conv"]["kernel"])
                 _bn(sd, base + f".bn{i}", p["bn"], snode["bn"])
             else:
-                raise KeyError(f"{name}/{sub}: not part of the ported i3res50")
+                raise KeyError(f"{name}/{sub}: not part of the ported I3D")
+    return sd
+
+
+# pytorchvideo's top-level block of each stage: with ``stage1_pool`` set (the
+# reference's build) the stage-1 MaxPool is its own block 2
+PYTORCHVIDEO_STAGE_BLOCKS = (1, 3, 4, 5)
+_PV_BRANCH = {"branch2.conv_a": "conv1", "branch2.norm_a": "bn1", "branch2.conv_b": "conv2",
+              "branch2.norm_b": "bn2", "branch2.conv_c": "conv3", "branch2.norm_c": "bn3",
+              "branch1_conv": "downsample.0", "branch1_norm": "downsample.1"}
+_PV_TENSORS = ("weight", "bias", "running_mean", "running_var", "num_batches_tracked")
+_PV_BLOCK = re.compile(r"^blocks\.(\d+)\.res_blocks\.(\d+)\.(.+)\.([a-z_]+)$")
+
+
+def i3d_state_dict_from_pytorchvideo(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A pytorchvideo ``create_resnet`` state dict (``I3D_8x8_R50.pyth``'s
+    ``model_state``) -> the port's I3D names, the mapping of the JAX
+    package's ``convert_pytorchvideo_resnet_state_dict``:
+    ``blocks.0.{conv,norm}`` is the stem; stages are the top-level blocks
+    that hold ``res_blocks``, in the order of their indices (1, 3, 4, 5 in
+    the real file), each ``res_blocks.{i}.branch2.{conv,norm}_{a,b,c}`` and
+    ``branch1_{conv,norm}`` a bottleneck's convs and projection. Keys of no
+    such part (the classification head) are dropped, as there; ValueError
+    unless exactly 4 stages are found. Tensors keep their values and
+    dtypes."""
+    matches = {key: _PV_BLOCK.match(key) for key in state_dict}
+    stage_blocks = sorted({int(m.group(1)) for m in matches.values() if m})
+    if len(stage_blocks) != 4:
+        raise ValueError(f"expected 4 ResNet stages in the state dict, found block indices "
+                         f"{stage_blocks}")
+    stage_of = {idx: i + 1 for i, idx in enumerate(stage_blocks)}
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        for pv, ours in (("blocks.0.conv", "conv1"), ("blocks.0.norm", "bn1")):
+            if key.startswith(pv + ".") and key[len(pv) + 1:] in _PV_TENSORS:
+                sd[f"{ours}.{key[len(pv) + 1:]}"] = _t(_array(value))
+        m = matches[key]
+        if m and m.group(3) in _PV_BRANCH and m.group(4) in _PV_TENSORS:
+            base = f"layer{stage_of[int(m.group(1))]}.{m.group(2)}"
+            sd[f"{base}.{_PV_BRANCH[m.group(3)]}.{m.group(4)}"] = _t(_array(value))
+    return sd
+
+
+def i3d_state_dict_to_pytorchvideo(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's I3D names -> pytorchvideo's ``create_resnet`` names, the
+    inverse of ``i3d_state_dict_from_pytorchvideo`` (the JAX package's
+    ``export_pytorchvideo_resnet_state_dict``): stages at blocks 1, 3, 4
+    and 5. A key with no pytorchvideo name (a non-local block's) raises
+    KeyError."""
+    ours_to_pv = {v: k for k, v in _PV_BRANCH.items()}
+    sd: Dict[str, torch.Tensor] = {}
+    for key, value in state_dict.items():
+        module, _, tensor = key.rpartition(".")
+        if module in ("conv1", "bn1"):
+            sd[f"blocks.0.{'conv' if module == 'conv1' else 'norm'}.{tensor}"] = _t(_array(value))
+            continue
+        layer, block, branch = (module.split(".", 2) + ["", ""])[:3]
+        if not layer.startswith("layer") or branch not in ours_to_pv:
+            raise KeyError(f"{key}: no pytorchvideo name (not part of i3d_8x8_r50)")
+        index = PYTORCHVIDEO_STAGE_BLOCKS[int(layer[5:]) - 1]
+        sd[f"blocks.{index}.res_blocks.{block}.{ours_to_pv[branch]}.{tensor}"] = _t(_array(value))
     return sd
 
 
@@ -82,7 +155,7 @@ def act_scale_key(module_name: str) -> str:
     """Torch conv module name -> the JAX package's int8 act-scale key:
     ``conv1`` -> ``stem``, ``layer{L}.{i}.conv{1,2,3}`` ->
     ``stage{L}_block{i}/branch_{a,b,c}``, ``layer{L}.{i}.downsample.0`` ->
-    ``stage{L}_block{i}/proj`` (the names ``i3res50_state_dict_from_flax``
+    ``stage{L}_block{i}/proj`` (the names ``i3d_state_dict_from_flax``
     maps between)."""
     if module_name == "conv1":
         return "stem"

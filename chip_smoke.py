@@ -147,7 +147,30 @@ Phases, each of which raises on failure (exit code != 0):
    MGFN trained through ``run`` with ``data.stream=both`` and 4096
    channels, served by ``infer --checkpoint`` with no ``--stream``: the
    stream resolves to ``both``, scores in [0, 1] and equal to the CPU's
-   within 1e-5.
+   within 1e-5;
+12. the other backbones at full width on the 24-clip video (B = 240),
+   seeded weights with random BatchNorm: (a) ``i3d_8x8_r50`` in bf16
+   (``FeatureExtractor(model_name="i3d_8x8_r50")``; launches K1 and, by the
+   JAX rule, neither K2 nor K3), features against its plain float32
+   forward (cosine >= 0.999); (b) the same in int8 (K4 >= 27, K5 >= 26, the
+   stem at stride (1,2,2) and never at 2), features against the plain int8
+   forward (cosine >= 0.99999, unequal values printed) and every K4 and K5
+   call of one forward at B = 40 bit-equal; (c) its flow stream in int8 on
+   device Farneback of the same frames (K5's stem over 2 channels at
+   stride (1,2,2)), features against the plain int8 forward; (d) K5's stem
+   at stride (1,2,2) over 3 and 2 channels at B = 40 and 240, bit-equal,
+   timed beside its bound, its plain version and a bf16 cuDNN conv,
+   refusing stride (1,1,1); (e) the non-local i3res50 in bf16 (K1, K2 and
+   K3 launched; its non-local blocks in stages 2-3 as torch ops), cosine
+   >= 0.999; (f) the S2D stem: the float32 features with it equal to those
+   with the plain stem at atol 1e-5 (the JAX test's gate), and its bf16
+   path at B = 240 with neither K2 nor K3; (g) ``extract_features --model i3d_8x8_r50
+   --weights`` a ``.pyth`` written by ``i3d_state_dict_to_pytorchvideo``
+   (stand-in decode), features equal to the model's extractor at 1e-5, and
+   (h) ``infer --i3d-model i3d_8x8_r50`` with phase 8's MGFN checkpoint, scores
+   in [0, 1] and equal to ``score_features`` of those features at 1e-5;
+   an unknown backbone name exits. Each path prints its median, clips/s,
+   peak memory and one profiled pass's idle share.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -595,9 +618,11 @@ def int8_forward_with(torch, model, crops, matmul, conv):
 
 def k5_class(cin, kernel, stride) -> str:
     """K5's geometry classes on the int8 path: the stem (over 3 channels,
-    or the flow stream's 2), k(1,3,3) s1 / s2, k(3,1,1)."""
+    or the flow stream's 2; at stride 2, or (1,2,2) for i3d_8x8_r50),
+    k(1,3,3) s1 / s2, k(3,1,1)."""
     if tuple(kernel) == (5, 7, 7):
-        return "stem k(5,7,7) s2" + (" over 2 channels" if cin == 2 else "")
+        return (f"stem k(5,7,7) s{'2' if stride[0] == 2 else '(1,2,2)'}"
+                + (" over 2 channels" if cin == 2 else ""))
     return f"k({kernel[0]},{kernel[1]},{kernel[2]}) s{stride[1]}"
 
 
@@ -747,18 +772,24 @@ def drive_path(torch, name, extractor, video, scorer):
     center crops no K1, and in bf16 exactly one K2 and three K3 launches;
     for the flow stream neither K1, K2 nor K3, and K4 and K5 only under
     int8; under int8, K5's stem over the stream's channels, 3 or 2, and
-    never over the other's), features of shape (clips, n_crops, 2048),
-    scores finite and in [0, 1]. The counts returned hold the stem's by
-    input channels under ``"int8_conv stem by Cin"``."""
+    never over the other's, at the model's temporal stem stride and never
+    the other; a bf16 ten-crop RGB model whose geometry the JAX rule keeps
+    off K2 and K3 (``I3DResNet.kernel_paths``: i3d_8x8_r50, the S2D stem)
+    launches neither), features of shape (clips, n_crops, 2048), scores
+    finite and in [0, 1]. The counts returned hold the stem's by input
+    channels under ``"int8_conv stem by Cin"`` and by temporal stride under
+    ``"int8_conv stem by stride"``."""
     import numpy as np
 
     from anomaly_detection_on_video_tpu_torch.infer import score_features
     from anomaly_detection_on_video_tpu_torch.ops import kernels
 
     score_features(extractor.extract_frames(video), scorer)  # warm-up
-    if extractor.quantize and len(extractor.model.act_scales) != 53:
+    # the S2D stem is never quantized (the JAX S2DConvBN has no scale)
+    n_scales = 52 if extractor.model.s2d_stem else 53
+    if extractor.quantize and len(extractor.model.act_scales) != n_scales:
         raise AssertionError(f"{name}: calibration gave {len(extractor.model.act_scales)} "
-                             f"scales, expected 53")
+                             f"scales, expected {n_scales}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
@@ -770,6 +801,8 @@ def drive_path(torch, name, extractor, video, scorer):
     counts = kernels.launch_counts()
     # K5's stem launches by input channels: 3 on the RGB int8 path, 2 on the flow one
     counts["int8_conv stem by Cin"] = stems = kernels.stem_launch_counts()
+    # and by temporal stride: 2 for i3res50's stem, 1 for i3d_8x8_r50's
+    counts["int8_conv stem by stride"] = strides = kernels.stem_stride_launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     for _ in range(4):  # four more timed passes for the median and range
         start = time.perf_counter()
@@ -784,7 +817,9 @@ def drive_path(torch, name, extractor, video, scorer):
     if extractor.quantize:
         # K5's stem over the stream's channels, never over the other's
         own, other = (2, 3) if extractor.stream == "flow" else (3, 2)
-        int8_wrong = int8_wrong or stems[own] < 1 or stems[other] > 0
+        stride = extractor.model.conv1.stride[0]
+        int8_wrong = (int8_wrong or stems[own] < 1 or stems[other] > 0
+                      or strides[stride] < 1 or strides[3 - stride] > 0)
     if extractor.stream == "flow":
         # two channels: no K1 (the JAX package's Pallas crop takes three),
         # no K2 or K3 (not their clip shape); int8 runs K4 and K5
@@ -795,7 +830,13 @@ def drive_path(torch, name, extractor, video, scorer):
         skipped = (k1_wrong or int8_wrong or counts["stem_conv_pool"]
                    or counts["bottleneck_block"])
     elif extractor.n_crops == 10:
-        skipped = k1_wrong or counts["stem_conv_pool"] < 1 or counts["bottleneck_block"] < 3
+        # K2 / K3 where the JAX rule takes them for this model, else neither
+        fused_stem, fused_stage1 = extractor.model.kernel_paths(
+            (extractor.frames_per_clip, extractor.cropsize, extractor.cropsize, 3))
+        skipped = (k1_wrong
+                   or (counts["stem_conv_pool"] < 1 if fused_stem else counts["stem_conv_pool"])
+                   or (counts["bottleneck_block"] < 3 if fused_stage1
+                       else counts["bottleneck_block"]))
     else:  # one group of center crops: one stem launch and three blocks
         skipped = k1_wrong or counts["stem_conv_pool"] != 1 or counts["bottleneck_block"] != 3
     if skipped:
@@ -814,16 +855,20 @@ def drive_path(torch, name, extractor, video, scorer):
     return features, scores, counts
 
 
-def check_int8_features(torch, name, model, crops16, features, ref):
+def check_int8_features(torch, name, model, crops16, features, ref, chunk=None):
     """int8 path features against the same int8 forward of ``model`` on
     K1's output ``crops16`` through the plain versions (gate: cosine >=
     0.99999 per row; the count of unequal elements is printed) and against
-    the plain float32 forward ``ref`` (cosine >= 0.99)."""
+    the plain float32 forward ``ref`` (cosine >= 0.99). ``chunk`` crops at a
+    time, where the plain version's float64 products of a whole batch would
+    not fit beside the rest."""
     from anomaly_detection_on_video_tpu_torch.ops import kernels
 
     got = torch.from_numpy(features).to(ref.device)
-    qref = int8_forward_with(torch, model, crops16, kernels.int8_matmul_plain,
-                             kernels.int8_conv_plain).reshape(got.shape)
+    step = chunk or crops16.shape[0]
+    qref = torch.cat([int8_forward_with(torch, model, crops16[i:i + step],
+                                        kernels.int8_matmul_plain, kernels.int8_conv_plain)
+                      for i in range(0, crops16.shape[0], step)]).reshape(got.shape)
     unequal = int((got != qref).sum().item())
     qcos = check_cosine(f"{name} vs plain int8 forward", got, qref, 0.99999)
     fcos = check_cosine(f"{name} vs plain float32 forward", got, ref, 0.99)
@@ -1713,52 +1758,69 @@ def check_flows(torch, frames):
     return out
 
 
-def check_flow_stem(torch, launches: int):
-    """Phase 11 (c): K5's int8 stem over two channels (the flow stream's)
-    at B = 40 and B = 240: bit-equal to its plain version (at B = 240 in
-    slices of 40), timed beside its bound, its plain version and a bf16
-    cuDNN conv of the same geometry (a yardstick the port never calls);
-    a stem the kernel does not take raises. Returns the JSON line's K5
-    ``stem_cin2`` entry: ``launches``, the stem's launches over 2 channels
-    counted in one int8 flow forward at B = 240 (``check_flow_extractor``),
-    and the largest difference of these comparisons."""
+def check_k5_stem(torch, gen, cin: int, stride: int, plain_batches=(40, 240)) -> dict:
+    """K5's int8 stem k(5,7,7) s(``stride``,2,2) p(2,3,3) over ``cin``
+    channels on seeded input at B = 40 and 240: bit-equal to its plain
+    version (in slices of 40 clips), timed beside its bound, its plain
+    version (float64, at ``plain_batches``) and a bf16 cuDNN ``F.conv3d`` of
+    the same geometry (a yardstick the port never calls). Returns the
+    largest difference and, per batch, the times and bounds."""
     import torch.nn.functional as F
 
     from anomaly_detection_on_video_tpu_torch.ops.kernels import (
         int8_conv, int8_conv_plain, pack_int8_conv_weight)
     from anomaly_detection_on_video_tpu_torch.ops.kernels.int8_conv import unpack_int8_conv_weight
 
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    w = pack_int8_conv_weight(torch.randint(-20, 21, (64, 2, 5, 7, 7), generator=gen,
+    w = pack_int8_conv_weight(torch.randint(-20, 21, (64, cin, 5, 7, 7), generator=gen,
                                             dtype=torch.int8, device="cuda"))
     scale = torch.rand(64, generator=gen, device="cuda") * 1e-4 + 1e-5
-    geo = ((5, 7, 7), (2, 2, 2), (2, 3, 3))
-    entry = {"cin": 2, "launches_per_flow_forward": launches, "max_abs_err": 0.0}
+    geo = ((5, 7, 7), (stride, 2, 2), (2, 3, 3))
+    label = f"K5 int8 stem s({stride},2,2) over {cin} channels"
+    record = {"max_abs_err": 0.0}
     for b in (40, 240):
-        x = torch.randint(-127, 128, (b, 16, 224, 224, 2), generator=gen, dtype=torch.int8,
+        x = torch.randint(-127, 128, (b, 16, 224, 224, cin), generator=gen, dtype=torch.int8,
                           device="cuda")
         out = int8_conv(x, w, scale, *geo, torch.bfloat16)
         for i in range(0, b, 40):
-            err = check_equal(f"K5 stem Cin = 2 at B = {b}, clips {i}-{i + 39}", out[i:i + 40],
+            err = check_equal(f"{label} at B = {b}, clips {i}-{i + 39}", out[i:i + 40],
                               int8_conv_plain(x[i:i + 40], w, scale, *geo, torch.bfloat16))
-            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            record["max_abs_err"] = max(record["max_abs_err"], err)
         ms = cuda_ms(lambda: int8_conv(x, w, scale, *geo, torch.bfloat16), 10)
-        plain_ms = cuda_ms(lambda: int8_conv_plain(x, w, scale, *geo, torch.bfloat16), 1)
+        plain_ms = (cuda_ms(lambda: int8_conv_plain(x, w, scale, *geo, torch.bfloat16), 1)
+                    if b in plain_batches else None)
         xb = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
-        wb = unpack_int8_conv_weight(w, 2, geo[0]).to(torch.bfloat16)
-        conv_ms = cuda_ms(lambda: F.conv3d(xb, wb, None, 2, (2, 3, 3)), 5)
+        wb = unpack_int8_conv_weight(w, cin, geo[0]).to(torch.bfloat16)
+        conv_ms = cuda_ms(lambda: F.conv3d(xb, wb, None, geo[1], geo[2]), 5)
         del xb
-        taps = taps_inside(16, 8, 5, 2, 2) * taps_inside(224, 112, 7, 2, 3) ** 2
+        taps = (taps_inside(16, out.shape[1], 5, stride, 2)
+                * taps_inside(224, 112, 7, 2, 3) ** 2)
         bound_ms, bound_by = bound(x.numel() + w.numel() + 4 * 64
                                    + out.numel() * out.element_size(),
-                                   2.0 * b * 64 * 2 * taps, "int8")
-        print(f"K5 int8 stem over 2 channels at B = {b}: bit-equal; {ms:.3f} ms kernel, bound "
-              f"{bound_ms:.3f} ms ({bound_by}), {plain_ms:.3f} ms plain (float64), bf16 F.conv3d "
-              f"of the same geometry (yardstick) {conv_ms:.3f} ms", flush=True)
-        entry.update({f"ms_b{b}": ms, f"bound_ms_b{b}": bound_ms, f"plain_ms_b{b}": plain_ms,
-                      "bound_by": bound_by})
+                                   2.0 * b * 64 * cin * taps, "int8")
+        plain = "not run" if plain_ms is None else f"{plain_ms:.3f} ms"
+        print(f"{label} at B = {b}: output {tuple(out.shape)}, bit-equal; {ms:.3f} ms kernel, "
+              f"bound {bound_ms:.3f} ms ({bound_by}), plain (float64) {plain}, bf16 F.conv3d of "
+              f"the same geometry (yardstick) {conv_ms:.3f} ms", flush=True)
+        record.update({f"ms_b{b}": ms, f"bound_ms_b{b}": bound_ms, f"plain_ms_b{b}": plain_ms,
+                       f"conv_bf16_ms_b{b}": conv_ms, "bound_by": bound_by})
         del x, out
         torch.cuda.empty_cache()
+    return record
+
+
+def check_flow_stem(torch, launches: int):
+    """Phase 11 (c): K5's int8 stem over two channels (the flow stream's)
+    at B = 40 and B = 240 (``check_k5_stem``); a stem the kernel does not
+    take raises. Returns the JSON line's K5 ``stem_cin2`` entry:
+    ``launches``, the stem's launches over 2 channels counted in one int8
+    flow forward at B = 240 (``check_flow_extractor``), and the largest
+    difference of these comparisons."""
+    from anomaly_detection_on_video_tpu_torch.ops.kernels import int8_conv, pack_int8_conv_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    entry = {"cin": 2, "launches_per_flow_forward": launches, **check_k5_stem(torch, gen, 2, 2)}
+    geo = ((5, 7, 7), (2, 2, 2), (2, 3, 3))
+    scale = torch.ones(64, device="cuda")
     for label, shape in (("one channel", (1, 16, 224, 224, 1)),
                          ("a width not a multiple of 4", (1, 16, 224, 222, 2))):
         x = torch.zeros(shape, dtype=torch.int8, device="cuda")
@@ -2075,6 +2137,241 @@ def check_flow_stream(torch, root, model, scorer):
     return stem_entry
 
 
+# ------------------------------------------------- phase 12: other backbones
+
+def check_stem_s1(torch, rgb_launches: int, flow_launches: int):
+    """Phase 12 (d): K5's int8 stem at stride (1,2,2), i3d_8x8_r50's, over 3
+    channels and the flow stream's 2 (``check_k5_stem``; its float64 plain
+    version timed at B = 40 only: at B = 240 its float64 output alone would
+    hold 24.7 GB); a stride it does not take raises. Returns the JSON
+    line's K5 ``stem_s1`` entry: the stride-1 stem's launches in one
+    counted i3d_8x8_r50 int8 forward at B = 240 of each stream, and a
+    record per channel count."""
+    from anomaly_detection_on_video_tpu_torch.ops.kernels import int8_conv, pack_int8_conv_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    entry = {"launches_per_rgb_forward": rgb_launches, "launches_per_flow_forward": flow_launches}
+    for cin in (3, 2):
+        entry[f"cin{cin}"] = check_k5_stem(torch, gen, cin, 1, plain_batches=(40,))
+    x = torch.zeros((1, 16, 224, 224, 3), dtype=torch.int8, device="cuda")
+    w = pack_int8_conv_weight(torch.zeros((64, 3, 5, 7, 7), dtype=torch.int8, device="cuda"))
+    try:
+        int8_conv(x, w, torch.ones(64, device="cuda"), (5, 7, 7), (1, 1, 1), (2, 3, 3),
+                  torch.bfloat16)
+    except ValueError as exc:
+        print(f"K5 refuses a stem at stride (1,1,1): {str(exc)[:100]}", flush=True)
+    else:
+        raise AssertionError("K5 took a stem at stride (1,1,1)")
+    return entry
+
+
+def plain_model_features(torch, model, crops32, chunk: int = 40):
+    """``model``'s plain chain (no K2 or K3: ``forward_unfused`` + ``head``)
+    in float32 on ``crops32``, ``chunk`` crops at a time: the reference of a
+    backbone whose activations at B = 240 in float32 would crowd the card."""
+    with torch.no_grad():
+        return torch.cat([model.head(model.forward_unfused(crops32[i:i + chunk]))
+                          for i in range(0, crops32.shape[0], chunk)])
+
+
+def run_backbone(torch, name, extractor, frames, scorer, ref):
+    """One backbone's path at B = 240 through ``drive_path`` (its gates;
+    five timed passes, peak memory), its features against ``ref`` (cosine
+    >= 0.999 for a float path; an int8 path's are held by the caller), and
+    one profiled pass (busy, idle share). Returns (features, counts)."""
+    from anomaly_detection_on_video_tpu_torch.infer import score_features
+
+    features, _, counts = drive_path(torch, name, extractor, frames, scorer)
+    if not extractor.quantize:
+        cos = check_cosine(f"{name} features vs plain float32", torch.from_numpy(features).cuda(),
+                           ref, 0.999)
+        print(f"{name} features vs plain float32 forward: min row cosine {cos:.6f}", flush=True)
+    run = device_breakdown(torch, lambda: score_features(extractor.extract_frames(frames), scorer))
+    print(f"{name}, one profiled pass: busy {run['device_busy_ms']:.2f} ms of "
+          f"{run['wall_ms']:.2f} ms wall, idle share {run['idle_share']:.1%}; {json.dumps(run)}",
+          flush=True)
+    return features, counts
+
+
+def check_s2d_stem(torch, model, crops32):
+    """Phase 12 (f): the S2D stem against the plain stem in float32 (TF32
+    off) on 40 standardized crops. Gate, as the JAX package's
+    ``test_s2d_stem_bit_exact`` holds its S2D stem: the model's features
+    with the S2D stem equal to those with the plain stem at atol 1e-5. The
+    stem outputs' largest difference (float32 sums in another order) is
+    printed beside their largest value."""
+    import anomaly_detection_on_video_tpu_torch.models.i3d as ti3d
+
+    x = crops32.permute(0, 4, 1, 2, 3)
+    with torch.no_grad():
+        s2d = ti3d._affine(ti3d.s2d_conv3d(x, model.conv1.weight, model.conv1.stride,
+                                           model.conv1.padding), model.bn1)
+        plain = ti3d.conv_bn(x, model.conv1, model.bn1)
+    stem_err = (s2d - plain).abs().max().item()
+    top = plain.abs().max().item()
+    del s2d, plain
+    got = plain_model_features(torch, model, crops32)
+    model.s2d_stem = False
+    try:
+        ref = plain_model_features(torch, model, crops32)
+    finally:
+        model.s2d_stem = True
+    err = check_close("S2D-stem features vs plain-stem features (float32)", got, ref, 1e-5, 0.0)
+    print(f"S2D stem at B = {x.shape[0]}, float32: stem outputs max |err| {stem_err:.2e} against "
+          f"the plain stem (max |value| {top:.2f}, ratio {stem_err / top:.1e}); the model's "
+          f"features max |err| {err:.2e} (gate 1e-5)", flush=True)
+
+
+def check_backbone_clis(torch, root: str, model, checkpoint: str) -> None:
+    """Phase 12 (g, h): ``extract_features --model i3d_8x8_r50 --weights
+    I3D_8x8_R50.pyth`` over the 24-clip stand-in video, the ``.pyth`` written
+    from ``model`` by ``i3d_state_dict_to_pytorchvideo`` under
+    ``model_state``, on the card by default; its features equal at 1e-5 to
+    the extractor built from ``model``'s state dict. Then ``infer
+    --i3d-model i3d_8x8_r50 --i3d-weights`` the same file with phase 8's MGFN
+    checkpoint: scores finite, in [0, 1] and equal at 1e-5 to
+    ``score_features`` of those features; an unknown name exits."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import extract_features, infer
+    from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
+    from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_to_pytorchvideo
+
+    pyth = os.path.join(root, "I3D_8x8_R50.pyth")
+    torch.save({"model_state": i3d_state_dict_to_pytorchvideo(model.state_dict())}, pyth)
+    name = "Abuse030_x264.mp4"
+    stem = os.path.splitext(name)[0]
+    videos = os.path.join(root, "backbone_videos")
+    os.makedirs(videos)
+    open(os.path.join(videos, name), "wb").close()  # decoded by the stand-in
+    out = os.path.join(root, "backbone_features")
+    start = time.perf_counter()
+    printed = run_cli(extract_features, ["--videos", videos, "--outdir", out, "--model",
+                                         "i3d_8x8_r50", "--weights", pyth, "--no-segments",
+                                         "--decode-workers", "1"])
+    seconds = time.perf_counter() - start
+    features = np.load(os.path.join(out, f"{stem}_i3d.npy"))
+    direct = FeatureExtractor(model_name="i3d_8x8_r50", state_dict=model.state_dict(),
+                              dtype=torch.bfloat16, batch=240, device="cuda")
+    ref = direct.extract_video(os.path.join(videos, name))
+    err = float(np.abs(features - ref).max())
+    if "extracted 1 new videos" not in printed or features.shape != (24, 10, FEATURE_DIM) or err > 1e-5:
+        raise AssertionError(f"extract_features --model i3d_8x8_r50: {features.shape}, max |err| "
+                             f"{err:.2e} against the model's extractor; {printed}")
+    print(f"extract_features --model i3d_8x8_r50 --weights {os.path.basename(pyth)}: 24 clips in "
+          f"{seconds:.2f} s (the CLI: model build, stand-in decode, ten crops at B = 240); "
+          f"features vs the extractor of the state dict written: max |err| {err:.2e}", flush=True)
+    scores_dir = os.path.join(root, "backbone_scores")
+    argv = ["--videos", videos, "--outdir", scores_dir, "--checkpoint", checkpoint,
+            "--i3d-model", "i3d_8x8_r50", "--i3d-weights", pyth, "--features-dir",
+            os.path.join(root, "backbone_cache")]
+    start = time.perf_counter()
+    infer.main(argv)
+    wall = time.perf_counter() - start
+    with open(os.path.join(scores_dir, f"{stem}_scores.json")) as f:
+        clip = np.asarray(json.load(f)["clip_scores"])
+    scorer, _ = infer.build_scorer(infer.build_parser().parse_args(argv))
+    err = float(np.abs(clip - infer.score_features(ref, scorer)).max())
+    if clip.shape != (24,) or not (np.isfinite(clip).all() and (clip >= 0).all()
+                                   and (clip <= 1).all()) or err > 1e-5:
+        raise AssertionError(f"infer --i3d-model i3d_8x8_r50: scores {clip}, max |err| {err:.2e}")
+    print(f"infer --i3d-model i3d_8x8_r50 with the MGFN checkpoint: 24 clips scored in {wall:.2f} "
+          f"s (infer.main), scores in [{clip.min():.6f}, {clip.max():.6f}], against "
+          f"score_features of the model's features: max |err| {err:.2e}", flush=True)
+    for module, flag in ((extract_features, "--model"), (infer, "--i3d-model")):
+        try:
+            with contextlib.redirect_stderr(io.StringIO()):
+                module.main(["--videos", videos, "--outdir", out, flag, "nope"])
+        except SystemExit as exc:
+            print(f"{module.__name__.rsplit('.', 1)[1]} {flag} nope: exits {exc.code}", flush=True)
+        else:
+            raise AssertionError(f"{module.__name__} took {flag} nope")
+
+
+def check_other_backbones(torch, root, scorer, checkpoint, frames, resize_clips):
+    """Phase 12: i3d_8x8_r50 (bf16 and int8, and its flow stream in int8),
+    the non-local i3res50 and the S2D stem at full width on the 24-clip
+    video at B = 240, K5's stem at stride (1,2,2), and both CLIs with
+    i3d_8x8_r50 ``.pyth`` weights. Returns K5's ``stem_s1`` entry of the
+    JSON line."""
+    from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
+    from anomaly_detection_on_video_tpu_torch.models.i3d import i3res50
+    from anomaly_detection_on_video_tpu_torch.ops.kernels.crop_norm import ten_crop_standardize_plain
+
+    start = time.perf_counter()
+    resized = resize_clips(frames, 24)
+    crops32 = ten_crop_standardize_plain(resized, 224, torch.float32)
+    # (a) i3d_8x8_r50 in bf16: K1, no K2 or K3 (the JAX rule), cuDNN
+    name = "i3d_8x8_r50 bf16 path at B = 240"
+    ex = FeatureExtractor(model_name="i3d_8x8_r50", dtype=torch.bfloat16, batch=240,
+                          device="cuda", seed=3)
+    randomize_batchnorm_(torch, ex.model, seed=4)
+    ref = plain_model_features(torch, ex.model, crops32).reshape(24, 10, FEATURE_DIM)
+    torch.cuda.empty_cache()
+    run_backbone(torch, name, ex, frames, scorer, ref)
+    model = ex.model
+    del ex
+    torch.cuda.empty_cache()
+    # (b) the same in int8: K1, K4, K5 with the stem at stride (1,2,2)
+    name = "i3d_8x8_r50 int8 path at B = 240"
+    qex = FeatureExtractor(model_name="i3d_8x8_r50", state_dict=model.state_dict(),
+                           dtype=torch.bfloat16, batch=240, device="cuda", quantize=True)
+    features, counts = run_backbone(torch, name, qex, frames, scorer, ref)
+    torch.cuda.empty_cache()
+    crops16 = ten_crop_standardize_plain(resized, 224, torch.bfloat16)  # K1's output
+    check_int8_features(torch, f"{name} features", qex.model, crops16, features, ref, chunk=40)
+    print("every K4 and K5 call of one i3d_8x8_r50 int8 forward at B = 40:", flush=True)
+    calls = check_int8_path_calls(torch, qex.model, crops16[:40])
+    print("i3d_8x8_r50 int8 B=40 summary: " + ", ".join(
+        f"{e['name']} {e['ms']:.3f} ms ({e['device_ms']:.3f} device; bound {e['bound_ms']:.3f}, "
+        f"plain {e['plain_ms']:.3f})" for e in calls), flush=True)
+    del qex, crops16, features
+    torch.cuda.empty_cache()
+    # (c) the flow stream of i3d_8x8_r50 in int8: K5's stem over 2 channels
+    # at stride (1,2,2) on a main path (device Farneback of the same frames)
+    name = "i3d_8x8_r50 flow int8 path at B = 240"
+    fex = FeatureExtractor(model_name="i3d_8x8_r50", state_dict=model.state_dict(),
+                           dtype=torch.bfloat16, batch=240, device="cuda", quantize=True,
+                           stream="flow")
+    flow_u8 = fex._host_transform()(frames).cpu().numpy()
+    crops = flow_crops(torch, fex, flow_u8, torch.float32)
+    flow_ref = plain_model_features(torch, fex.model, crops).reshape(24, 10, FEATURE_DIM)
+    features, flow_counts = run_backbone(torch, name, fex, flow_u8, scorer, flow_ref)
+    check_int8_features(torch, f"{name} features", fex.model, crops.to(torch.bfloat16), features,
+                        flow_ref, chunk=40)
+    del fex, crops, flow_ref, features, flow_u8
+    torch.cuda.empty_cache()
+    # (d) K5's stem at stride (1,2,2) alone, over both channel counts
+    stem_s1 = check_stem_s1(torch, counts["int8_conv stem by stride"][1],
+                            flow_counts["int8_conv stem by stride"][1])
+    # (e) the non-local i3res50 in bf16: K1, K2, K3, then stages 2-4 with
+    # their non-local blocks
+    name = "non-local i3res50 bf16 path at B = 240"
+    nl = FeatureExtractor(model=i3res50(torch.bfloat16, use_nl=True), dtype=torch.bfloat16,
+                          batch=240, device="cuda", seed=5)
+    randomize_batchnorm_(torch, nl.model, seed=6)
+    with torch.no_grad():
+        ref = plain_features(torch, nl.model, crops32).reshape(24, 10, FEATURE_DIM)
+    run_backbone(torch, name, nl, frames, scorer, ref)
+    del nl
+    torch.cuda.empty_cache()
+    # (f) the S2D stem: equal to the plain stem in float32; its bf16 path
+    # takes neither K2 nor K3
+    name = "S2D-stem i3res50 bf16 path at B = 240"
+    s2d = FeatureExtractor(model=i3res50(torch.bfloat16, s2d_stem=True), state_dict=model.state_dict(),
+                           dtype=torch.bfloat16, batch=240, device="cuda")
+    check_s2d_stem(torch, s2d.model, crops32[:40])
+    ref = plain_model_features(torch, s2d.model, crops32).reshape(24, 10, FEATURE_DIM)
+    run_backbone(torch, name, s2d, frames, scorer, ref)
+    del s2d, crops32, ref, resized
+    torch.cuda.empty_cache()
+    # (g, h) both CLIs with i3d_8x8_r50 from a .pyth
+    with stand_in_decode():
+        check_backbone_clis(torch, root, model, checkpoint)
+    print(f"other backbones phase: {time.perf_counter() - start:.1f} s", flush=True)
+    return stem_s1
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2267,6 +2564,12 @@ def main() -> int:
         # 11. the optical-flow stream: device flows, K5's stem over two
         # channels, the flow extractor, two-stream extraction and serving
         stem_cin2 = check_flow_stream(torch, work, model, scorer)
+        torch.cuda.empty_cache()
+
+        # 12. the other backbones: i3d_8x8_r50 (K5's stem at stride
+        # (1,2,2)), the non-local i3res50, the S2D stem, and the CLIs
+        stem_s1 = check_other_backbones(torch, work, scorer, checkpoints["mgfn"], bulk_frames,
+                                        resize_clips)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2283,8 +2586,10 @@ def main() -> int:
          "launches": e["launches"], "max_abs_err": e["max_abs_err"], "ms": e["ms"],
          "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
          "library_ms": e["library_ms"],
-         # K5's stem over the flow stream's two channels (phase 11)
-         **({"stem_cin2": stem_cin2} if e["name"] == "int8_conv" else {})} for e in results]}
+         # K5's stem over the flow stream's two channels (phase 11), and at
+         # stride (1,2,2) for i3d_8x8_r50 (phase 12)
+         **({"stem_cin2": stem_cin2, "stem_s1": stem_s1} if e["name"] == "int8_conv" else {})}
+        for e in results]}
     print(json.dumps(line), flush=True)
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

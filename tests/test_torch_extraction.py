@@ -48,7 +48,7 @@ from anomaly_detection_on_video_tpu_torch.models.i3d import I3DResNet
 from anomaly_detection_on_video_tpu_torch.ops import gtransforms as tgt
 from anomaly_detection_on_video_tpu_torch.utils import model_size as tmodel_size
 from anomaly_detection_on_video_tpu_torch.utils import npyio as tnpyio
-from anomaly_detection_on_video_tpu_torch.utils.convert import i3res50_state_dict_from_flax
+from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_from_flax
 from anomaly_detection_on_video_tpu_torch.utils.profiling import StageTimer
 from test_torch_i3d import NARROW, _randomize_bn
 from test_torch_infer import _args, _flax_variables, _save_weights
@@ -76,7 +76,7 @@ def narrow():
     x = jnp.zeros((1, 16, CROP, CROP, 3), jnp.float32)
     variables = _randomize_bn(jax.jit(model.init)(jax.random.PRNGKey(0), x),
                               np.random.RandomState(1))
-    return model, variables, i3res50_state_dict_from_flax(variables)
+    return model, variables, i3d_state_dict_from_flax(variables)
 
 
 def _extractor(narrow, **kw):
@@ -523,7 +523,8 @@ def test_extract_features_center_crops_and_flag_checks(narrow, rng, tmp_path, mo
                                                        capsys):
     """--crops center pins crops.json, writes (n, 1, C) features and skips
     the segments with the JAX CLI's message; --batch 0 stops at the parser
-    with the JAX wording; the parser refuses the JAX CLI's unported flags."""
+    with the JAX wording; the parser refuses the JAX CLI's unported flags
+    and an unknown ``--model``."""
     _three_videos(tmp_path / "vids", rng)
     monkeypatch.setattr(t_extract_features, "FeatureExtractor", _narrow_factory(narrow, []))
     t_extract_features.main(["--videos", str(tmp_path / "vids"), "--outdir", str(tmp_path / "o"),
@@ -545,12 +546,16 @@ def test_extract_features_center_crops_and_flag_checks(narrow, rng, tmp_path, mo
         assert exc.value.code == 2
         errors.append(capsys.readouterr().err.strip().splitlines()[-1])
     assert errors[0] == errors[1]
-    for unported in (["--data-parallel"], ["--model", "i3d_8x8_r50"], ["--multihost"],
-                     ["--hf-dataset", "jinmang2/ucf_crime"]):
+    for unported in (["--data-parallel"], ["--multihost"], ["--hf-dataset", "jinmang2/ucf_crime"]):
         with pytest.raises(SystemExit) as exc:
             t_extract_features.main(["--videos", "v", "--outdir", "o"] + unported)
         assert exc.value.code == 2
         assert "unrecognized arguments" in capsys.readouterr().err
+    # --model is ported (i3d_8x8_r50); an unknown backbone stops at the parser
+    with pytest.raises(SystemExit) as exc:
+        t_extract_features.main(["--videos", "v", "--outdir", "o", "--model", "nope"])
+    assert exc.value.code == 2
+    assert "invalid choice: 'nope'" in capsys.readouterr().err
 
 
 def test_infer_center_crops_caches_and_scores_match_jax(narrow, rng, tmp_path, monkeypatch,

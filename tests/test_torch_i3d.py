@@ -26,7 +26,7 @@ from anomaly_detection_on_video_tpu_torch.ops.kernels import (
 )
 from anomaly_detection_on_video_tpu_torch.ops.kernels._operands import cached_operands
 from anomaly_detection_on_video_tpu_torch.ops.kernels.stem import fold_bn
-from anomaly_detection_on_video_tpu_torch.utils.convert import i3res50_state_dict_from_flax
+from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_from_flax
 
 NARROW = ((8, 1, 1, (3,), (1,)), (16, 1, 2, (1,), (1,)))
 
@@ -54,7 +54,7 @@ def _block_state_dict(variables):
     stem_p = {"conv": {"kernel": np.zeros((5, 7, 7, 3, 64), np.float32)},
               "bn": {"scale": np.ones(64, np.float32), "bias": np.zeros(64, np.float32)}}
     stem_s = {"bn": {"mean": np.zeros(64, np.float32), "var": np.ones(64, np.float32)}}
-    sd = i3res50_state_dict_from_flax({
+    sd = i3d_state_dict_from_flax({
         "params": {"stem": stem_p, "stage1_block0": variables["params"]},
         "batch_stats": {"stem": stem_s, "stage1_block0": variables["batch_stats"]},
     })
@@ -229,7 +229,7 @@ def test_narrow_i3d_matches_jax(rng):
     ref = np.asarray(jax.jit(model.apply)(variables, jnp.asarray(x)))
 
     port = ti3d.I3DResNet(stages=NARROW)
-    port.load_state_dict(i3res50_state_dict_from_flax(variables))
+    port.load_state_dict(i3d_state_dict_from_flax(variables))
     with torch.no_grad():
         got = port.eval()(torch.from_numpy(x)).numpy()
     assert got.shape == ref.shape == (1, 64) and got.dtype == np.float32
@@ -240,7 +240,7 @@ def test_i3res50_converter_equals_export(rng):
     """Port converter == JAX exporter, key by key, bit by bit."""
     _, variables, _ = _narrow_variables(rng)
     ref = export_i3res50_state_dict(variables)
-    got = i3res50_state_dict_from_flax(variables)
+    got = i3d_state_dict_from_flax(variables)
     assert sorted(got) == sorted(ref)
     for key, value in ref.items():
         assert got[key].dtype == torch.from_numpy(np.asarray(value)).dtype, key

@@ -38,7 +38,7 @@ from anomaly_detection_on_video_tpu_torch.ops.kernels.int8_conv import conv_outp
 from anomaly_detection_on_video_tpu_torch.ops.quant import pack_int8_weight_nk, quantize_weight
 from anomaly_detection_on_video_tpu_torch.utils.convert import (
     act_scale_key,
-    i3res50_state_dict_from_flax,
+    i3d_state_dict_from_flax,
 )
 from test_torch_i3d import NARROW, _randomize_bn, stem_slab, stem_tap_rows
 from test_torch_mgfn import NARROW as MGFN_NARROW
@@ -259,7 +259,7 @@ def narrow_int8():
 
 def _port_narrow(variables):
     port = ti3d.I3DResNet(stages=NARROW)
-    port.load_state_dict(i3res50_state_dict_from_flax(variables))
+    port.load_state_dict(i3d_state_dict_from_flax(variables))
     return port.eval()
 
 

@@ -51,7 +51,7 @@ from anomaly_detection_on_video_tpu_torch.training import VideoAnomalyDetectionR
 from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
 from anomaly_detection_on_video_tpu_torch.training.runner import TrainState
 from anomaly_detection_on_video_tpu_torch.utils.convert import (
-    i3res50_state_dict_from_flax,
+    i3d_state_dict_from_flax,
     mgfn_state_dict_from_flax,
 )
 from test_torch_i3d import NARROW, _randomize_bn
@@ -149,7 +149,7 @@ def test_eight_frame_clips_run_the_torch_chain_and_match_jax(rng, monkeypatch):
     variables = _randomize_bn(jax.jit(model.init)(jax.random.PRNGKey(0), jnp.asarray(x)), rng)
     ref = np.asarray(jax.jit(model.apply)(variables, jnp.asarray(x)))
     port = ti3d.I3DResNet(stages=NARROW)
-    port.load_state_dict(i3res50_state_dict_from_flax(variables))
+    port.load_state_dict(i3d_state_dict_from_flax(variables))
     port.eval()
     originals = {"K2": ti3d.stem_conv_pool, "K3": ti3d.bottleneck_block}
     calls = []

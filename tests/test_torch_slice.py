@@ -27,7 +27,7 @@ from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtracto
 from anomaly_detection_on_video_tpu_torch.data.video import find_videos
 from anomaly_detection_on_video_tpu_torch.infer import process_video, score_features
 from anomaly_detection_on_video_tpu_torch.models.i3d import I3DResNet
-from anomaly_detection_on_video_tpu_torch.utils.convert import i3res50_state_dict_from_flax
+from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_from_flax
 from test_torch_i3d import NARROW, _randomize_bn
 from test_torch_mgfn import build_pair
 
@@ -40,7 +40,7 @@ def _narrow_pair(rng, size):
     x = jnp.zeros((1, 16, size, size, 3), jnp.float32)
     variables = _randomize_bn(jax.jit(model.init)(jax.random.PRNGKey(0), x), rng)
     port = I3DResNet(stages=NARROW)
-    port.load_state_dict(i3res50_state_dict_from_flax(variables))
+    port.load_state_dict(i3d_state_dict_from_flax(variables))
     return model, variables, port
 
 

@@ -42,7 +42,7 @@ from anomaly_detection_on_video_tpu_torch.ops.quant import quantize_weight
 from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
 from anomaly_detection_on_video_tpu_torch.training.optim import adam_with_l2
 from anomaly_detection_on_video_tpu_torch.training.runner import TrainState
-from anomaly_detection_on_video_tpu_torch.utils.convert import i3res50_state_dict_from_flax
+from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_from_flax
 from test_torch_extraction import _write_mjpg
 from test_torch_flow import textured_scene
 from test_torch_i3d import NARROW, _randomize_bn, stem_slab, stem_tap_rows
@@ -68,7 +68,7 @@ def narrow():
     x = jnp.zeros((1, 16, CROP, CROP, 3), jnp.float32)
     variables = _randomize_bn(jax.jit(model.init)(jax.random.PRNGKey(0), x),
                               np.random.RandomState(1))
-    return variables, i3res50_state_dict_from_flax(variables)
+    return variables, i3d_state_dict_from_flax(variables)
 
 
 @pytest.fixture
