@@ -76,6 +76,7 @@ from ..ops.flow import compute_flow_device
 from ..ops.kernels.crop_norm import ten_crop_standardize
 from ..ops.resize import resize_bilinear_exact, resize_bilinear_fast, short_side_size
 from ..ops.tvl1 import compute_flow_tvl1
+from ..utils.convert import load_known_keys
 from ..utils.device import DeviceLike, full_f32, resolve_device
 from ..utils.npyio import atomic_save
 from .flow import compute_flow, flow_standardize, flow_to_uint8
@@ -144,8 +145,10 @@ class FeatureExtractor:
     ``tvl1``, the last two on this extractor's device; it defaults to
     ``device`` on a CUDA device and ``host`` on the CPU. A ``state_dict``
     (RGB weights, ``--stream both`` shares one) goes through
-    ``adapt_stem_channels``; a ``model`` must have the stream's input
-    channels.
+    ``adapt_stem_channels`` and loads as the JAX converter reads it
+    (``utils.convert.load_known_keys``: keys the model lacks, such as a
+    Kinetics head, are dropped with a printed line; a missing key raises);
+    a ``model`` must have the stream's input channels.
     """
 
     def __init__(
@@ -187,7 +190,7 @@ class FeatureExtractor:
                              f"model's stem takes {model.conv1.in_channels}")
         model.dtype = dtype
         if state_dict is not None:
-            model.load_state_dict(adapt_stem_channels(state_dict, self.channels))
+            load_known_keys(model, adapt_stem_channels(state_dict, self.channels), "I3D weights")
         else:
             seeded_init_(model, seed)
         self.model = model.to(self.device).eval()

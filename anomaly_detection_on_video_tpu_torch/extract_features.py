@@ -6,7 +6,7 @@
         [--dtype bfloat16|float32|int8] [--batch 240] \\
         [--crops ten|center] [--decode-workers N] [--profile] \\
         [--stream rgb|flow|both] [--flow-backend host|device|tvl1] \\
-        [--segment-length 32 | --no-segments] [--device cuda]
+        [--segment-length 32 | --no-segments] [--compile-cache DIR] [--device cuda]
 
 Writes ``<stem>_i3d.npy`` of shape ``(n_clips, 10, 2048)`` float32 per
 video, the reference's on-disk contract, into ``--outdir`` (or
@@ -39,10 +39,13 @@ section 5). ``--model`` picks the backbone, ``tushar-n-baseline`` (the
 default) or ``i3d_8x8_r50``, for both streams; ``--weights`` is its weight
 file, read as the JAX CLI's ``load_weights`` reads it (an I3Res50 state
 dict, or for ``i3d_8x8_r50`` a pytorchvideo ``.pyth`` whose
-``model_state`` is converted), with seeded random weights when unset.
-Single host: the JAX CLI's ``--multihost``, ``--data-parallel``,
-``--compile-cache`` and ``--hf-dataset`` are not ported (ROADMAP.md, queue
-1, module 7), and the parser refuses them.
+``model_state`` is converted), with seeded random weights when unset;
+keys the model does not have (a Kinetics head) are dropped with a printed
+line, as the JAX converter ignores them. ``--compile-cache DIR`` builds the
+CUDA kernels into DIR and loads them from there
+(``utils/compile_cache.py``). Single host: the JAX CLI's ``--multihost``,
+``--data-parallel`` and ``--hf-dataset`` are not ported (``ROADMAP.md``,
+queue 1), and the parser refuses them.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from .data.segments import segment_video_features
 from .data.video import find_videos, warn_duplicate_stems
 from .infer import extractor_kwargs, load_i3d_weights
 from .models.i3d import MODEL_ZOO
+from .utils.compile_cache import enable_compile_cache
 from .utils.device import resolve_device
 from .utils.profiling import StageTimer
 
@@ -102,6 +106,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Farneback on the host (OpenCV), Farneback on the device, or "
                              "TV-L1 on the device (the original two-stream I3D protocol's "
                              "flow); default: device on a CUDA device, host on the CPU")
+    parser.add_argument("--compile-cache", default=None, metavar="DIR",
+                        help="persistent nvcc kernel build directory: repeated runs load the "
+                             "built kernels instead of compiling them again "
+                             "(utils/compile_cache.py)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
 
@@ -118,6 +126,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not videos:
         raise SystemExit(f"no videos found under {args.videos!r}")
     warn_duplicate_stems(videos, what="extracted")
+    if args.compile_cache:  # before the first extractor builds the kernels
+        enable_compile_cache(args.compile_cache)
     # one weight tree for both streams: the flow stem adapts from it
     state_dict = load_i3d_weights(args.weights, args.model) if args.weights else None
     device = resolve_device(args.device)

@@ -1,7 +1,8 @@
 """Score videos: video -> I3D features -> clip and frame anomaly scores.
 
-The port's counterpart of the repository's ``infer.py``, its scorer side
-and the one-shot scoring of a video set::
+The port's counterpart of the repository's ``infer.py``: one-shot scoring
+of a video set, and serving on one device (a watched directory, an HTTP
+endpoint, an exported scorer)::
 
     python -m anomaly_detection_on_video_tpu_torch.infer --videos clips/ --outdir scores/ \\
         (--checkpoint <run dir> [--checkpoint-step latest|best|N]
@@ -12,7 +13,11 @@ and the one-shot scoring of a video set::
         [--i3d-model tushar-n-baseline|i3d_8x8_r50] [--i3d-weights i3res50.pt|I3D_8x8_R50.pyth] \\
         [--dtype bfloat16|float32|int8] [--batch 240] \\
         [--crops ten|center] [--stream rgb|flow|both] \\
-        [--flow-backend host|device|tvl1] [--device cuda]
+        [--flow-backend host|device|tvl1] [--compile-cache DIR] [--device cuda] \\
+        [--watch [--poll-interval s] [--idle-exit s] | --serve PORT [--serve-host H]]
+    python -m anomaly_detection_on_video_tpu_torch.infer --outdir x (--checkpoint ... |
+        --torch-weights ...) --export DIR [--export-max-clips 1024]
+    python -m anomaly_detection_on_video_tpu_torch.infer --from-export DIR --videos ... --outdir ...
 
 Writes ``<stem>_scores.json`` per video with the JAX CLI's keys (video,
 model, stream, n_clips, frames_per_clip, clip_scores, frame_scores,
@@ -51,9 +56,27 @@ optical-flow stream, 2048-d, cached as ``<stem>_flow.npy``) or ``both``
 persisted ``data.stream`` (else ``rgb``), so a two-stream checkpoint is
 scored two-stream with no flag. ``--flow-backend`` as in
 ``extract_features``; with ``--features-dir`` the backend is pinned there
-in ``flow_backend.json``. Not ported: ``--figure``, ``--watch``,
-``--serve``, ``--export`` / ``--from-export``, ``--data-parallel`` and
-``--compile-cache``.
+in ``flow_backend.json``.
+
+Serving, as the JAX CLI serves. ``--watch`` polls ``--videos`` every
+``--poll-interval`` seconds and scores each new video once its size is
+stable across two polls; scoring is idempotent (a video with a score JSON
+is skipped), a failure writes ``<stem>_scores.error.json`` (retried when
+the file changes, or after a cooldown when it looks transient), and
+``<outdir>/_serving_stats.json`` is rewritten every poll; ``--idle-exit``
+ends the loop after that many seconds without pending work. ``--serve
+PORT`` is an HTTP endpoint (stdlib; port 0 picks a free one, printed):
+``POST /score?name=v.mp4`` with the video's bytes returns the score JSON
+(idempotent per stem), ``GET /scores/<stem>``, ``/healthz`` and ``/stats``
+answer beside it; scoring is serialized on one lock, and SIGTERM / SIGINT
+finish the request in flight and shut down. ``--export DIR`` writes the
+scorer as ``torch.export`` programs, one per eval bucket up to
+``--export-max-clips`` clips, and a ``manifest.json`` (``utils/aot.py``),
+and exits; ``--from-export DIR`` scores with them in place of the
+checkpoint and model flags. ``--compile-cache DIR`` builds the CUDA
+kernels into DIR and loads them from there (``utils/compile_cache.py``),
+so a restarted server does not run nvcc again. Not ported: ``--figure``
+and ``--data-parallel``.
 """
 
 from __future__ import annotations
@@ -61,9 +84,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
+import signal
 import sys
+import tempfile
+import threading
 import time
-from typing import List, Optional, Sequence, Tuple
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, List, Optional, Sequence, Tuple, Union
+from urllib.parse import parse_qs, unquote, urlparse
 
 import numpy as np
 import torch
@@ -85,15 +114,26 @@ from .ops.metrics import anomaly_events, frame_level_scores
 from .training.checkpoints import STATE_FILE, TopKCheckpointer
 from .training.optim import adam_with_l2
 from .training.runner import TrainState, buckets_up_to, eval_bucket, make_eval_step
+from .utils.aot import (
+    ExportedScorer,
+    artifact_path,
+    export_buckets,
+    export_scorer,
+    save_scorer_export,
+)
+from .utils.compile_cache import enable_compile_cache
 from .utils.convert import (
     i3d_state_dict_from_pytorchvideo,
+    load_known_keys,
+    mgfn_key_refused,
     mgfn_state_dict_from_official,
     rtfm_state_dict_from_official,
 )
 from .utils.device import resolve_device
-from .utils.npyio import atomic_save
+from .utils.npyio import atomic_save, atomic_write_bytes
 
 FEATURE_DIM = 2048  # one stream's features per crop
+Scorer = Union[nn.Module, ExportedScorer]  # a live model or its exported programs
 
 
 def load_state_dict(path: str) -> dict:
@@ -173,8 +213,13 @@ def build_scorer(args: argparse.Namespace) -> Tuple[nn.Module, str]:
 
     if torch_weights:
         try:
-            model.load_state_dict(_weights_to_port(model_name, load_state_dict(torch_weights),
-                                                   args.official))
+            # keys the model lacks are dropped and named, as the JAX
+            # converters ignore them; MGFN keeps refusing the keys its
+            # JAX converter refuses
+            load_known_keys(model, _weights_to_port(model_name, load_state_dict(torch_weights),
+                                                    args.official),
+                            f"--torch-weights {torch_weights!r}",
+                            refuse=mgfn_key_refused if model_name == "mgfn" else None)
         except (KeyError, ValueError, RuntimeError) as exc:
             raise SystemExit(
                 f"--torch-weights {torch_weights!r} does not look like a {model_name!r} state "
@@ -205,9 +250,12 @@ def build_scorer(args: argparse.Namespace) -> Tuple[nn.Module, str]:
     return model.to(resolve_device(args.device)).eval(), model_name
 
 
-def score_features(features: np.ndarray, scorer: nn.Module, eval_step=None) -> np.ndarray:
+def score_features(features: np.ndarray, scorer: Scorer, eval_step=None) -> np.ndarray:
     """(n_clips, n_crops, C) float32 features -> (n_clips,) clip scores,
-    through one padded power-of-two bucket."""
+    through one padded power-of-two bucket: the live ``scorer``'s eval
+    step, or an ``ExportedScorer``'s program of the bucket."""
+    if isinstance(scorer, ExportedScorer):
+        return scorer.score(features)
     eval_step = eval_step or make_eval_step()
     device = next(scorer.parameters()).device
     n_clips = features.shape[0]
@@ -263,7 +311,7 @@ def load_or_extract(path: str, extractor: FeatureExtractor,
 def process_video(
     path: str,
     extractor: FeatureExtractor,
-    scorer: nn.Module,
+    scorer: Scorer,
     outdir: str,
     model_name: str = "mgfn",
     threshold: Optional[float] = None,
@@ -316,14 +364,14 @@ def extractor_kwargs(args: argparse.Namespace) -> dict:
     }
 
 
-def warmup(extractors: Sequence[FeatureExtractor], scorer: nn.Module, max_clips: int,
+def warmup(extractors: Sequence[FeatureExtractor], scorer: Scorer, max_clips: int,
            channels: int) -> None:
     """Run each extractor's I3D forward once on a constant 240x320 clip
     (127: zero flow for the flow stream), unless its int8 still awaits
     calibration, which a constant chunk would degrade, and the scorer on
-    every eval bucket a video of ``max_clips`` clips can hit: on the card
-    this builds the kernels and picks cuDNN's algorithms before the first
-    video."""
+    every eval bucket a video of ``max_clips`` clips can hit (an exported
+    scorer: those it has programs for): on the card this builds the
+    kernels and picks cuDNN's algorithms before the first video."""
     start = time.time()
     for ex in extractors:
         if ex._needs_calibration:
@@ -332,15 +380,262 @@ def warmup(extractors: Sequence[FeatureExtractor], scorer: nn.Module, max_clips:
         else:
             ex.extract_frames(np.full((ex.frames_per_clip, 240, 320, ex.channels), 127, np.uint8))
     buckets = buckets_up_to(max_clips)
+    if isinstance(scorer, ExportedScorer):
+        buckets = [b for b in buckets if b <= scorer.buckets[-1]]
     for bucket in buckets:
         score_features(np.zeros((bucket, extractors[0].n_crops, channels), np.float32), scorer)
     print(f"warmup done in {time.time() - start:.1f}s (eval buckets {buckets})", flush=True)
 
 
+def new_serving_stats() -> dict:
+    """The counters both serving modes keep (``--watch``'s
+    ``_serving_stats.json``, ``--serve``'s ``/stats``)."""
+    return {"started_unix": round(time.time(), 1), "videos_scored": 0, "clips_scored": 0,
+            "errors": 0}
+
+
+def record_scored(stats: dict, res: dict) -> None:
+    stats["videos_scored"] += 1
+    stats["clips_scored"] += res["n_clips"]
+    stats["last_video"] = res["video"]
+    stats["last_latency_s"] = res["latency_s"]
+
+
+def serve_http(args: argparse.Namespace, process: Callable[[str], dict],
+               on_ready: Optional[Callable[[ThreadingHTTPServer], None]] = None) -> None:
+    """The HTTP scoring endpoint of ``--serve PORT`` on ``--serve-host``
+    (the JAX CLI's ``serve_http``), stdlib only.
+
+    Routes:
+      POST /score?name=<file>   the video's bytes -> its score JSON (idempotent:
+                                a stem already scored answers from its JSON)
+      GET  /scores/<stem>       a score JSON written before
+      GET  /healthz             liveness, answered while a request scores
+      GET  /stats               counters, the last latency, uptime
+
+    Each upload is spooled into its own directory under ``<outdir>/_spool``,
+    removed after the request. Scoring is serialized on one lock (one
+    device queue); health and stats are answered from other threads. The
+    handler threads are not daemons, so SIGTERM / SIGINT finish the request
+    in flight and shut down (where handlers can be installed: the main
+    thread). ``on_ready(server)`` is called once the socket is bound, so a
+    caller in this process can read ``server.server_port`` and call
+    ``server.shutdown()``."""
+    score_lock = threading.Lock()
+    stats = new_serving_stats()
+    spool = os.path.join(args.outdir, "_spool")
+    device_type = torch.device(args.device).type
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, fmt, *a):  # one line per request, on stdout
+            print(f"{self.address_string()} {fmt % a}", flush=True)
+
+        def _json(self, code: int, obj: dict) -> None:
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            path = urlparse(self.path).path
+            if path == "/healthz":
+                return self._json(200, {"ok": True, "device": device_type,
+                                        "scoring": score_lock.locked()})
+            if path == "/stats":
+                return self._json(200, dict(stats, uptime_s=round(
+                    time.time() - stats["started_unix"], 1)))
+            if path.startswith("/scores/"):
+                stem = os.path.basename(unquote(path[len("/scores/"):]))
+                score_path = os.path.join(args.outdir, f"{stem}_scores.json")
+                if os.path.exists(score_path):
+                    with open(score_path) as f:
+                        return self._json(200, json.load(f))
+                return self._json(404, {"error": f"{stem} not scored"})
+            return self._json(404, {"error": f"unknown path {path!r}"})
+
+        def _drain_body(self) -> None:
+            """Read and drop the request body, so closing the socket does
+            not reset the queued answer under the client."""
+            remaining = int(self.headers.get("Content-Length") or 0)
+            while remaining > 0:
+                chunk = self.rfile.read(min(1 << 20, remaining))
+                if not chunk:
+                    break
+                remaining -= len(chunk)
+
+        def do_POST(self):
+            url = urlparse(self.path)
+            if url.path != "/score":
+                self._drain_body()
+                return self._json(404, {"error": f"unknown path {url.path!r}"})
+            name = os.path.basename(parse_qs(url.query).get("name", ["upload.mp4"])[0])
+            if name in ("", ".", ".."):  # the basename of 'x/..' is '..', a directory
+                self._drain_body()
+                return self._json(400, {"error": f"invalid name {name!r}"})
+            stem = os.path.splitext(name)[0]
+            score_path = os.path.join(args.outdir, f"{stem}_scores.json")
+            if os.path.exists(score_path):  # idempotent per stem
+                self._drain_body()
+                with open(score_path) as f:
+                    return self._json(200, json.load(f))
+            length = int(self.headers.get("Content-Length") or 0)
+            if length <= 0:
+                return self._json(400, {"error": "empty request body"})
+            # a directory per request: concurrent uploads of one name must
+            # not overwrite or delete each other's bytes; the name (the
+            # score stem) is kept inside it
+            os.makedirs(spool, exist_ok=True)
+            req_dir = tempfile.mkdtemp(dir=spool)
+            video_path = os.path.join(req_dir, name)
+            try:
+                remaining = length
+                with open(video_path, "wb") as f:  # bounded memory per upload
+                    while remaining > 0:
+                        chunk = self.rfile.read(min(1 << 20, remaining))
+                        if not chunk:
+                            break
+                        f.write(chunk)
+                        remaining -= len(chunk)
+                with score_lock:
+                    if os.path.exists(score_path):
+                        # an upload of the same stem won the race while this
+                        # one spooled: answer with its scores, extract once
+                        with open(score_path) as f:
+                            res = json.load(f)
+                    else:
+                        res = process(video_path)
+                        record_scored(stats, res)
+                return self._json(200, res)
+            except Exception as exc:  # one bad upload must not stop serving
+                stats["errors"] += 1
+                return self._json(500, {"error": str(exc)})
+            finally:
+                shutil.rmtree(req_dir, ignore_errors=True)
+
+    server = ThreadingHTTPServer((args.serve_host, args.serve), Handler)
+    # ThreadingHTTPServer's daemon threads would let the interpreter exit
+    # in the middle of a request; non-daemon ones make server_close() wait
+    server.daemon_threads = False
+
+    def _shutdown(signum, frame):
+        print(f"signal {signum}: shutting down", flush=True)
+        # shutdown() must not run on the serve_forever thread (it would deadlock)
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, _shutdown)
+        except ValueError:
+            pass  # not the main thread
+    print(f"serving on {args.serve_host}:{server.server_port}", flush=True)
+    try:
+        if on_ready is not None:
+            on_ready(server)
+        server.serve_forever()
+    finally:
+        server.server_close()
+
+
+def watch_videos(args: argparse.Namespace, process: Callable[[str], dict]) -> None:
+    """The ``--watch`` loop (the JAX CLI's): poll ``args.videos`` every
+    ``--poll-interval`` seconds and score each video once its size is the
+    same at two polls (its producer finished writing), skipping what is
+    scored. A failure writes ``<stem>_scores.error.json`` with the size and
+    whether it is ``retryable``: a ValueError or FileNotFoundError is the
+    file's fault and retried only when its size changes, anything else
+    after ``max(30, 2 x poll)`` seconds. ``_serving_stats.json`` is
+    rewritten atomically at every poll. With ``--idle-exit`` the loop ends
+    that many seconds after the last pending work (a video growing, new,
+    or waiting out a retry)."""
+    error_retry_s = max(30.0, 2.0 * args.poll_interval)
+
+    def video_status(path: str, size: int) -> str:
+        """``done`` (scored, or failed for good at this size), ``cooldown``
+        (a transient failure waiting to retry: pending work for the
+        idle-exit clock) or ``ready``."""
+        stem = os.path.splitext(os.path.basename(path))[0]
+        if os.path.exists(os.path.join(args.outdir, f"{stem}_scores.json")):
+            return "done"
+        err_path = os.path.join(args.outdir, f"{stem}_scores.error.json")
+        if os.path.exists(err_path):
+            try:
+                with open(err_path) as f:
+                    err = json.load(f)
+            except (OSError, ValueError):
+                return "ready"
+            if err.get("size") != size:
+                return "ready"
+            if not err.get("retryable", False):
+                return "done"
+            try:
+                age = time.time() - os.path.getmtime(err_path)
+            except OSError:
+                return "ready"
+            return "cooldown" if age < error_retry_s else "ready"
+        return "ready"
+
+    stats = new_serving_stats()
+
+    def write_stats(n_watching: int) -> None:
+        snap = dict(stats, watching=n_watching,
+                    uptime_s=round(time.time() - stats["started_unix"], 1))
+        atomic_write_bytes(os.path.join(args.outdir, "_serving_stats.json"),
+                           json.dumps(snap).encode())
+
+    last_sizes: dict = {}
+    last_new = time.time()
+    print(f"watching {args.videos!r} every {args.poll_interval:g}s (idle-exit: {args.idle_exit})",
+          flush=True)
+    while True:
+        sizes = {}
+        for path in find_videos(args.videos):
+            try:
+                sizes[path] = os.path.getsize(path)
+            except OSError:
+                continue  # gone between the listing and the stat
+        for path, size in sorted(sizes.items()):
+            status = video_status(path, size)
+            if status == "done":
+                continue
+            if status == "cooldown":
+                last_new = time.time()  # pending: the idle clock must not run out under it
+                continue
+            if last_sizes.get(path) != size:
+                last_new = time.time()  # new or still growing
+                continue
+            try:
+                record_scored(stats, process(path))
+            except Exception as exc:  # one bad file must not stop serving
+                stats["errors"] += 1
+                print(f"warning: {path}: {exc}", file=sys.stderr)
+                stem = os.path.splitext(os.path.basename(path))[0]
+                # valid scores written before a late failure stay untouched
+                if not os.path.exists(os.path.join(args.outdir, f"{stem}_scores.json")):
+                    with open(os.path.join(args.outdir, f"{stem}_scores.error.json"), "w") as f:
+                        json.dump({"video": os.path.basename(path), "error": str(exc),
+                                   "size": size,
+                                   # an undecodable file or one over the largest
+                                   # exported bucket is the file's fault; a device
+                                   # or memory failure may pass
+                                   "retryable": not isinstance(exc, (ValueError,
+                                                                     FileNotFoundError))}, f)
+            last_new = time.time()
+        last_sizes = sizes
+        write_stats(len(sizes))
+        if args.idle_exit is not None and time.time() - last_new > args.idle_exit:
+            print("idle; exiting watch loop", flush=True)
+            return
+        time.sleep(args.poll_interval)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--videos", required=True,
-                        help="video file, glob, or directory (searched recursively)")
+    parser.add_argument("--videos", default=None,
+                        help="video file, glob, or directory (searched recursively; required "
+                             "except under --serve, where videos arrive over HTTP, and "
+                             "--export)")
     parser.add_argument("--outdir", required=True)
     parser.add_argument("--checkpoint", default=None,
                         help="checkpoint directory written by the port's run")
@@ -397,13 +692,61 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--warmup", type=int, default=0, metavar="CLIPS",
                         help="before the first video, run the I3D forward once and the scorer "
                              "on every eval bucket up to CLIPS clips")
+    parser.add_argument("--compile-cache", default=None, metavar="DIR",
+                        help="persistent nvcc kernel build directory: serving restarts (--watch, "
+                             "--serve) and repeated runs load the built kernels instead of "
+                             "compiling them again (utils/compile_cache.py)")
+    parser.add_argument("--watch", action="store_true",
+                        help="serving loop: poll --videos and score new videos as they arrive "
+                             "(skip already-scored; wait for file sizes to stabilize)")
+    parser.add_argument("--poll-interval", type=float, default=5.0,
+                        help="--watch poll period in seconds")
+    parser.add_argument("--idle-exit", type=float, default=None,
+                        help="--watch: exit after this many seconds with no new videos "
+                             "(default: run forever)")
+    parser.add_argument("--serve", type=int, default=None, metavar="PORT",
+                        help="HTTP scoring endpoint (stdlib, no extra deps): POST "
+                             "/score?name=v.mp4 with raw video bytes returns the score JSON; GET "
+                             "/healthz, /stats, /scores/<stem>. Scoring serializes on the device; "
+                             "health/stats stay responsive. Port 0 picks a free port (printed). "
+                             "SIGTERM shuts down gracefully.")
+    parser.add_argument("--serve-host", default="127.0.0.1",
+                        help="--serve bind address (0.0.0.0 to expose)")
+    parser.add_argument("--export", default=None, metavar="DIR",
+                        help="export the scorer (weights included, one torch.export program per "
+                             "eval bucket, on --device) to DIR and exit; serve the artifacts "
+                             "with --from-export (utils/aot.py)")
+    parser.add_argument("--export-max-clips", type=int, default=1024,
+                        help="--export covers every eval bucket a video of up to this many clips "
+                             "can hit")
+    parser.add_argument("--from-export", default=None, metavar="DIR",
+                        help="score with an artifact directory written by --export instead of a "
+                             "checkpoint (no model rebuild)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
+def check_args(parser: argparse.ArgumentParser, args: argparse.Namespace) -> None:
+    """The JAX CLI's flag checks, in its order and wording (parser errors,
+    exit code 2), and its warnings."""
+    if args.watch and args.serve is not None:
+        parser.error("--watch and --serve are mutually exclusive")
+    if args.export and args.from_export:
+        parser.error("--export and --from-export are mutually exclusive")
+    if args.export and (args.watch or args.serve is not None):
+        parser.error("--export writes the artifacts and exits; it cannot be combined with "
+                     "--watch/--serve")
+    if args.from_export and (args.checkpoint or args.torch_weights or args.model
+                             or args.model_config):
+        parser.error("--from-export replaces the checkpoint/model flags: the artifact "
+                     "directory is self-describing")
+    if args.export_max_clips < 1:
+        parser.error("--export-max-clips must be >= 1")
+    if args.serve is not None and not 0 <= args.serve <= 65535:
+        # 0: a free port picked by the system (printed)
+        parser.error(f"--serve port must be in [0, 65535] (got {args.serve})")
+    if args.videos is None and args.serve is None and not args.export:
+        parser.error("--videos is required (unless --serve or --export)")
     if args.batch < 1:
         parser.error(f"--batch must be >= 1 (got {args.batch})")
     if args.threshold is not None and not 0.0 <= args.threshold <= 1.0:
@@ -421,21 +764,67 @@ def main(argv: Optional[List[str]] = None) -> int:
               "per clip and measurably costs accuracy vs the reference ten-crop protocol "
               "(multi-seed AUC deltas: docs/int8_e2e.json protocol_cost; docs/ROOFLINE.md). "
               "Use --crops ten where accuracy matters more than latency.", file=sys.stderr)
-    videos = find_videos(args.videos)
-    if not videos:
+
+
+def write_export(args: argparse.Namespace, scorer: nn.Module, model_name: str, channels: int,
+                 stream: str) -> None:
+    """``--export``: the scorer's programs for every bucket up to
+    ``--export-max-clips`` clips, on ``--device``, and the manifest."""
+    start = time.time()
+    n_crops = 10 if args.crops == "ten" else 1
+    buckets = export_buckets(args.export_max_clips)
+    programs = export_scorer(scorer, channels=channels, n_crops=n_crops, buckets=buckets,
+                             device=args.device)
+    manifest_path = save_scorer_export(args.export, programs, model_name=model_name,
+                                       channels=channels, n_crops=n_crops, stream=stream,
+                                       device=args.device)
+    total_kb = sum(os.path.getsize(artifact_path(args.export, b)) for b in buckets) // 1024
+    print(f"exported {model_name} scorer for buckets {buckets} ({n_crops} crops, {channels}-d, "
+          f"{total_kb} KB) in {time.time() - start:.1f}s -> {manifest_path}")
+
+
+def main(argv: Optional[List[str]] = None,
+         on_ready: Optional[Callable[[ThreadingHTTPServer], None]] = None) -> int:
+    """The CLI; ``on_ready`` goes to ``serve_http`` under ``--serve``."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    check_args(parser, args)
+    videos = find_videos(args.videos) if args.videos else []
+    if not videos and not args.watch and args.serve is None and not args.export:
         raise SystemExit(f"no videos match {args.videos!r}")
     os.makedirs(args.outdir, exist_ok=True)
+    if args.compile_cache:  # before anything builds the kernels
+        enable_compile_cache(args.compile_cache)
+    device = resolve_device(args.device)
+
+    exported = None
+    if args.from_export:
+        try:
+            exported = ExportedScorer(args.from_export, device)
+        except (OSError, ValueError) as exc:
+            raise SystemExit(f"--from-export: {exc}")
+        want_crops = 10 if args.crops == "ten" else 1
+        if exported.n_crops != want_crops:
+            raise SystemExit(f"--from-export: this artifact was exported for {exported.n_crops} "
+                             f"crops per clip but --crops {args.crops} extracts {want_crops}; "
+                             "re-export with the matching --crops")
     stream = args.stream
+    if stream is None and exported is not None:
+        stream = exported.stream
     if stream is None and args.checkpoint:
         # a data.stream=both run is scored two-stream with no flag
         stream = ((TopKCheckpointer.load_metadata(args.checkpoint) or {}).get("data")
                   or {}).get("stream")
     stream = stream or "rgb"
-    # the scorer first: its path and weights checks fail before the extractor is built
-    scorer, model_name = build_scorer(args)
     extracted_dim = 2 * FEATURE_DIM if stream == "both" else FEATURE_DIM
-    scorer_dim = getattr(getattr(scorer, "config", None), "channels", extracted_dim)
-    if scorer_dim != extracted_dim:
+    # the scorer first: its path and weights checks fail before the extractor is built
+    if exported is not None:
+        scorer, model_name, scorer_dim = exported, exported.model_name, exported.channels
+    else:
+        scorer, model_name = build_scorer(args)
+        scorer_dim = getattr(getattr(scorer, "config", None), "channels", extracted_dim)
+    # --export never extracts: any width exports (the manifest records it)
+    if scorer_dim != extracted_dim and not args.export:
         if stream == "both":
             hint = f"retrain with data.stream=both or pass --model-config channels={extracted_dim}"
         elif scorer_dim == 2 * FEATURE_DIM:
@@ -444,9 +833,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             hint = f"pass --model-config channels={extracted_dim}"
         raise SystemExit(f"--stream {stream} extracts {extracted_dim}-d features but the "
                          f"{model_name} scorer expects {scorer_dim}-d input; {hint}")
+    if args.export:
+        write_export(args, scorer, model_name, scorer_dim, stream)
+        return 0
+
     # one weight tree for both streams: the flow stem adapts from it
     state_dict = load_i3d_weights(args.i3d_weights, args.i3d_model) if args.i3d_weights else None
-    device = resolve_device(args.device)
 
     def make_extractor(s: str) -> FeatureExtractor:
         return FeatureExtractor(
@@ -475,13 +867,25 @@ def main(argv: Optional[List[str]] = None) -> int:
         ex.pin_calibration(args.features_dir or args.outdir)
     if args.warmup > 0:
         warmup(extractors, scorer, args.warmup, scorer_dim)
+
+    def process(path: str) -> dict:
+        return process_video(path, extractor, scorer, args.outdir, model_name, args.threshold,
+                             args.min_event_frames, args.features_dir, flow_extractor)
+
+    if args.serve is not None:
+        serve_http(args, process, on_ready)
+        return 0
+    if args.watch:
+        watch_videos(args, process)
+        return 0
     # score JSONs are stem-keyed: same-stem videos of different subfolders would collide
     warn_duplicate_stems(videos, what="scored")
     for path in videos:
         try:
-            process_video(path, extractor, scorer, args.outdir, model_name, args.threshold,
-                          args.min_event_frames, args.features_dir, flow_extractor)
-        except ValueError as exc:  # an undecodable file: a user problem, not a traceback
+            process(path)
+        except ValueError as exc:
+            # an undecodable file, or a video over the largest exported
+            # bucket: a user problem, not a traceback
             raise SystemExit(f"{path}: {exc}")
     return 0
 

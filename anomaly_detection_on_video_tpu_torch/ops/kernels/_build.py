@@ -3,10 +3,14 @@
 Every ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into an object
 file, all sources in parallel, and the objects link into one shared library
 with a plain C interface, loaded with ``ctypes``. The build runs at first
-use, into ``build/kernels/`` beside the package (listed in ``.gitignore``),
-under a name that hashes the sources, so an edited kernel never loads a
-stale library. Nothing here runs at import time: this module is imported on
-hosts without a CUDA toolkit, where only the plain versions run.
+use, into ``build/kernels/`` beside the package (listed in ``.gitignore``)
+or the directory given to ``set_build_dir`` (``--compile-cache``), under a
+name that hashes the sources and the nvcc flags, so an edited kernel or a
+changed flag never loads a stale library. Concurrent builds into one
+directory write their objects and library under their own process id and
+rename the library into place. Nothing here runs at import time: this
+module is imported on hosts without a CUDA toolkit, where only the plain
+versions run.
 """
 
 from __future__ import annotations
@@ -84,26 +88,51 @@ def _nvcc() -> str:
     return nvcc
 
 
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` (created if missing) instead of
+    ``build/kernels/``. The library loads once per process, so once it has
+    loaded, asking for another directory raises: call this before the
+    first kernel launch."""
+    global BUILD_DIR
+    path = Path(path).resolve()
+    with _LOCK:
+        if _LIB is not None and path != BUILD_DIR.resolve():
+            raise RuntimeError(f"the kernel library already loaded from {_LIB.path}; set the "
+                               "build directory before the first kernel launch")
+        path.mkdir(parents=True, exist_ok=True)
+        BUILD_DIR = path
+
+
+def library_path() -> Path:
+    """Where ``build`` puts the library of the current sources and flags:
+    ``BUILD_DIR/<tag>/libadv_kernels.so``, the tag hashing every
+    ``csrc/`` file's name and bytes, ``ARCH_FLAGS`` and ``NVCC_FLAGS``
+    (not the toolkit's version)."""
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    digest.update("\0".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD_DIR / digest.hexdigest()[:16] / "libadv_kernels.so"
+
+
 def build() -> KernelLibrary:
-    """Compile (when the sources changed) and load the kernel library."""
+    """Compile (when no library of these sources and flags is there) and
+    load the kernel library."""
     global _LIB
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        digest = hashlib.sha256()
-        for src in _sources():
-            digest.update(src.name.encode())
-            digest.update(src.read_bytes())
-        tag = digest.hexdigest()[:16]
-        out_dir = BUILD_DIR / tag
-        lib_path = out_dir / "libadv_kernels.so"
+        lib_path = library_path()
+        out_dir = lib_path.parent
         log_path = out_dir / "build.log"
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
             nvcc = _nvcc()
+            pid = os.getpid()
             objects, procs = [], []
             for src in sorted(CSRC_DIR.glob("*.cu")):
-                obj = out_dir / (src.stem + ".o")
+                obj = out_dir / f"{src.stem}.{pid}.o"
                 cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
                 procs.append((src, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -116,15 +145,19 @@ def build() -> KernelLibrary:
                     failed.append(src.name)
             if failed:
                 raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
-            tmp = out_dir / f"libadv_kernels.{os.getpid()}.so"
+            tmp = out_dir / f"libadv_kernels.{pid}.so"
             link = subprocess.run(
                 [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             if link.returncode != 0:
                 raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+            tmp_log = out_dir / f"build.{pid}.log"
+            tmp_log.write_text("\n".join(logs))
+            os.replace(tmp_log, log_path)
             os.replace(tmp, lib_path)
-            log_path.write_text("\n".join(logs))
+            for obj in objects:
+                obj.unlink()
         log = log_path.read_text() if log_path.exists() else ""
         _LIB = KernelLibrary(lib_path, log)
         return _LIB

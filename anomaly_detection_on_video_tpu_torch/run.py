@@ -10,8 +10,10 @@ given, on one device only: a config asking for a mesh (``tensor_parallel``
 above 1, ``multihost``, or ``data_parallel`` with several cards visible)
 raises. ``main`` composes the config and calls ``train(cfg, device)``,
 which takes a composed dict and needs no PyYAML. ``trainer.eval_only``
-prints one JSON line of metrics. Not ported: multirun sweeps (``-m``),
-W&B logging, eval figures and the XLA compile cache.
+prints one JSON line of metrics. ``trainer.compile_cache: DIR`` builds the
+CUDA kernels into DIR and loads them from there
+(``utils/compile_cache.py``). Not ported: multirun sweeps (``-m``), W&B
+logging and eval figures.
 """
 
 from __future__ import annotations
@@ -95,6 +97,10 @@ def train(cfg: Dict[str, Any], device: str = "cuda"):
 
     device = resolve_device(device)
     trainer_cfg = cfg.get("trainer", {})
+    if trainer_cfg.get("compile_cache"):  # before the first kernel launch
+        from .utils.compile_cache import enable_compile_cache
+
+        enable_compile_cache(trainer_cfg["compile_cache"])
     check_one_device(trainer_cfg, device)
     runner_cfg = cfg.get("runner") or {}
     if not runner_cfg.get("model_class"):

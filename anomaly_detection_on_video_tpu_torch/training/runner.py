@@ -142,12 +142,12 @@ def eval_bucket(n_clips: int, minimum: int = 32) -> int:
     return bucket
 
 
-def buckets_up_to(max_clips: int) -> list:
+def buckets_up_to(max_clips: int, minimum: int = 32) -> list:
     """Every eval bucket a video of at most ``max_clips`` clips can hit
     (the JAX package's ``utils/aot.py`` ``export_buckets``)."""
-    buckets, n = {eval_bucket(max_clips)}, 1
+    buckets, n = {eval_bucket(max_clips, minimum)}, 1
     while n <= max_clips:
-        buckets.add(eval_bucket(n))
+        buckets.add(eval_bucket(n, minimum))
         n *= 2
     return sorted(buckets)
 

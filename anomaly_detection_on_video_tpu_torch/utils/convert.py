@@ -20,10 +20,12 @@ layout):
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Optional, Tuple
+import sys
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -258,6 +260,49 @@ def sultani_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torc
 # ---------------------------------------------------------------------------
 # The reference's own layouts -> the port's names (``infer --torch-weights``)
 # ---------------------------------------------------------------------------
+
+
+def load_known_keys(model: nn.Module, state_dict: Mapping[str, Any], what: str,
+                    refuse: Optional[Callable[[str], bool]] = None) -> None:
+    """Load ``state_dict`` into ``model`` as the JAX converters read a
+    weight file: they read the keys of their model and ignore the rest (an
+    I3D file's Kinetics head ``fc.*``, as the reference's own
+    ``strict=False`` load does). So keys the model does not have are
+    dropped, with one line on stderr that names them, unless ``refuse``
+    says the JAX converter raises on that key; a key the model has and the
+    file lacks raises KeyError, as there. BatchNorm's
+    ``num_batches_tracked`` is not required: no converter reads it."""
+    own = model.state_dict()
+    missing = [k for k in own if k not in state_dict and not k.endswith(".num_batches_tracked")]
+    if missing:
+        raise KeyError(f"{what}: missing key(s) {', '.join(missing)}")
+    extra = [k for k in state_dict if k not in own]
+    refused = [k for k in extra if refuse is not None and refuse(k)]
+    if refused:
+        raise KeyError(f"{what}: unrecognized key(s) {', '.join(refused)}")
+    if extra:
+        print(f"{what}: ignoring {len(extra)} key(s) the model does not have: "
+              f"{', '.join(extra)}", file=sys.stderr)
+    model.load_state_dict({k: v for k, v in state_dict.items() if k in own}, strict=False)
+
+
+MGFN_BLOCK_MODULES = ("layer_norm", "conv", "scc", "ffn", "attention")
+
+
+def mgfn_key_refused(key: str) -> bool:
+    """Whether the JAX package's ``convert_mgfn_state_dict`` raises on an
+    HF-named MGFN key: one outside ``backbone.amplifier``,
+    ``backbone.layers`` (with a block module it knows), ``layer_norm`` and
+    ``fc``. It ignores the rest (a Focus BatchNorm's
+    ``num_batches_tracked``)."""
+    parts = key.split(".")
+    if parts[0] == "backbone" and len(parts) > 1:
+        parts = parts[1:]
+        if parts[0] == "amplifier":
+            return False
+        if parts[0] == "layers":
+            return len(parts) < 4 or parts[3] not in MGFN_BLOCK_MODULES
+    return parts[0] not in ("layer_norm", "fc")
 
 
 def mgfn_state_dict_from_official(state_dict: Mapping[str, Any]) -> Dict[str, Any]:

@@ -172,6 +172,31 @@ Phases, each of which raises on failure (exit code != 0):
    an unknown backbone name exits. Each path prints its median, clips/s,
    peak memory and one profiled pass's idle share.
 
+13. serving on the card, on phase 8's MGFN checkpoint and the weights of
+   phase 10, bf16 and ten crops, every video a stand-in (phase 10's
+   ``StandInDecoder``): the one-shot ``infer`` CLI over all of them is the
+   reference. (a) ``infer.main --serve 0 --warmup 24`` on a thread of this
+   process: 8 POSTs of 24-clip videos (latency p50 and max, clips/s; the
+   K1 / K2 / K3 launches of one request >= 1 / 1 / 3), a repeat POST
+   answered from its JSON (``/stats`` does not count it), ``/healthz``
+   answering within 1 s while a 70-clip request scores, and a burst of 4
+   concurrent POSTs of 5, 11, 19 and 31 clips, each answered with its own
+   ``n_clips`` and 0 errors; every reply's clip scores within 1e-5 of the
+   one-shot CLI's; (b) one request through a ``--dtype int8`` server: K4
+   >= 27 and K5 >= 26 launches, scores in [0, 1]; (c) ``--watch
+   --poll-interval 0.2 --idle-exit 3`` over two videos with a third dropped
+   in: scores within 1e-5 of the one-shot CLI's, ``_serving_stats.json``
+   counting 3 videos and 0 errors; (d) ``--export`` of the scorer on the
+   card and on the CPU, each artifact scored on the card against the live
+   scorer (gate 1e-5, bit-equality printed) on the 4-clip request and a
+   24-clip video, the exported and live scoring calls timed in turns (20
+   each), and ``--from-export`` of the CPU's artifact on the card against
+   the one-shot CLI; (e) ``infer --serve 0 --warmup 24 --compile-cache DIR``
+   as a process, cold (DIR empty: nvcc builds) and warm (DIR holds the
+   build): seconds from launch to ``serving on`` and to the first reply,
+   then SIGTERM: exit code 0 and ``shutting down`` in its log. Phase 1
+   prints whether its build was cold.
+
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
 repository beside it and a CUDA card; without either it exits non-zero.
@@ -2372,6 +2397,418 @@ def check_other_backbones(torch, root, scorer, checkpoint, frames, resize_clips)
     return stem_s1
 
 
+# ---------------------------------------------------------- phase 13: serving
+
+# phase 13's requests: stand-in videos (seeded frames, see StandInDecoder)
+# of 24 clips, a longer one, and a burst of four lengths
+SERVE_VIDEOS = {**{f"Serve{i:03d}_x264.mp4": 24 for i in range(8)}, "ServeLong_x264.mp4": 70,
+                **{f"Burst{n:03d}_x264.mp4": n for n in (5, 11, 19, 31)}}
+HTTP_TIMEOUT = 300  # seconds, for every request of phase 13
+SERVE_DEVICE = "cuda"  # phase 13's --device
+# the body of phase 13 (e)'s server processes
+RESTART_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.serve_stand_in(sys.argv[1:]))"
+
+
+def http_request(port: int, method: str, path: str, body: bytes = None):
+    """(status, parsed JSON answer, seconds) of one request to 127.0.0.1."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=HTTP_TIMEOUT)
+    try:
+        start = time.perf_counter()
+        conn.request(method, path, body=body)
+        response = conn.getresponse()
+        answer = json.loads(response.read())
+        return response.status, answer, time.perf_counter() - start
+    finally:
+        conn.close()
+
+
+def post_video(port: int, name: str):
+    return http_request(port, "POST", f"/score?name={name}", b"stand-in video bytes")
+
+
+@contextlib.contextmanager
+def serving(argv):
+    """``infer.main(argv + --serve 0)`` on a thread of this process; yields
+    the bound port, and shuts the server down on the way out."""
+    import threading
+
+    from anomaly_detection_on_video_tpu_torch import infer
+
+    ready, state = threading.Event(), {}
+
+    def run():
+        try:
+            infer.main(argv + ["--serve", "0"], on_ready=lambda server: (
+                state.update(server=server), ready.set()))
+        except BaseException as exc:  # reported below
+            state["error"] = exc
+            ready.set()
+
+    thread = threading.Thread(target=run, name="phase13-server", daemon=True)
+    thread.start()
+    try:
+        if not ready.wait(600) or "error" in state:
+            raise AssertionError(f"the server did not start: {state.get('error')!r}")
+        yield state["server"].server_port
+    finally:
+        if "server" in state:
+            state["server"].shutdown()
+        thread.join(60)
+        if thread.is_alive():
+            raise AssertionError("the server thread did not end after shutdown")
+
+
+def score_error(got, want) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max()) if len(got) == len(
+        want) else float("inf")
+
+
+def check_served(name: str, answer: dict, want: dict) -> float:
+    """A served score JSON against the one-shot CLI's of the same video:
+    same clip count, clip scores within 1e-5; returns the max |diff|."""
+    err = score_error(answer["clip_scores"], want["clip_scores"])
+    if answer["n_clips"] != want["n_clips"] or not err <= 1e-5:
+        raise AssertionError(f"{name}: served {answer['n_clips']} clips, max |diff| {err:.2e} "
+                             f"against the one-shot CLI's {want['n_clips']}")
+    return err
+
+
+def check_http_serving(torch, root: str, argv: list, one_shot: dict) -> None:
+    """Phase 13 (a): the bf16 ten-crop server in this process: 8 requests
+    of 24 clips (latency p50 and max, clips/s; K1-K3 launched by one of
+    them), a repeat POST, /healthz during a 70-clip request, a burst of 4
+    concurrent POSTs; every reply's clip scores within 1e-5 of the one-shot
+    CLI's."""
+    import threading
+
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    names = [n for n in SERVE_VIDEOS if n.startswith("Serve0")]
+    outdir = os.path.join(root, "served")
+    start = time.perf_counter()
+    with serving(argv + ["--outdir", outdir, "--warmup", "24"]) as port:
+        print(f"serve: up in {time.perf_counter() - start:.2f} s (scorer, extractor, --warmup 24)",
+              flush=True)
+        latencies, errors = [], []
+        for i, name in enumerate(names):
+            if i == 1:
+                kernels.reset_launch_counts()
+            status, answer, seconds = post_video(port, name)
+            if i == 1:
+                counts = kernels.launch_counts()
+                launches = (counts["ten_crop_standardize"], counts["stem_conv_pool"],
+                            counts["bottleneck_block"])
+                print(f"serve: one request launched K1 / K2 / K3 = {launches[0]} / "
+                      f"{launches[1]} / {launches[2]}; all counts {counts}", flush=True)
+                if launches[0] < 1 or launches[1] < 1 or launches[2] < 3:
+                    raise AssertionError(f"a served request did not run K1-K3: {counts}")
+            if status != 200:
+                raise AssertionError(f"POST {name}: {status} {answer}")
+            errors.append(check_served(name, answer, one_shot[name]))
+            latencies.append(seconds)
+        clips = sum(SERVE_VIDEOS[n] for n in names)
+        print(f"serve: {len(names)} sequential requests of 24 clips (bf16, ten crops): latency "
+              f"p50 {np.median(latencies) * 1e3:.1f} ms, max {max(latencies) * 1e3:.1f} ms "
+              f"(first {latencies[0] * 1e3:.1f}), {clips / sum(latencies):.2f} clips/s; clip "
+              f"scores vs the one-shot CLI max |diff| {max(errors):.2e}", flush=True)
+
+        status, again, _ = post_video(port, names[0])
+        stats = http_request(port, "GET", "/stats")[1]
+        with open(os.path.join(outdir, f"{os.path.splitext(names[0])[0]}_scores.json")) as f:
+            if status != 200 or again != json.load(f) or stats["videos_scored"] != len(names):
+                raise AssertionError(f"a repeat POST: {status}, stats {stats}")
+        print(f"serve: a repeat POST answered from its JSON; /stats videos_scored "
+              f"{stats['videos_scored']}, errors {stats['errors']}", flush=True)
+
+        # /healthz while a 70-clip request scores
+        long_name, done = "ServeLong_x264.mp4", threading.Event()
+        result = {}
+
+        def post_long():
+            result["answer"] = post_video(port, long_name)
+            done.set()
+
+        thread = threading.Thread(target=post_long, daemon=True)
+        thread.start()
+        health = []
+        while not done.is_set():
+            status, answer, seconds = http_request(port, "GET", "/healthz")
+            if status != 200 or answer["device"] != SERVE_DEVICE:
+                raise AssertionError(f"/healthz: {status} {answer}")
+            if answer["scoring"]:
+                health.append(seconds)
+            time.sleep(0.02)
+        thread.join(HTTP_TIMEOUT)
+        check_served(long_name, result["answer"][1], one_shot[long_name])
+        if not health or max(health) > 1.0:
+            raise AssertionError(f"/healthz during a request: {health}")
+        print(f"serve: /healthz answered {len(health)} times while the 70-clip request scored "
+              f"({result['answer'][2] * 1e3:.1f} ms), max {max(health) * 1e3:.1f} ms", flush=True)
+
+        burst = [n for n in SERVE_VIDEOS if n.startswith("Burst")]
+        replies = {}
+
+        def post(name):
+            replies[name] = post_video(port, name)
+
+        threads = [threading.Thread(target=post, args=(n,), daemon=True) for n in burst]
+        start = time.perf_counter()
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(HTTP_TIMEOUT)
+        wall = time.perf_counter() - start
+        for name in burst:
+            status, answer, _ = replies[name]
+            if status != 200 or answer["n_clips"] != SERVE_VIDEOS[name]:
+                raise AssertionError(f"burst {name}: {status} {answer}")
+            check_served(name, answer, one_shot[name])
+        stats = http_request(port, "GET", "/stats")[1]
+        if stats["errors"] != 0:
+            raise AssertionError(f"burst: /stats {stats}")
+        clips = sum(SERVE_VIDEOS[n] for n in burst)
+        print(f"serve: a burst of {len(burst)} concurrent POSTs ({clips} clips: "
+              f"{[SERVE_VIDEOS[n] for n in burst]}) answered in {wall * 1e3:.1f} ms, "
+              f"{clips / wall:.2f} clips/s, each its own n_clips, /stats errors 0", flush=True)
+
+
+def check_int8_serving(torch, root: str, argv: list) -> None:
+    """Phase 13 (b): one request through a ``--dtype int8`` server: K4 >=
+    27 and K5 >= 26 launches, scores in [0, 1]."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    with serving(argv + ["--outdir", os.path.join(root, "served_int8"), "--dtype", "int8"]) as port:
+        kernels.reset_launch_counts()
+        status, answer, seconds = post_video(port, "Serve000_x264.mp4")
+        counts = kernels.launch_counts()
+    clip = np.asarray(answer.get("clip_scores", []))
+    if status != 200 or counts["int8_matmul"] < 27 or counts["int8_conv"] < 26 or not (
+            clip.size == 24 and np.isfinite(clip).all() and (clip >= 0).all()
+            and (clip <= 1).all()):
+        raise AssertionError(f"int8 serving: {status}, launches {counts}, scores {clip}")
+    print(f"serve int8: one 24-clip request (calibrating) in {seconds * 1e3:.1f} ms, launches "
+          f"K4 {counts['int8_matmul']}, K5 {counts['int8_conv']}, K1 "
+          f"{counts['ten_crop_standardize']}; scores in [0, 1]", flush=True)
+
+
+def check_watch(torch, root: str, argv: list, one_shot: dict) -> None:
+    """Phase 13 (c): ``infer --watch`` over two videos, a third dropped in."""
+    import threading
+
+    from anomaly_detection_on_video_tpu_torch import infer
+
+    names = [f"Serve00{i}_x264.mp4" for i in range(3)]
+    watched, outdir = os.path.join(root, "watched"), os.path.join(root, "watch_scores")
+    os.makedirs(watched)
+    for name in names[:2]:
+        open(os.path.join(watched, name), "wb").close()
+    drop = threading.Timer(1.0, lambda: open(os.path.join(watched, names[2]), "wb").close())
+    drop.start()
+    start = time.perf_counter()
+    try:
+        infer.main(argv + ["--videos", watched, "--outdir", outdir, "--watch",
+                           "--poll-interval", "0.2", "--idle-exit", "3"])
+    finally:
+        drop.cancel()
+    wall = time.perf_counter() - start
+    errors = []
+    for name in names:
+        with open(os.path.join(outdir, f"{os.path.splitext(name)[0]}_scores.json")) as f:
+            errors.append(check_served(name, json.load(f), one_shot[name]))
+    with open(os.path.join(outdir, "_serving_stats.json")) as f:
+        stats = json.load(f)
+    if (stats["videos_scored"], stats["errors"], stats["watching"]) != (3, 0, 3):
+        raise AssertionError(f"watch: _serving_stats.json {stats}")
+    print(f"watch: 2 videos, a third dropped in after 1 s, --poll-interval 0.2 --idle-exit 3: "
+          f"3 scored, 0 errors, {wall:.2f} s; clip scores vs the one-shot CLI max |diff| "
+          f"{max(errors):.2e}", flush=True)
+
+
+def check_export(torch, root: str, checkpoint: str, features: dict, one_shot: dict) -> None:
+    """Phase 13 (d): ``--export`` on the card and on the CPU; each
+    artifact scored on the card against the live scorer (gate 1e-5); the
+    exported and live scoring calls timed in turns; the CPU's artifact
+    served by ``infer --from-export`` on the card."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import infer
+    from anomaly_detection_on_video_tpu_torch.utils.aot import ExportedScorer
+
+    live, _ = infer.build_scorer(infer.build_parser().parse_args(
+        ["--outdir", root, "--checkpoint", checkpoint, "--device", SERVE_DEVICE]))
+    exports = {}
+    for device in (SERVE_DEVICE, "cpu"):
+        exports[device] = os.path.join(root, f"export_{device}")
+        start = time.perf_counter()
+        printed = run_cli(infer, ["--outdir", root, "--checkpoint", checkpoint, "--export",
+                                  exports[device], "--export-max-clips", "32", "--device", device])
+        print(f"export on {device}: {time.perf_counter() - start:.2f} s for 1 bucket (32)",
+              flush=True)
+        if f"exported mgfn scorer for buckets [32] (10 crops, {FEATURE_DIM}-d" not in printed:
+            raise AssertionError(f"--export on {device}: {printed}")
+    for device, directory in exports.items():
+        exported = ExportedScorer(directory, SERVE_DEVICE)
+        for name, feats in features.items():
+            got, want = exported.score(feats), infer.score_features(feats, live)
+            err = score_error(got, want)
+            print(f"exported on {device}, scored on the card, {name}: max |diff| from the live "
+                  f"scorer {err:.2e} ({'bit-equal' if np.array_equal(got, want) else 'not bit-equal'})",
+                  flush=True)
+            if not err <= 1e-5:
+                raise AssertionError(f"exported ({device}) vs live scores: {err:.2e}")
+    request = features["the 4-clip request"]
+    times = {"exported": [], "live": []}
+    exported = ExportedScorer(exports[SERVE_DEVICE], SERVE_DEVICE)
+    runs = (("exported", lambda: exported.score(request)),
+            ("live", lambda: infer.score_features(request, live)))
+    for i in range(20):
+        for label, run in runs[::1 if i % 2 else -1]:
+            t0 = time.perf_counter()
+            run()  # ends in a copy to the host
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    print("scoring the 4-clip request, 20 calls in turns: " + "; ".join(
+        f"{k} median {np.median(v):.3f} ms ({min(v):.3f}-{max(v):.3f})" for k, v in times.items()),
+        flush=True)
+    # the CLI path: one-shot --from-export of the CPU's artifact on the card
+    outdir = os.path.join(root, "from_export")
+    names = [n for n in one_shot if n.startswith("Serve0")][:2]
+    request_dir = os.path.join(root, "from_export_videos")
+    os.makedirs(request_dir)
+    for name in names:
+        open(os.path.join(request_dir, name), "wb").close()
+    run_cli(infer, ["--videos", request_dir, "--from-export", exports["cpu"], "--outdir", outdir,
+                    "--features-dir", os.path.join(root, "one_shot_features"), "--device",
+                    SERVE_DEVICE])
+    for name in names:
+        with open(os.path.join(outdir, f"{os.path.splitext(name)[0]}_scores.json")) as f:
+            err = check_served(name, json.load(f), one_shot[name])
+    print(f"infer --from-export (the CPU's artifact) on the card: {len(names)} videos, clip scores "
+          f"vs the live one-shot CLI max |diff| {err:.2e}", flush=True)
+
+
+def serve_stand_in(argv) -> int:
+    """``infer.main(argv)`` with phase 13's stand-in decode: the body of
+    the restart-cost subprocesses."""
+    from anomaly_detection_on_video_tpu_torch import infer
+
+    print("restart child: torch and the port imported", flush=True)
+    STAND_IN_VIDEOS.update(SERVE_VIDEOS)
+    with stand_in_decode():
+        return infer.main(argv)
+
+
+def time_restart(root: str, argv: list, cache: str, tag: str, label: str) -> None:
+    """Phase 13 (e): launch ``infer --serve 0 --warmup 24 --compile-cache
+    cache`` as a process; time launch to ``serving on`` and to the first
+    reply; then SIGTERM: exit code 0 and ``shutting down`` in its log."""
+    import re
+    import signal
+    import threading
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-c", RESTART_CHILD] + argv + [
+        "--outdir", os.path.join(root, f"restart_{tag}"), "--serve", "0", "--warmup", "24",
+        "--compile-cache", cache]
+    lines, arrived, ready = [], {}, threading.Event()
+    start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, bufsize=1, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    try:
+        def read():
+            for line in proc.stdout:
+                lines.append(line)
+                for mark in ("restart child", "warmup done", "serving on"):
+                    if line.startswith(mark):
+                        arrived.setdefault(mark, time.perf_counter() - start)
+                if line.startswith("serving on "):
+                    ready.set()
+            ready.set()
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        if not ready.wait(600) or proc.poll() is not None:
+            raise AssertionError(f"restart ({label}): no server: {''.join(lines)[-4000:]}")
+        up = time.perf_counter() - start
+        port = int(re.search(r"serving on .*:(\d+)", "".join(lines)).group(1))
+        status, answer, _ = post_video(port, "Serve000_x264.mp4")
+        first = time.perf_counter() - start
+        if status != 200 or answer["n_clips"] != 24:
+            raise AssertionError(f"restart ({label}): first reply {status} {answer}")
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(120)
+        reader.join(30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    log = "".join(lines)
+    if code != 0 or "shutting down" not in log:
+        raise AssertionError(f"restart ({label}): exit code {code}, log {log[-4000:]}")
+    warmup = re.search(r"warmup done in ([0-9.]+)s", log)
+    print(f"restart, {label} --compile-cache: launch to 'serving on' {up:.2f} s, to the first "
+          f"reply (24 clips) {first:.2f} s; SIGTERM: exit code 0, 'shutting down' logged; "
+          f"launch to torch and the port imported {arrived.get('restart child', float('nan')):.2f}"
+          f" s, to 'warmup done' {arrived.get('warmup done', float('nan')):.2f} s (the warm-up, "
+          f"kernel build included, {warmup.group(1) if warmup else '?'} s)", flush=True)
+
+
+def check_serving_on_card(torch, root: str, checkpoint: str, weights: str, request) -> None:
+    """Phase 13: serving on the card through ``infer``'s serving surface,
+    on phase 8's MGFN checkpoint and stand-in videos (bf16, ten crops):
+    (a)-(c) with the one-shot CLI's scores as the reference, (d) the
+    exported scorer, (e) restart costs."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import infer
+
+    start = time.perf_counter()
+    STAND_IN_VIDEOS.update(SERVE_VIDEOS)
+    argv = ["--checkpoint", checkpoint, "--i3d-weights", weights, "--device", SERVE_DEVICE]
+    try:
+        with stand_in_decode():
+            # the reference: the one-shot CLI over every phase-13 video
+            videos, cached = os.path.join(root, "one_shot_videos"), os.path.join(
+                root, "one_shot_features")
+            os.makedirs(videos)
+            for name in SERVE_VIDEOS:
+                open(os.path.join(videos, name), "wb").close()
+            t0 = time.perf_counter()
+            run_cli(infer, argv + ["--videos", videos, "--outdir", os.path.join(root, "one_shot"),
+                                   "--features-dir", cached])
+            print(f"one-shot infer over the {len(SERVE_VIDEOS)} phase-13 videos: "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+            one_shot = {}
+            for name in SERVE_VIDEOS:
+                with open(os.path.join(root, "one_shot",
+                                       f"{os.path.splitext(name)[0]}_scores.json")) as f:
+                    one_shot[name] = json.load(f)
+            check_http_serving(torch, root, argv, one_shot)
+            torch.cuda.empty_cache()
+            check_int8_serving(torch, root, argv)
+            torch.cuda.empty_cache()
+            check_watch(torch, root, argv, one_shot)
+        features = {"the 4-clip request": request, "a 24-clip video": np.load(
+            os.path.join(cached, "Serve000_x264_i3d.npy"))}
+        check_export(torch, root, checkpoint, features, one_shot)
+    finally:
+        for name in SERVE_VIDEOS:
+            STAND_IN_VIDEOS.pop(name, None)
+            StandInDecoder.chunks.pop(name, None)
+    torch.cuda.empty_cache()
+    cache = os.path.join(root, "kernel_cache")
+    time_restart(root, argv, cache, "cold", "cold (an empty directory: nvcc builds)")
+    time_restart(root, argv, cache, "warm", "warm (the directory holds the build)")
+    print(f"serving phase (13): {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2384,7 +2821,7 @@ def main() -> int:
     from anomaly_detection_on_video_tpu_torch.infer import score_features
     from anomaly_detection_on_video_tpu_torch.models import MGFN, seeded_init_
     from anomaly_detection_on_video_tpu_torch.ops import kernels
-    from anomaly_detection_on_video_tpu_torch.ops.kernels._build import build
+    from anomaly_detection_on_video_tpu_torch.ops.kernels._build import build, library_path
     from anomaly_detection_on_video_tpu_torch.ops.kernels.crop_norm import ten_crop_standardize_plain
     from anomaly_detection_on_video_tpu_torch.ops.kernels.stem import stem_kernel_info
     from anomaly_detection_on_video_tpu_torch.ops.metrics import frame_level_scores
@@ -2397,9 +2834,12 @@ def main() -> int:
           flush=True)
 
     # 1. build
+    cold = not library_path().exists()
     t0 = time.perf_counter()
     lib = build()
-    print(f"build: {time.perf_counter() - t0:.1f} s ({lib.path.name})", flush=True)
+    print(f"build: {time.perf_counter() - t0:.1f} s ({lib.path}; "
+          f"{'cold: nvcc ran' if cold else 'warm: a library of these sources was there'})",
+          flush=True)
     for line in lib.log.splitlines():
         if "registers" in line or "==" in line or "error" in line.lower():
             print("  " + line.strip(), flush=True)
@@ -2570,6 +3010,12 @@ def main() -> int:
         # (1,2,2)), the non-local i3res50, the S2D stem, and the CLIs
         stem_s1 = check_other_backbones(torch, work, scorer, checkpoints["mgfn"], bulk_frames,
                                         resize_clips)
+        torch.cuda.empty_cache()
+
+        # 13. serving on the card: --serve, --dtype int8, --watch, --export /
+        # --from-export, and restarts with --compile-cache
+        check_serving_on_card(torch, work, checkpoints["mgfn"], os.path.join(work, "i3res50.pt"),
+                              features)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
