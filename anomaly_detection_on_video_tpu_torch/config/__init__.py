@@ -7,6 +7,7 @@ from .compose import (
     parse_overrides,
     parse_value,
     resolve_interpolations,
+    to_container,
 )
 from .registry import instantiate, locate
 
@@ -17,6 +18,7 @@ __all__ = [
     "parse_overrides",
     "parse_value",
     "resolve_interpolations",
+    "to_container",
     "instantiate",
     "locate",
 ]

@@ -349,6 +349,12 @@ def compose(
     return resolve_interpolations(cfg)
 
 
+def to_container(cfg: Any) -> Any:
+    """A plain-container copy of ``cfg`` (a deep copy: composed configs are
+    plain dicts already), kept for the JAX package's API."""
+    return copy.deepcopy(cfg)
+
+
 # ${...} interpolation grammar (innermost-first so ${a.${b}} resolves)
 _INTERP = re.compile(r"\$\{([^${}]+)\}")
 # placeholder protecting the \${ escape during substitution

@@ -2,7 +2,8 @@
 
     python -m anomaly_detection_on_video_tpu_torch.extract_features \\
         --videos clips/ --outdir features/ [--split train|test] \\
-        [--model tushar-n-baseline|i3d_8x8_r50] [--weights i3res50.pt|I3D_8x8_R50.pyth] \\
+        [--model tushar-n-baseline|i3d_8x8_r50] \\
+        [--weights i3res50.pt|i3d.msgpack|I3D_8x8_R50.pyth] \\
         [--dtype bfloat16|float32|int8] [--batch 240] \\
         [--crops ten|center] [--decode-workers N] [--profile] \\
         [--stream rgb|flow|both] [--flow-backend host|device|tvl1] \\
@@ -37,9 +38,10 @@ JAX package's sidecars, so a resumed run quantizes as the first did. On an H100
 int8 is currently slower than bfloat16 and uses more memory (PERF.md,
 section 5). ``--model`` picks the backbone, ``tushar-n-baseline`` (the
 default) or ``i3d_8x8_r50``, for both streams; ``--weights`` is its weight
-file, read as the JAX CLI's ``load_weights`` reads it (an I3Res50 state
-dict, or for ``i3d_8x8_r50`` a pytorchvideo ``.pyth`` whose
-``model_state`` is converted), with seeded random weights when unset;
+file, read as the JAX CLI's ``load_weights`` reads it (flax variables in a
+``.msgpack`` file, an I3Res50 state dict, or for ``i3d_8x8_r50`` a
+pytorchvideo ``.pyth`` whose ``model_state`` is converted), with seeded
+random weights when unset;
 keys the model does not have (a Kinetics head) are dropped with a printed
 line, as the JAX converter ignores them. ``--compile-cache DIR`` builds the
 CUDA kernels into DIR and loads them from there
@@ -79,9 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--model", default="tushar-n-baseline", choices=sorted(MODEL_ZOO),
                         help="I3D backbone")
     parser.add_argument("--weights", default=None,
-                        help="the backbone's weights: an I3Res50 state dict (.pt), or for "
-                             "i3d_8x8_r50 a pytorchvideo file (.pyth); seeded random weights "
-                             "if unset")
+                        help="the backbone's weights: flax variables (.msgpack, any backbone), an "
+                             "I3Res50 state dict (.pt), or for i3d_8x8_r50 a pytorchvideo file "
+                             "(.pyth); seeded random weights if unset")
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"],
                         help="float32 for parity runs (exact resize); int8 quantizes the "
                              "convs, currently slower than bfloat16 on an H100 (PERF.md sec. 5)")

@@ -10,7 +10,8 @@ endpoint, an exported scorer)::
         [--model mgfn|rtfm|sultani] [--model-config k=v ...] \\
         [--threshold t --min-event-frames n] [--features-dir <cache>] \\
         [--frames-per-clip n] [--group-mode adaptive|fixed] [--warmup clips] \\
-        [--i3d-model tushar-n-baseline|i3d_8x8_r50] [--i3d-weights i3res50.pt|I3D_8x8_R50.pyth] \\
+        [--i3d-model tushar-n-baseline|i3d_8x8_r50] \\
+        [--i3d-weights i3res50.pt|i3d.msgpack|I3D_8x8_R50.pyth] \\
         [--dtype bfloat16|float32|int8] [--batch 240] \\
         [--crops ten|center] [--stream rgb|flow|both] \\
         [--flow-backend host|device|tvl1] [--compile-cache DIR] [--device cuda] \\
@@ -37,8 +38,9 @@ names, ``--official`` for the official release's; RTFM: the official
 release's, BatchNorms after a conv folded; Sultani: ``fc1``-``fc3``).
 ``--i3d-model`` picks the backbone (``tushar-n-baseline``, the default, or
 ``i3d_8x8_r50``); ``--i3d-weights`` is its weight file, read as the JAX
-CLI's ``load_weights`` reads it (``load_i3d_weights``: a ``.pyth`` file's
-``model_state`` unwrapped; ``i3d_8x8_r50`` weights in pytorchvideo's names),
+CLI's ``load_weights`` reads it (``load_i3d_weights``: flax variables in a
+``.msgpack`` file; a ``.pyth`` file's ``model_state`` unwrapped;
+``i3d_8x8_r50`` weights in pytorchvideo's names),
 with seeded random weights when unset, as the JAX CLI initializes randomly.
 
 ``--dtype int8`` runs the I3D convs in int8 (kernels K4 and K5) around
@@ -123,6 +125,7 @@ from .utils.aot import (
 )
 from .utils.compile_cache import enable_compile_cache
 from .utils.convert import (
+    i3d_state_dict_from_flax,
     i3d_state_dict_from_pytorchvideo,
     load_known_keys,
     mgfn_key_refused,
@@ -131,6 +134,7 @@ from .utils.convert import (
 )
 from .utils.device import resolve_device
 from .utils.npyio import atomic_save, atomic_write_bytes
+from .utils.serialization import load_variables
 
 FEATURE_DIM = 2048  # one stream's features per crop
 Scorer = Union[nn.Module, ExportedScorer]  # a live model or its exported programs
@@ -145,11 +149,15 @@ def load_state_dict(path: str) -> dict:
 
 def load_i3d_weights(path: str, model_name: str) -> dict:
     """An I3D weight file -> the port's state dict for ``model_name``, as
-    the JAX CLIs' ``load_weights`` reads a torch file: a ``.pyth`` file's
-    ``model_state`` (or a ``state_dict`` wrapper) unwrapped, then
-    ``i3d_8x8_r50`` weights from pytorchvideo's names
-    (``i3d_state_dict_from_pytorchvideo``); i3res50 weights already carry
-    the reference's names."""
+    the JAX CLIs' ``load_weights`` reads it: a ``.msgpack`` file holds flax
+    variables (``scripts/convert_checkpoint.py --kind i3d``'s output), read
+    by the port's own codec and mapped by ``i3d_state_dict_from_flax`` for
+    every backbone; a torch file's ``.pyth`` ``model_state`` (or a
+    ``state_dict`` wrapper) is unwrapped, then ``i3d_8x8_r50`` weights are
+    taken from pytorchvideo's names (``i3d_state_dict_from_pytorchvideo``);
+    i3res50 weights already carry the reference's names."""
+    if path.endswith(".msgpack"):
+        return i3d_state_dict_from_flax(load_variables(path))
     state_dict = load_state_dict(path)
     if isinstance(state_dict, dict) and "model_state" in state_dict:
         state_dict = state_dict["model_state"]  # pytorchvideo .pyth layout
@@ -655,9 +663,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--i3d-model", default="tushar-n-baseline", choices=sorted(MODEL_ZOO),
                         help="I3D backbone of the features")
     parser.add_argument("--i3d-weights", default=None,
-                        help="the backbone's weights: an I3Res50 state dict (.pt), or for "
-                             "i3d_8x8_r50 a pytorchvideo file (.pyth); seeded random weights "
-                             "if unset")
+                        help="the backbone's weights: flax variables (.msgpack, any backbone), an "
+                             "I3Res50 state dict (.pt), or for i3d_8x8_r50 a pytorchvideo file "
+                             "(.pyth); seeded random weights if unset")
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"],
                         help="I3D compute dtype; int8 quantizes the convs (scales calibrated "
                              "on the first chunk and pinned to --features-dir or --outdir); "

@@ -18,7 +18,8 @@ scores of the valid prefix equal an unpadded run.
 
 Training (``MGFN.outputs``, the JAX ``MGFNForVideoAnomalyDetection``
 outputs): in train mode ``TorchBatchNorm`` normalizes with batch statistics
-and updates its running ones, the normal and abnormal halves of the batch
+and updates its running ones, every feed-forward block drops at
+``MGFNConfig.dropout`` after its GELU, the normal and abnormal halves of the batch
 each take a dropout-masked top-k selection of clips by feature magnitude
 (``_magnitude_selection``), and the MIL loss (``losses/``) is computed from
 the selected scores and features.
@@ -34,7 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...losses import mgfn_loss, smoothness_loss, sparsity_loss
-from ..common import clip_masks, resolve_train
+from ..common import clip_masks, dropout, resolve_train
 from .config import MGFNConfig
 
 
@@ -91,16 +92,24 @@ class TorchBatchNorm(nn.BatchNorm1d):
 
 
 class FeedForward(nn.Module):
-    """Conv-MLP: channel LayerNorm, 1x1 conv up, exact GELU, 1x1 conv down."""
+    """Conv-MLP: channel LayerNorm, 1x1 conv up, exact GELU, dropout, 1x1
+    conv down. In train mode the GELU's output goes through
+    ``common.dropout`` at rate ``self.dropout`` (flax's ``nn.Dropout`` after
+    the JAX model's GELU, its mask from ``generator``); in eval mode nothing
+    is dropped."""
 
-    def __init__(self, dim: int, repe: int = 4):
+    def __init__(self, dim: int, repe: int = 4, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.layer_norm = ChannelLayerNorm(dim)
         self.in_conv = nn.Conv1d(dim, dim * repe, 1)
         self.out_conv = nn.Conv1d(dim * repe, dim, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out_conv(F.gelu(self.in_conv(self.layer_norm(x))))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = F.gelu(self.in_conv(self.layer_norm(x)))
+        if self.training:
+            x = dropout(x, self.dropout, generator)
+        return self.out_conv(x)
 
 
 class FeatureAmplifier(nn.Module):
@@ -176,30 +185,30 @@ class FocusAttention(nn.Module):
 
 
 class _Block(nn.Module):
-    def __init__(self, attention: nn.Module, dim: int, ff_repe: int):
+    def __init__(self, attention: nn.Module, dim: int, config: MGFNConfig):
         super().__init__()
         self.scc = nn.Conv1d(dim, dim, 3, padding=1)
         self.attention = attention
-        self.ffn = FeedForward(dim, ff_repe)
+        self.ffn = FeedForward(dim, config.ff_repe, config.dropout)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if mask is not None:
             x = x * mask  # zero pads before the k3 shortcut conv
         x = self.scc(x) + x
         x = self.attention(x, mask) + x
-        return self.ffn(x) + x
+        return self.ffn(x, generator) + x
 
 
 class GlanceBlock(_Block):
     def __init__(self, config: MGFNConfig, dim: int, heads: int):
-        super().__init__(GlanceAttention(dim, heads, config.dim_head), dim, config.ff_repe)
+        super().__init__(GlanceAttention(dim, heads, config.dim_head), dim, config)
 
 
 class FocusBlock(_Block):
     def __init__(self, config: MGFNConfig, dim: int, heads: int):
         super().__init__(
-            FocusAttention(dim, heads, config.dim_head, config.local_aggr_kernel),
-            dim, config.ff_repe)
+            FocusAttention(dim, heads, config.dim_head, config.local_aggr_kernel), dim, config)
 
 
 class Intermediate(nn.Module):
@@ -210,7 +219,8 @@ class Intermediate(nn.Module):
         self.layer_norm = ChannelLayerNorm(in_dim)
         self.conv = nn.Conv1d(in_dim, out_dim, 1)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.conv(self.layer_norm(x))
 
 
@@ -230,13 +240,16 @@ class MGFNModel(nn.Module):
                 blocks.append(Intermediate(dim, config.dims[stage + 1]))
             self.layers.append(nn.ModuleList(blocks))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` feeds the feed-forward dropout masks in train mode,
+        drawn in module order (stage by stage, block by block)."""
         if mask is not None:
             x = x * mask  # zero pads before the k3 amplifier convs
         x = self.amplifier(x)
         for blocks in self.layers:
             for block in blocks:
-                x = block(x, mask)
+                x = block(x, mask, generator)
         return x
 
 
@@ -260,14 +273,15 @@ class MGFN(nn.Module):
         """
         return self._head(video, length)[1]
 
-    def _head(self, video: torch.Tensor, length: Optional[torch.Tensor]):
+    def _head(self, video: torch.Tensor, length: Optional[torch.Tensor],
+              generator: Optional[torch.Generator] = None):
         """-> (head features (bs*ncrops, t, dim), crop-averaged scores
         (bs, t, 1), crop-averaged feature magnitudes (bs, t))."""
         bs, ncrops, t, c = video.shape
         x = video.reshape(bs * ncrops, t, c).transpose(1, 2)  # (B, C, T)
         video_mask, row_mask = clip_masks(length, t, ncrops, video.device)
         mask = None if row_mask is None else row_mask[:, None].to(x.dtype)  # (1|B, 1, t)
-        x = self.layer_norm(self.backbone(x, mask).transpose(1, 2))  # (B, T, C)
+        x = self.layer_norm(self.backbone(x, mask, generator).transpose(1, 2))  # (B, T, C)
         scores = torch.sigmoid(self.fc(x))  # (bs*ncrops, t, 1)
         scores = scores.reshape(bs, ncrops, t).mean(dim=1)[..., None]
         magnitudes = torch.linalg.vector_norm(x, dim=2).reshape(bs, ncrops, t).mean(dim=1)
@@ -295,16 +309,16 @@ class MGFN(nn.Module):
         the second the abnormal ones (the runner's normal-first order), and
         each half selects its top-k clips by feature magnitude under a
         dropout mask drawn from ``generator`` (abnormal first, then normal;
-        needed when ``config.dropout_rate > 0``). With both label vectors
-        the MIL loss is computed: ``mgfn_loss`` + smoothness + sparsity.
+        needed when ``config.dropout_rate > 0``). In train mode with
+        ``config.dropout > 0`` every feed-forward block draws its dropout
+        mask from ``generator`` too, in module order and before the
+        selection masks. With both label vectors the MIL loss is computed:
+        ``mgfn_loss`` + smoothness + sparsity.
         """
         train = resolve_train(self, train)
-        if train and self.config.dropout > 0:
-            raise NotImplementedError("feed-forward dropout (MGFNConfig.dropout > 0) is not "
-                                      "ported; the repository's configs set it to 0")
         cfg = self.config
         bs, ncrops, t, _ = video.shape
-        x, scores, magnitudes = self._head(video, length)
+        x, scores, magnitudes = self._head(video, length, generator)
         if force_split or train:
             half = bs // 2
             normal_features, abnormal_features = x[: half * ncrops], x[half * ncrops:]

@@ -12,18 +12,27 @@ raises. ``main`` composes the config and calls ``train(cfg, device)``,
 which takes a composed dict and needs no PyYAML. ``trainer.eval_only``
 prints one JSON line of metrics. ``trainer.compile_cache: DIR`` builds the
 CUDA kernels into DIR and loads them from there
-(``utils/compile_cache.py``). Not ported: multirun sweeps (``-m``), W&B
-logging and eval figures.
+(``utils/compile_cache.py``). ``-m`` sweeps comma-separated override values
+as the root ``run.py`` does, one job after another, each a process of this
+module with the sweep's ``device=``:
+
+    python -m anomaly_detection_on_video_tpu_torch.run -m runner=mgfn seed=1,2,3 \
+        --multirun-dir sweeps/seed
+
+Not ported: W&B logging and eval figures.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
+import subprocess
 import sys
 from typing import Any, Dict, List, Optional, Tuple
 
-CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIG_DIR = os.path.join(REPO_ROOT, "configs")
 
 HELP = """\
 usage: python -m anomaly_detection_on_video_tpu_torch.run [GROUP=CHOICE ...] [KEY=VALUE ...] [flags]
@@ -39,6 +48,10 @@ overrides:
 flags:
   -h, --help        show this help and exit
   --cfg             print the composed config as YAML and exit
+  -m, --multirun    sweep comma-separated override values, e.g.
+                    `-m runner=mgfn seed=1,2,3` runs the cartesian product
+                    sequentially; each job writes under --multirun-dir
+  --multirun-dir D  sweep output root (default: multirun)
 
 config groups (configs/):
 """
@@ -67,6 +80,70 @@ def split_device(argv: List[str]) -> Tuple[List[str], str]:
         else:
             rest.append(arg)
     return rest, device
+
+
+def expand_multirun(argv: List[str]) -> List[List[str]]:
+    """Cartesian product of comma-separated override values (Hydra's -m).
+
+    Only bare comma lists sweep; YAML collections and quoted values
+    (``data.x=[1,2]``, ``key='a,b'``) stay single values.
+    """
+    per_arg = []
+    for arg in argv:
+        key, eq, value = arg.partition("=")
+        if eq and "," in value and not any(ch in value for ch in "[]{}\"'"):
+            per_arg.append([f"{key}={v}" for v in value.split(",")])
+        else:
+            per_arg.append([arg])
+    return [list(combo) for combo in itertools.product(*per_arg)]
+
+
+def run_multirun(config_dir: str, argv: List[str], sweep_dir: str, device: str) -> None:
+    """Run each sweep job in its own process, one after another, as the
+    root ``run.py`` does: every job gets its own writer paths
+    (``{sweep_dir}/{job}/metrics.jsonl``, and ``checkpoints`` / ``figures``
+    where the config sets them) unless the sweep's arguments set them, and
+    ``device``. Data paths are passed unchanged (give absolute ones). Each
+    job appends a line to ``{sweep_dir}/multirun.jsonl``; a failed job does
+    not stop the sweep, and the sweep exits naming how many failed."""
+    from .config import compose
+
+    jobs = expand_multirun(argv)
+    os.makedirs(sweep_dir, exist_ok=True)
+    explicit = {arg.partition("=")[0].lstrip("+~") for arg in argv}
+    # the job imports this package from wherever the sweep was started
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO_ROOT, os.environ.get("PYTHONPATH")) if p))
+    failures = 0
+    with open(os.path.join(sweep_dir, "multirun.jsonl"), "a") as log:
+        for idx, job_args in enumerate(jobs):
+            job_dir = os.path.join(sweep_dir, str(idx))
+            os.makedirs(job_dir, exist_ok=True)
+            extra = []
+            if "trainer.log_path" not in explicit:
+                extra.append(f"trainer.log_path={os.path.join(job_dir, 'metrics.jsonl')}")
+            try:
+                cfg = compose(config_dir, "default", job_args)
+            except (ValueError, KeyError, FileNotFoundError) as exc:
+                msg = exc.args[0] if exc.args else exc
+                raise SystemExit(f"config error in multirun job {idx} ({' '.join(job_args)}): "
+                                 f"{msg}\n(see --help)")
+            trainer_cfg = cfg.get("trainer", {})
+            if ((trainer_cfg.get("checkpoint") or {}).get("dirpath")
+                    and "trainer.checkpoint.dirpath" not in explicit):
+                extra.append("trainer.checkpoint.dirpath=" + os.path.join(job_dir, "checkpoints"))
+            if trainer_cfg.get("figure_dir") and "trainer.figure_dir" not in explicit:
+                extra.append(f"trainer.figure_dir={os.path.join(job_dir, 'figures')}")
+            print(f"[multirun] job {idx}/{len(jobs)}: {' '.join(job_args)}", flush=True)
+            proc = subprocess.run([sys.executable, "-m", "anomaly_detection_on_video_tpu_torch.run",
+                                   *job_args, *extra, f"device={device}"], env=env)
+            if proc.returncode:
+                failures += 1
+            log.write(json.dumps({"job": idx, "dir": job_dir, "overrides": job_args,
+                                  "returncode": proc.returncode}) + "\n")
+            log.flush()
+    if failures:
+        raise SystemExit(f"multirun: {failures} of {len(jobs)} jobs failed")
 
 
 def check_one_device(trainer_cfg: Dict[str, Any], device) -> None:
@@ -135,6 +212,7 @@ def train(cfg: Dict[str, Any], device: str = "cuda"):
     runner = VideoAnomalyDetectionRunner(
         model,
         optimizer_cfg=runner_cfg.get("optimizer", {}),
+        data_cfg=data_cfg,
         loggers=loggers,
         checkpointer=checkpointer,
         seed=int(cfg.get("seed", 0)),
@@ -228,11 +306,20 @@ def main(argv: Optional[List[str]] = None, config_dir: str = CONFIG_DIR):
     if "-h" in argv or "--help" in argv:
         print_help(config_dir)
         return None
-    if any(flag in argv for flag in ("-m", "--multirun", "--multirun-dir")):
-        raise SystemExit("multirun sweeps (-m) are not ported; run each job on its own")
+    sweep_dir = "multirun"
+    while "--multirun-dir" in argv:
+        i = argv.index("--multirun-dir")
+        try:
+            sweep_dir = argv[i + 1]
+        except IndexError:
+            raise SystemExit("--multirun-dir needs a directory argument")
+        del argv[i: i + 2]
     print_cfg = "--cfg" in argv
-    argv = [arg for arg in argv if arg != "--cfg"]
+    multirun = any(flag in argv for flag in ("-m", "--multirun"))
+    argv = [arg for arg in argv if arg not in ("--cfg", "-m", "--multirun")]
     argv, device = split_device(argv)
+    if multirun:
+        return run_multirun(config_dir, argv, sweep_dir, device)
 
     from .config import compose
 

@@ -2,7 +2,7 @@
 ``training/runner.py``).
 
 - ``TrainState``: the model, its optimizer, the optimizer-step count and
-  the generator the selection dropout draws from.
+  the generator the model's dropout masks draw from.
 - ``make_train_step``: one MIL step on a batch of normal then abnormal bags
   (the model's training forward and loss, backward, clip, coupled L2,
   Adam), in ``32-true`` or ``bf16-mixed``, optionally accumulated over
@@ -11,7 +11,8 @@
   scoring and frame-level ROC/PR AUC over a test set (``EvalResult``).
 - ``VideoAnomalyDetectionRunner``: the epoch loop with evaluation,
   checkpoints, logs, ``max_steps``, resume and a graceful stop on signals,
-  on one device.
+  on one device, its numpy batches assembled on a prefetch thread
+  (``data.num_workers >= 1``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from torch import nn
 
 from ..data.features import eval_batches, is_normal, train_batches, video_class
+from ..data.prefetch import prefetch
 from ..models import seeded_init_
 from ..ops.metrics import false_alarm_rate, frame_level_scores, pr_auc, roc_auc
 from ..utils.device import DeviceLike, full_f32, resolve_device
@@ -44,7 +46,7 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
-    generator: Optional[torch.Generator] = None  # the selection dropout's draws
+    generator: Optional[torch.Generator] = None  # the dropout masks' draws
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: torch.optim.Optimizer, seed: int = 0) -> "TrainState":
@@ -62,6 +64,20 @@ def _grouped(iterable, size: int):
             group = []
     if group:
         yield group
+
+
+_BATCH_KEYS = ("feature", "normal_labels", "abnormal_labels")
+
+
+def _step_batches(batches, accumulate: int):
+    """One optimizer step's numpy arrays per group of ``accumulate`` loader
+    batches: the batch's own arrays, or each key stacked over the group's
+    micro-batches. numpy only, so it may run on the prefetch thread."""
+    for group in _grouped(batches, accumulate):
+        if accumulate == 1:
+            yield [group[0][key] for key in _BATCH_KEYS]
+        else:
+            yield [np.stack([b[key] for b in group]) for key in _BATCH_KEYS]
 
 
 class _TrainForward(nn.Module):
@@ -82,11 +98,12 @@ def make_train_step(precision: str = "32-true", microbatched: bool = False) -> C
 
     ``feature`` holds the batch's normal bags then its abnormal ones, on
     the model's device and in its parameter dtype. The model runs in train
-    mode (batch-statistics BN, dropout-masked top-k from
-    ``state.generator``); the loss's gradients go through the optimizer
-    once. ``"32-true"`` runs with TF32 off. ``"bf16-mixed"`` runs the
-    forward and backward on bfloat16 copies of every float32 parameter and
-    of the batch, as the JAX step casts them; master parameters, their
+    mode (batch-statistics BN, MGFN's feed-forward dropout and
+    dropout-masked top-k, their masks from ``state.generator``); the loss's
+    gradients go through the optimizer once. ``"32-true"`` runs with TF32
+    off. ``"bf16-mixed"`` runs the forward and backward on bfloat16 copies of
+    every float32 parameter and of the batch, as the JAX step casts them;
+    master parameters, their
     gradients, the optimizer's moments and the BN statistics stay float32.
 
     ``microbatched=True``: every batch argument has a leading micro-batch
@@ -238,13 +255,19 @@ class EvalResult:
 
 
 def evaluate(state: TrainState, dataset, frames_per_clip: int = 16, eval_step=None,
-             batch_videos: int = 1) -> EvalResult:
+             batch_videos: int = 1, prefetch_assembly: bool = True) -> EvalResult:
     """Frame-level ROC/PR AUC over a test set.
 
     Videos are grouped by power-of-two clip bucket, up to ``batch_videos``
     to a device batch, scored with masking so padded clips do not change
     the valid ones, repeated to frame level, concatenated in dataset order
     and held against the concatenated ground truth.
+
+    As in the JAX ``evaluate``, up to two groups' scores are in flight
+    before the oldest is read back, and ``prefetch_assembly`` (the default)
+    pads the next groups on a worker thread (``data/prefetch.py``) while
+    this thread copies, launches and reads back. Both keep the serial order,
+    so the scores are the same either way; the worker touches numpy only.
     """
     eval_step = eval_step or make_eval_step()
     model = state.model
@@ -258,21 +281,41 @@ def evaluate(state: TrainState, dataset, frames_per_clip: int = 16, eval_step=No
         buckets.setdefault(eval_bucket(batch["feature"].shape[2]), []).append(batch)
         order.append((batch["filename"], np.asarray(batch["label"]).ravel()))
 
+    def assemble():
+        """(group, lengths, padded features) host batches, in serial order."""
+        for bucket, items in buckets.items():
+            for start in range(0, len(items), batch_videos):
+                group = items[start: start + batch_videos]
+                feats = np.zeros((len(group), 10, bucket, group[0]["feature"].shape[3]),
+                                 np.float32)
+                lengths = np.zeros((len(group),), np.int64)
+                for k, item in enumerate(group):
+                    n_clips = item["feature"].shape[2]
+                    feats[k, :, :n_clips] = item["feature"][0]
+                    lengths[k] = n_clips
+                yield group, lengths, feats
+
     per_video: Dict[str, np.ndarray] = {}
-    for bucket, items in buckets.items():
-        for start in range(0, len(items), batch_videos):
-            group = items[start: start + batch_videos]
-            feats = np.zeros((len(group), 10, bucket, group[0]["feature"].shape[3]), np.float32)
-            lengths = np.zeros((len(group),), np.int64)
-            for k, item in enumerate(group):
-                n_clips = item["feature"].shape[2]
-                feats[k, :, :n_clips] = item["feature"][0]
-                lengths[k] = n_clips
+
+    def materialize(entry) -> None:
+        group, lengths, scores = entry
+        scores = scores.float().cpu().numpy()
+        for k, item in enumerate(group):
+            per_video[item["filename"]] = scores[k, : lengths[k], 0]
+
+    groups = prefetch(assemble(), depth=2) if prefetch_assembly else assemble()
+    pending = []
+    try:
+        for group, lengths, feats in groups:
             scores = eval_step(model, torch.from_numpy(feats).to(param.device, param.dtype),
                                torch.from_numpy(lengths).to(param.device))
-            scores = scores.float().cpu().numpy()
-            for k, item in enumerate(group):
-                per_video[item["filename"]] = scores[k, : lengths[k], 0]
+            pending.append((group, lengths, scores))
+            if len(pending) >= 2:
+                materialize(pending.pop(0))
+    finally:
+        groups.close()
+    for entry in pending:
+        materialize(entry)
 
     all_preds, all_labels = [], []
     videos: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
@@ -293,12 +336,14 @@ def evaluate(state: TrainState, dataset, frames_per_clip: int = 16, eval_step=No
 class VideoAnomalyDetectionRunner:
     """The epoch loop (the reference's LightningModule role) on one device:
     a model and its optimizer settings, with evaluation, checkpoints and
-    logs."""
+    logs. ``data_cfg`` is the data config group; the runner reads its
+    ``num_workers``."""
 
     def __init__(
         self,
         model: nn.Module,
         optimizer_cfg: Optional[Dict[str, Any]] = None,
+        data_cfg: Optional[Dict[str, Any]] = None,
         loggers: Iterable = (),
         checkpointer=None,
         seed: int = 0,
@@ -317,6 +362,9 @@ class VideoAnomalyDetectionRunner:
         self.accumulate_grad_batches = accumulate_grad_batches
         self.device = resolve_device(device)
         self.model = model
+        # the loader's prefetch thread (configs/data/default.yaml num_workers: 8,
+        # a torch DataLoader knob there): any value >= 1 prefetches, 0 is synchronous
+        self.num_workers = int(dict(data_cfg or {}).get("num_workers", 8) or 0)
         self.loggers = list(loggers)
         self.checkpointer = checkpointer
         self.seed = seed
@@ -346,9 +394,10 @@ class VideoAnomalyDetectionRunner:
         for logger in self.loggers:
             logger.log(metrics, step)
 
-    def evaluate(self, valid_dataset, frames_per_clip: int = 16) -> EvalResult:
+    def evaluate(self, valid_dataset, frames_per_clip: int = 16,
+                 prefetch_assembly: bool = True) -> EvalResult:
         return evaluate(self.state, valid_dataset, frames_per_clip, self._eval_step,
-                        self.eval_batch_videos)
+                        self.eval_batch_videos, prefetch_assembly)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         dtype = next(self.state.model.parameters()).dtype
@@ -438,27 +487,33 @@ class VideoAnomalyDetectionRunner:
             t0 = time.time()
             batches = train_batches(normal, abnormal, batch_size=batch_size, shuffle=shuffle,
                                     seed=self.seed, epoch=epoch)
+            # one optimizer step per group of loader batches; with num_workers
+            # >= 1 a thread assembles the next steps' numpy arrays while this one
+            # copies them to the device and runs the step (order-preserving, so
+            # the losses are those of the serial loop)
+            steps = _step_batches(batches, accumulate)
+            if self.num_workers > 0:
+                steps = prefetch(steps, depth=2)
             stopped = False
-            for group in _grouped(batches, accumulate):
-                if self.state is None:
-                    self.init_state()
-                if accumulate == 1:
-                    parts = [group[0][key] for key in ("feature", "normal_labels", "abnormal_labels")]
-                else:
-                    # one optimizer step per group of loader batches
-                    parts = [np.stack([b[key] for b in group])
-                             for key in ("feature", "normal_labels", "abnormal_labels")]
-                loss = float(self._train_step(self.state, *map(self._to_device, parts)))
-                epoch_losses.append(loss)
-                if (step + 1) % log_every == 0:
-                    self._log({"train_loss": loss, "lr-Adam": self.learning_rate}, step)
-                step += 1
-                if max_steps >= 0 and step >= max_steps:
-                    hit_max = True
-                    break
-                if stop_signal["num"] is not None:
-                    stopped = True
-                    break
+            try:
+                for parts in steps:
+                    if self.state is None:
+                        self.init_state()
+                    loss = float(self._train_step(self.state, *map(self._to_device, parts)))
+                    epoch_losses.append(loss)
+                    if (step + 1) % log_every == 0:
+                        self._log({"train_loss": loss, "lr-Adam": self.learning_rate}, step)
+                    step += 1
+                    if max_steps >= 0 and step >= max_steps:
+                        hit_max = True
+                        break
+                    if stop_signal["num"] is not None:
+                        stopped = True
+                        break
+            finally:
+                # a max_steps or signal break leaves the epoch's iterator open:
+                # close it now, so the prefetch thread stops loading at once
+                steps.close()
             if stopped:
                 # skip eval (the grace period is short) and save the exact step
                 saved = False

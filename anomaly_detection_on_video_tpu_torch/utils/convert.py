@@ -5,9 +5,10 @@ The ``*_from_flax`` functions are the port's own copy of the JAX package's
 exporters (``export_{i3res50,mgfn,rtfm,sultani}_state_dict`` in its
 ``utils/convert.py``). Each takes the ``{"params", "batch_stats"}`` tree as
 nested dicts of numpy arrays and returns the state dict that
-``load_state_dict`` takes on the port's models (and the reference's). One
-I3D tree serves every variant (i3res50 with or without non-local blocks,
-``i3d_8x8_r50``); ``i3d_state_dict_{from,to}_pytorchvideo`` move it to and
+``load_state_dict`` takes on the port's models (and the reference's);
+``i3d_state_dict_to_flax`` is the inverse for I3D. One I3D tree serves every
+variant (i3res50 with or without non-local blocks, ``i3d_8x8_r50``);
+``i3d_state_dict_{from,to}_pytorchvideo`` move it to and
 from pytorchvideo's ``create_resnet`` names (the ``I3D_8x8_R50.pyth``
 layout):
 
@@ -87,6 +88,70 @@ def i3d_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Te
             else:
                 raise KeyError(f"{name}/{sub}: not part of the ported I3D")
     return sd
+
+
+_BN_TO_FLAX = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+               "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+_I3D_BLOCK_MODULE = re.compile(r"^layer(\d)\.(\d+)\.(conv[123]|bn[123]|downsample\.[01]|"
+                               r"nl\.(?:theta|phi|g|out|bn))$")
+_NL_CONVS = ("theta", "phi", "g", "out")
+
+
+def _i3d_flax_path(module: str) -> Optional[Tuple[str, ...]]:
+    """A torch I3D module name -> its flax module path (ending in ``conv``,
+    ``bn`` or a non-local conv's name), None for no I3D module."""
+    if module in ("conv1", "bn1"):
+        return ("stem", "conv" if module == "conv1" else "bn")
+    m = _I3D_BLOCK_MODULE.match(module)
+    if m is None:
+        return None
+    block, part = f"stage{m.group(1)}_block{m.group(2)}", m.group(3)
+    if part.startswith("nl."):
+        return (block, "NonLocalBlock_0", part[3:])
+    if part.startswith("downsample"):
+        return (block, "proj", "conv" if part.endswith("0") else "bn")
+    return (block, {"1": "branch_a", "2": "branch_b", "3": "branch_c"}[part[-1]], part[:-1])
+
+
+def i3d_state_dict_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """The port's I3D state dict (any variant) -> flax ``{"params",
+    "batch_stats"}`` variables of numpy arrays, the exact inverse of
+    ``i3d_state_dict_from_flax`` (the layout the JAX package's
+    ``convert_i3res50_state_dict`` builds and ``scripts/convert_checkpoint.py
+    --kind i3d`` writes): ``conv1``/``bn1`` are ``stem/{conv,bn}``,
+    ``layer{L}.{i}.conv{1,2,3}``/``bn{1,2,3}`` ``stage{L}_block{i}/branch_{a,b,c}``,
+    ``downsample.{0,1}`` ``proj``, ``nl.*`` ``NonLocalBlock_0``. BatchNorm's
+    ``num_batches_tracked`` has no flax counterpart and is dropped; any other
+    key raises KeyError naming it. Arrays keep their dtype."""
+    variables: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+
+    def put(collection: str, path: Tuple[str, ...], value: np.ndarray) -> None:
+        node = variables[collection]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    unknown = []
+    for key, value in state_dict.items():
+        module, _, tensor = key.rpartition(".")
+        path = _i3d_flax_path(module)
+        if tensor == "num_batches_tracked" and path is not None and path[-1] == "bn":
+            continue
+        array = np.array(_array(value), copy=True)
+        if path is None:
+            unknown.append(key)
+        elif path[-1] == "bn" and tensor in _BN_TO_FLAX:
+            collection, leaf = _BN_TO_FLAX[tensor]
+            put(collection, path + (leaf,), array)
+        elif path[-1] != "bn" and tensor == "weight":
+            put("params", path + ("kernel",), np.transpose(array, (2, 3, 4, 1, 0)))
+        elif path[-1] in _NL_CONVS and tensor == "bias":
+            put("params", path + ("bias",), array)
+        else:
+            unknown.append(key)
+    if unknown:
+        raise KeyError(f"not part of the ported I3D (no flax name): {', '.join(unknown)}")
+    return variables
 
 
 # pytorchvideo's top-level block of each stage: with ``stage1_pool`` set (the

@@ -1,15 +1,39 @@
-"""Per-stage pipeline timers (counterpart of the JAX package's
-``utils/profiling.py`` ``StageTimer``): cheap accumulating wall-clock
-timers for the stages of extraction (decode wait, device extract), read by
-the extraction CLI's ``--profile``. The JAX module's ``trace`` wraps the
-JAX profiler and has no counterpart here."""
+"""Tracing and per-stage timers (counterpart of the JAX package's
+``utils/profiling.py``).
+
+- ``trace(logdir)``: a ``torch.profiler`` recording of the block, CPU
+  activity and, where torch sees a card, CUDA activity (kernels, copies),
+  written on exit as a Chrome trace under ``logdir``, which TensorBoard's
+  profiler plugin, Perfetto and ``chrome://tracing`` open; the JAX module's
+  ``trace`` wraps ``jax.profiler`` the same way.
+- ``StageTimer``: cheap accumulating wall-clock timers for the stages of
+  extraction (decode wait, device extract), read by the extraction CLI's
+  ``--profile``.
+"""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Any, Dict, Iterator
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[Any]:
+    """Profile the block; on exit write ``<host>_<pid>.<stamp>.pt.trace.json``
+    under ``logdir``. Yields the ``torch.profiler.profile`` (its events and
+    ``key_averages()`` are read after the block)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        yield prof
 
 
 class StageTimer:

@@ -196,6 +196,27 @@ Phases, each of which raises on failure (exit code != 0):
    build): seconds from launch to ``serving on`` and to the first reply,
    then SIGTERM: exit code 0 and ``shutting down`` in its log. Phase 1
    prints whether its build was cold.
+14. training and weights on the card: (a) phase 10's i3res50 weights
+   written as flax variables (``i3d_state_dict_to_flax`` +
+   ``save_variables``), then ``extract_features --weights`` and ``infer
+   --i3d-weights --checkpoint`` (phase 8's MGFN) on the 24-clip stand-in
+   video in bf16 and int8: features and scores bit-equal to the same runs
+   on the ``.pt`` file, K1-K3 (int8: K1, K4, K5) launched, both files' load
+   times; (b) ``fit`` with ``data.num_workers`` 0 and 8 at full MGFN width
+   on seeded in-memory bags (96 + 96 of (10, 32, 2048), 16 + 16 a step, 20
+   steps, lr 1e-5) in 32-true and bf16-mixed: steps/s, the host's assembly
+   and the loop's wait per step, the idle share of a profiled 4-step fit;
+   losses and parameters bit-equal across the two settings (32-true under
+   cuDNN's deterministic algorithms, which are timed too); one bf16-mixed
+   fit at lr 1e-4 for the record (its losses, the first NaN step, no
+   gate); ``evaluate`` with ``prefetch_assembly`` on and off over 48 seeded
+   test videos of 32-1024 clips: equal AUCs and scores, times;
+   (c) ``runner.model_config.dropout=0.1`` through ``run`` under phase 8's
+   gates, its eval-mode scores equal to dropout 0's on the same weights;
+   (d) ``run -m seed=1,2`` (bf16-mixed, 5 steps a job): both jobs exit 0,
+   ``multirun.jsonl`` holds 2 lines, job 0's losses equal a direct
+   ``seed=1`` run's; each job's start-up and wall time; (e) ``trace``
+   around one bf16 pass: its Chrome trace names K1, K2 and K3.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -1076,32 +1097,41 @@ TRAINING = {"mgfn": (1e-4, 20, 10, 5, 5), "rtfm": (1e-4, 20, 10, 5, 5),
             "sultani": (1e-4, 100, 50, 25, 10)}
 
 
-def check_training(torch, root: str, runner: str = "mgfn", eval_only: bool = False):
-    """Training at the full ``runner=<runner>`` width through the port's
-    run entry on the committed bags under ``root``, batch 3 + 3, two
-    evals; with ``eval_only`` the run's last checkpoint is evaluated again.
-    Gates: every loss finite, the mean of the last window of losses below
-    the first, AUCs in [0, 1], eval_only repeating the last AUCs. Returns
-    the checkpoint directory and the wall time."""
-    import numpy as np
-
-    start = time.perf_counter()
-    lr, steps, epochs, every, window = TRAINING[runner]
+def training_overrides(root: str, runner: str = "mgfn", tag: str = None) -> dict:
+    """check_training's ``run`` overrides for ``runner`` on the committed
+    bags under ``root`` (written at first use), its writers under ``tag``."""
+    lr, steps, epochs, every, _ = TRAINING[runner]
     data = os.path.join(root, "data")
     if not os.path.isdir(data):
         write_training_data(data)
-    train, test = os.path.join(data, "train"), os.path.join(data, "test")
-    gt = os.path.join(data, "ground_truth.json")
-    ckpt = os.path.join(root, f"checkpoints_{runner}")
+    tag = tag or runner
     # at the configs' 1e-3 the JAX trainer, and the port with it, diverge
     # on these bags (PERF.md, section 6)
-    overrides = {"data.train_path": train, "data.test_path": test,
-                 "data.ground_truth_path": gt, "data.batch_size": 3,
-                 "runner.optimizer.learning_rate": lr,
-                 "trainer.max_epochs": epochs, "trainer.max_steps": steps,
-                 "trainer.eval_every": every,
-                 "trainer.log_path": os.path.join(root, f"metrics_{runner}.jsonl"),
-                 "trainer.checkpoint.dirpath": ckpt}
+    return {"data.train_path": os.path.join(data, "train"),
+            "data.test_path": os.path.join(data, "test"),
+            "data.ground_truth_path": os.path.join(data, "ground_truth.json"),
+            "data.batch_size": 3, "runner.optimizer.learning_rate": lr,
+            "trainer.max_epochs": epochs, "trainer.max_steps": steps,
+            "trainer.eval_every": every,
+            "trainer.log_path": os.path.join(root, f"metrics_{tag}.jsonl"),
+            "trainer.checkpoint.dirpath": os.path.join(root, f"checkpoints_{tag}")}
+
+
+def check_training(torch, root: str, runner: str = "mgfn", eval_only: bool = False,
+                   extra: dict = None, tag: str = None):
+    """Training at the full ``runner=<runner>`` width through the port's
+    run entry on the committed bags under ``root``, batch 3 + 3, two
+    evals, with ``extra`` overrides and writers under ``tag``; with
+    ``eval_only`` the run's last checkpoint is evaluated again. Gates: every
+    loss finite, the mean of the last window of losses below the first, AUCs
+    in [0, 1], eval_only repeating the last AUCs. Returns the checkpoint
+    directory and the wall time."""
+    import numpy as np
+
+    start = time.perf_counter()
+    lr, steps, _, _, window = TRAINING[runner]
+    overrides = dict(training_overrides(root, runner, tag), **(extra or {}))
+    ckpt = overrides["trainer.checkpoint.dirpath"]
     run_training(overrides, runner)
     with open(overrides["trainer.log_path"]) as f:
         records = [json.loads(line) for line in f]
@@ -1118,7 +1148,8 @@ def check_training(torch, root: str, runner: str = "mgfn", eval_only: bool = Fal
                                   for a in pair):
         raise AssertionError(f"{runner} training: eval AUCs {aucs}")
     wall = time.perf_counter() - start
-    print(f"{runner} training: {steps} steps at batch 3 + 3, lr {lr:g}, losses "
+    print(f"{runner} training{'' if not extra else ' with ' + json.dumps(extra)}: {steps} steps "
+          f"at batch 3 + 3, lr {lr:g}, losses "
           f"{np.round(losses, 5).tolist()}; first {window} mean {first:.5f}, last {window} "
           f"mean {last:.5f}; eval at steps {[r['step'] for r in evals]}: rec_auc / pr_auc "
           f"{aucs}; {wall:.1f} s", flush=True)
@@ -2809,6 +2840,456 @@ def check_serving_on_card(torch, root: str, checkpoint: str, weights: str, reque
     print(f"serving phase (13): {time.perf_counter() - start:.1f} s", flush=True)
 
 
+# ------------------------------------------- phase 14: training and weights
+
+def timed(iterator, totals: dict, key: str):
+    """``iterator``'s items, the seconds spent in its ``next`` added to
+    ``totals[key]``; closing this closes ``iterator``."""
+    try:
+        while True:
+            start = time.perf_counter()
+            try:
+                item = next(iterator)
+            except StopIteration:
+                return
+            finally:
+                totals[key] += time.perf_counter() - start
+            yield item
+    finally:
+        iterator.close()
+
+
+@contextlib.contextmanager
+def loader_timers(totals: dict):
+    """Inside the block, the runner's step assembly (``_step_batches``, on
+    whichever thread runs it) adds its seconds to ``totals["assembly"]`` and
+    the loop's wait on its prefetch queue to ``totals["wait"]``."""
+    from anomaly_detection_on_video_tpu_torch.training import runner
+
+    saved = runner._step_batches, runner.prefetch
+    runner._step_batches = lambda *a: timed(saved[0](*a), totals, "assembly")
+    runner.prefetch = lambda it, depth: timed(saved[1](it, depth), totals, "wait")
+    try:
+        yield
+    finally:
+        runner._step_batches, runner.prefetch = saved
+
+
+def counted_cli_run(torch, module, argv: list, out: str):
+    """One CLI run on the card with launch counts reset just before it and
+    read just after. Returns (counts, seconds)."""
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    start = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        run_cli(module, argv + ["--outdir", out, "--device", "cuda"])
+    torch.cuda.synchronize()
+    return kernels.launch_counts(), time.perf_counter() - start
+
+
+def check_msgpack_weights(torch, root: str, weights: str, checkpoint: str) -> None:
+    """Phase 14 (a): phase 10's i3res50 weights written as flax variables
+    (``i3d_state_dict_to_flax`` + ``save_variables``), then ``extract_features
+    --weights`` and ``infer --i3d-weights --checkpoint`` (phase 8's MGFN) on
+    the 24-clip stand-in video, in bf16 and int8, once on the ``.msgpack``
+    file and once on the ``.pt`` file. Gates: features and scores bit-equal
+    between the two files; the ``.msgpack`` runs launch K1-K3 (bf16) or K1,
+    K4 and K5 (int8). Prints the load times of both files."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import extract_features, infer
+    from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_to_flax
+    from anomaly_detection_on_video_tpu_torch.utils.serialization import (
+        load_variables,
+        save_variables,
+    )
+
+    start = time.perf_counter()
+    msgpack = os.path.join(root, "i3res50.msgpack")
+    save_variables(msgpack, i3d_state_dict_to_flax(infer.load_state_dict(weights)))
+    loads = {}
+    for label, load in (("load_variables(.msgpack)", lambda: load_variables(msgpack)),
+                        ("torch.load(.pt)", lambda: infer.load_state_dict(weights)),
+                        ("load_i3d_weights(.msgpack)", lambda: infer.load_i3d_weights(
+                            msgpack, "tushar-n-baseline")),
+                        ("load_i3d_weights(.pt)", lambda: infer.load_i3d_weights(
+                            weights, "tushar-n-baseline"))):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            load()
+            times.append(time.perf_counter() - t0)
+        loads[label] = min(times) * 1e3
+    a, b = (infer.load_i3d_weights(path, "tushar-n-baseline") for path in (msgpack, weights))
+    if list(a) != list(b) or not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError(".msgpack and .pt weights give different state dicts")
+    print(f"phase 14 (a): {os.path.getsize(msgpack) / 1e6:.1f} MB .msgpack "
+          f"({os.path.getsize(weights) / 1e6:.1f} MB .pt), state dicts equal; load ms, best of "
+          f"3: " + ", ".join(f"{k} {v:.1f}" for k, v in loads.items()), flush=True)
+    name = "Abuse030_x264.mp4"
+    stem = os.path.splitext(name)[0]
+    videos = os.path.join(root, "msgpack_videos")
+    os.makedirs(videos)
+    open(os.path.join(videos, name), "wb").close()  # decoded by the stand-in
+    want = {"bfloat16": {"ten_crop_standardize": 1, "stem_conv_pool": 1, "bottleneck_block": 3},
+            "int8": {"ten_crop_standardize": 1, "int8_matmul": 27, "int8_conv": 26}}
+    with stand_in_decode():
+        for dtype in ("bfloat16", "int8"):
+            got = {}
+            for kind, path in (("pt", weights), ("msgpack", msgpack)):
+                out = os.path.join(root, f"weights_{dtype}_{kind}")
+                counts, seconds = counted_cli_run(torch, extract_features, [
+                    "--videos", videos, "--weights", path, "--dtype", dtype, "--no-segments",
+                    "--decode-workers", "1"], out)
+                features = np.load(os.path.join(out, f"{stem}_i3d.npy"))
+                s_counts, s_seconds = counted_cli_run(torch, infer, [
+                    "--videos", videos, "--checkpoint", checkpoint, "--i3d-weights", path,
+                    "--dtype", dtype], out + "_scores")
+                with open(os.path.join(out + "_scores", f"{stem}_scores.json")) as f:
+                    scores = json.load(f)
+                got[kind] = (features, scores, counts, s_counts, seconds, s_seconds)
+            (f_pt, s_pt, *_), (f_mp, s_mp, counts, s_counts, seconds, s_seconds) = (
+                got["pt"], got["msgpack"])
+            short = {k: v for k, v in counts.items() if v}
+            if (f_mp.shape != (STAND_IN_VIDEOS[name], 10, FEATURE_DIM)
+                    or not np.array_equal(f_mp, f_pt)
+                    or s_mp["clip_scores"] != s_pt["clip_scores"]
+                    or s_mp["frame_scores"] != s_pt["frame_scores"]
+                    or any(c[k] < n for c in (counts, s_counts) for k, n in want[dtype].items())):
+                raise AssertionError(
+                    f"{dtype} on .msgpack weights: features {f_mp.shape}, max |difference| from "
+                    f"the .pt run {float(np.abs(f_mp - f_pt).max()):.3e}, scores equal "
+                    f"{s_mp['clip_scores'] == s_pt['clip_scores']}; launches {counts} / {s_counts}")
+            print(f"{dtype}: extract_features --weights .msgpack {seconds:.2f} s (the .pt run "
+                  f"{got['pt'][4]:.2f} s), launches {short}; infer --i3d-weights .msgpack "
+                  f"{s_seconds:.2f} s ({got['pt'][5]:.2f} s); features and scores bit-equal to "
+                  f"the .pt runs' ({f_mp.shape[0]} clips, scores in "
+                  f"[{min(s_mp['clip_scores']):.6f}, {max(s_mp['clip_scores']):.6f}])", flush=True)
+    print(f"phase 14 (a): {time.perf_counter() - start:.1f} s", flush=True)
+
+
+class ListLogger:
+    def __init__(self):
+        self.records = []
+
+    def log(self, metrics, step):
+        self.records.append(dict(metrics, step=step))
+
+    def losses(self):
+        return [r["train_loss"] for r in self.records if "train_loss" in r]
+
+
+def seeded_bags(n: int, seed: int):
+    """``n`` normal and ``n`` abnormal seeded (10, 32, 2048) bags in memory
+    (2049 channels with the magnitude), as the train datasets of ``fit``."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.data.features import FeatureDataset
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for split, stem, shift in (("normal", "Normal_Videos_{:03d}_x264", 0.0),
+                               ("abnormal", "Abuse{:03d}_x264", 0.5)):
+        names = [stem.format(i) + "_i3d.npy" for i in range(n)]
+        out[split] = FeatureDataset(filenames=names, _arrays={
+            name: (np.abs(rng.randn(10, 32, FEATURE_DIM)) + shift * (rng.rand(1, 32, 1) > 0.7)
+                   ).astype(np.float32) for name in names})
+    return out
+
+
+def seeded_test_set(n: int, seed: int, low: int = 32, high: int = 1024):
+    """``n`` seeded test videos of ``low``-``high`` clips (log-uniform, as
+    surveillance test sets run from seconds to tens of minutes) with frame
+    labels; each video's features are a view into one seeded pool."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.data.features import FeatureDataset
+
+    rng = np.random.RandomState(seed)
+    pool = np.abs(rng.randn(2 * high, 10, FEATURE_DIM)).astype(np.float32)
+    arrays, labels = {}, {}
+    for i in range(n):
+        stem = f"Normal_Videos_{i:03d}_x264" if i % 2 == 0 else f"Abuse{i:03d}_x264"
+        clips = int(np.exp(rng.uniform(np.log(low), np.log(high))))
+        offset = int(rng.randint(0, high))
+        arrays[f"{stem}_i3d.npy"] = pool[offset: offset + clips]
+        frame = np.zeros(clips * 16, np.float32)
+        if i % 2:
+            start = int(rng.randint(0, clips * 16 // 2))
+            frame[start: start + clips * 4] = 1.0
+        labels[stem] = frame.tolist()
+    return FeatureDataset(filenames=sorted(arrays), _arrays=arrays, labels=labels)
+
+
+def fit_once(torch, precision: str, workers: int, bags, steps: int, profiled: bool = False,
+             lr: float = 1e-5):
+    """MGFN at full width from seed 0 through ``VideoAnomalyDetectionRunner.fit``
+    on ``bags`` at 16 + 16 per step for ``steps`` steps, with ``data.num_workers
+    = workers``, at ``lr`` (1e-5: at 1e-4 bf16-mixed's loss on these bags turns
+    NaN, which ``check_fit_prefetch`` records). Returns (runner, losses, seconds,
+    loader seconds, and with ``profiled`` the fit's ``device_breakdown``)."""
+    from anomaly_detection_on_video_tpu_torch.models import MGFN
+    from anomaly_detection_on_video_tpu_torch.training import VideoAnomalyDetectionRunner
+
+    logger = ListLogger()
+    runner = VideoAnomalyDetectionRunner(MGFN(), optimizer_cfg={"learning_rate": lr},
+                                         data_cfg={"num_workers": workers}, loggers=[logger],
+                                         precision=precision, device="cuda")
+    runner.init_state()
+    totals = {"assembly": 0.0, "wait": 0.0}
+
+    def fit():
+        with loader_timers(totals), contextlib.redirect_stdout(io.StringIO()):
+            runner.fit(bags, max_epochs=1000, max_steps=steps, batch_size=16)
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    breakdown = device_breakdown(torch, fit) if profiled else fit()
+    torch.cuda.synchronize()
+    return runner, logger.losses(), time.perf_counter() - start, totals, breakdown
+
+
+def check_fit_prefetch(torch, steps: int = 20, window_steps: int = 4, bags: int = 96):
+    """Phase 14 (b): ``fit`` with ``data.num_workers`` 0 and 8 (the
+    prefetch thread) at full MGFN width on seeded in-memory bags, 16 + 16
+    per step, ``steps`` steps, in ``32-true`` and ``bf16-mixed``, first
+    under cuDNN's default algorithms (what a run uses), then with
+    ``torch.backends.cudnn.deterministic`` in 32-true: its float32 weight
+    gradients are not bit-reproducible under the default algorithms (two
+    runs part from the second step), bf16-mixed's are. Gates: losses
+    finite; losses and final parameters bit-equal between num_workers 0 and
+    8, in 32-true under the deterministic algorithms. Prints steps/s of the whole loop,
+    the host's assembly and the loop's wait for batches per step, and the
+    device's idle share over a profiled ``fit`` of ``window_steps``; then a
+    bf16-mixed fit at lr 1e-4 for the record (its losses and the first NaN
+    step, no gate). Returns the first 32-true run's runner."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.training.runner import PRECISIONS
+
+    start = time.perf_counter()
+    bags = seeded_bags(bags, seed=14)  # 96 + 96: 6 steps an epoch, so 20 stop mid-epoch
+    saved = torch.backends.cudnn.deterministic
+    trained = None
+    try:
+        for precision in PRECISIONS:
+            for deterministic in (False, True) if precision == "32-true" else (False,):
+                torch.backends.cudnn.deterministic = deterministic
+                pair = {}
+                for workers in (0, 8):
+                    runner, losses, seconds, totals, _ = fit_once(torch, precision, workers, bags,
+                                                                  steps)
+                    params = {k: v.detach().clone()
+                              for k, v in runner.state.model.state_dict().items()}
+                    pair[workers] = (losses, params, seconds, totals)
+                    if trained is None:
+                        trained = runner  # 32-true, default algorithms: evaluated below
+                    del runner
+                (l0, p0, *_), (l8, p8, *_) = pair[0], pair[8]
+                equal = l0 == l8 and all(torch.equal(p0[k], p8[k]) for k in p0)
+                if (len(l0) != steps or not np.isfinite(l0 + l8).all()
+                        or (not equal and (deterministic or precision == "bf16-mixed"))):
+                    raise AssertionError(f"fit {precision}, deterministic={deterministic}: "
+                                         f"num_workers=0 losses {l0}, 8 {l8}; equal {equal}")
+                rates = "; ".join(
+                    f"num_workers={w} {steps / seconds:.2f} steps/s ({seconds / steps * 1e3:.2f} "
+                    f"ms a step; assembly {totals['assembly'] / steps * 1e3:.2f} ms, the loop "
+                    f"waiting {totals['wait' if w else 'assembly'] / steps * 1e3:.2f} ms)"
+                    for w, (_, _, seconds, totals) in pair.items())
+                print(f"fit {precision}, cuDNN {'deterministic' if deterministic else 'default'} "
+                      f"algorithms, {steps} steps: {rates}; x{pair[0][2] / pair[8][2]:.2f} with "
+                      f"prefetch; losses {l0[0]:.6f} -> {l0[-1]:.6f}, losses and parameters "
+                      f"bit-equal across num_workers: {equal}", flush=True)
+            torch.backends.cudnn.deterministic = saved
+            for workers in (0, 8):
+                window = fit_once(torch, precision, workers, bags, window_steps, profiled=True)[4]
+                print(f"fit {precision}, num_workers={workers}, a profiled fit of {window_steps} "
+                      f"steps: busy {window['device_busy_ms']:.1f} ms of {window['wall_ms']:.1f} "
+                      f"ms wall, idle share {window['idle_share']:.1%}, host-to-device copies "
+                      f"{window['h2d_copy_ms']:.2f} ms", flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    losses = fit_once(torch, "bf16-mixed", 8, bags, steps, lr=1e-4)[1]
+    nan = next((i for i, x in enumerate(losses) if not np.isfinite(x)), None)
+    print(f"fit bf16-mixed at lr 1e-4 (the record; the runs above train at 1e-5), {steps} "
+          f"steps: losses {[round(x, 6) for x in losses]}; first non-finite loss at step "
+          f"{nan}", flush=True)
+    print(f"phase 14 (b), fit: {time.perf_counter() - start:.1f} s", flush=True)
+    return trained
+
+
+def check_evaluate_prefetch(torch, trained, videos: int = 48, repeats: int = 2) -> None:
+    """Phase 14 (b), evaluation: ``evaluate`` with ``prefetch_assembly`` on
+    and off on ``videos`` seeded test videos of 32-1024 clips, batch_videos
+    8, after one warm-up call, ``repeats`` times each in turns. Gates: AUCs
+    and scores equal, AUCs in [0, 1]. Prints each setting's seconds and, for
+    the prefetched calls, the worker's assembly (padding) and the loop's wait
+    for it."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.training import runner as runner_module
+
+    start = time.perf_counter()
+    test = seeded_test_set(videos, seed=15)
+    evaluate = runner_module.evaluate
+    evaluate(trained.state, test, batch_videos=8)  # cuDNN's plans for every bucket
+    results, times, totals = {}, {True: [], False: []}, {"assembly": 0.0, "wait": 0.0}
+    saved = runner_module.prefetch
+    runner_module.prefetch = lambda it, depth: timed(saved(timed(it, totals, "assembly"), depth),
+                                                     totals, "wait")
+    try:
+        for on in (True, False) * repeats:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[on] = evaluate(trained.state, test, batch_videos=8, prefetch_assembly=on)
+            times[on].append(time.perf_counter() - t0)
+    finally:
+        runner_module.prefetch = saved
+    a, b = results[True], results[False]
+    if (a.rec_auc, a.pr_auc) != (b.rec_auc, b.pr_auc) or not np.array_equal(a.preds, b.preds) or (
+            not 0.0 <= a.rec_auc <= 1.0):
+        raise AssertionError(f"evaluate: prefetch_assembly on {a.rec_auc, a.pr_auc}, off "
+                             f"{b.rec_auc, b.pr_auc}")
+    clips = sum(test[i]["feature"].shape[0] for i in range(len(test)))
+    print(f"evaluate over {len(test)} seeded test videos ({clips} clips, batch_videos 8): "
+          f"rec_auc {a.rec_auc:.6f}, pr_auc {a.pr_auc:.6f}, equal with prefetch_assembly on and "
+          f"off; seconds on {[round(t, 4) for t in times[True]]}, off "
+          f"{[round(t, 4) for t in times[False]]}; with it on, a call's assembly "
+          f"{totals['assembly'] / repeats:.4f} s on the worker and the loop's wait "
+          f"{totals['wait'] / repeats:.4f} s; {time.perf_counter() - start:.1f} s", flush=True)
+
+
+def check_dropout(torch, root: str) -> None:
+    """Phase 14 (c): ``runner=mgfn`` with ``runner.model_config.dropout=0.1``
+    through ``run`` on the committed bags under check_training's gates;
+    then its checkpoint served by ``build_scorer`` as trained and with
+    ``--model-config dropout=0.0``: eval-mode scores equal."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import infer
+
+    start = time.perf_counter()
+    ckpt, _ = check_training(torch, root, "mgfn", extra={"runner.model_config.dropout": 0.1},
+                             tag="mgfn_dropout")
+    bags = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs",
+                                "i3d_segments_seed0.npz"))
+    scores = []
+    for extra in ([], ["--model-config", "dropout=0.0"]):
+        args = infer.build_parser().parse_args(["--checkpoint", ckpt, "--outdir", root,
+                                                "--device", "cuda"] + extra)
+        scorer, _ = infer.build_scorer(args)
+        scores.append(np.stack([infer.score_features(bags[name].transpose(1, 0, 2), scorer)
+                                for name in bags.files]))
+    if scorer.config.dropout != 0.0 or not np.array_equal(*scores):
+        raise AssertionError(f"dropout 0.1 in eval mode: scores differ from dropout 0's by "
+                             f"{float(np.abs(scores[0] - scores[1]).max()):.3e}")
+    print(f"dropout 0.1 checkpoint in eval mode: {scores[0].size} clip scores equal to those at "
+          f"dropout 0 on the same weights; phase 14 (c): {time.perf_counter() - start:.1f} s",
+          flush=True)
+
+
+def check_multirun(torch, root: str) -> None:
+    """Phase 14 (d): ``run -m seed=1,2`` on the card, 5 bf16-mixed steps a
+    job on the committed bags. Gates: both jobs exit 0, ``multirun.jsonl`` holds 2
+    lines, job 0's losses equal a direct run's with ``seed=1``. Prints the
+    sweep's wall time and each job's start-up (launch to its first logged
+    step) and wall time."""
+    from anomaly_detection_on_video_tpu_torch import run
+
+    # bf16-mixed: its cuDNN algorithms are bit-reproducible run to run, 32-true's are not
+    overrides = dict(training_overrides(root, "mgfn", "multirun_direct"),
+                     **{"trainer.max_steps": 5, "trainer.max_epochs": 3, "trainer.eval_every": 3,
+                        "trainer.precision": "bf16-mixed"})
+    sweep = os.path.join(root, "sweep")
+    argv = ["-m", "--multirun-dir", sweep, "runner=mgfn", "seed=1,2", "device=cuda"] + [
+        f"{k}={v}" for k, v in overrides.items()
+        if k not in ("trainer.log_path", "trainer.checkpoint.dirpath")]
+    launches = []
+    real_run = run.subprocess.run
+
+    class Recorder:  # run_multirun's subprocess module, timing each job
+        @staticmethod
+        def run(cmd, **kwargs):
+            launches.append([time.time()])
+            proc = real_run(cmd, **kwargs)
+            launches[-1].append(time.time())
+            return proc
+
+    start = time.perf_counter()
+    saved, run.subprocess = run.subprocess, Recorder
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            run.main(argv)
+    finally:
+        run.subprocess = saved
+    wall = time.perf_counter() - start
+    with open(os.path.join(sweep, "multirun.jsonl")) as f:
+        jobs = [json.loads(line) for line in f]
+    if [j["returncode"] for j in jobs] != [0, 0] or "[multirun] job 1/2" not in printed.getvalue():
+        raise AssertionError(f"run -m: {jobs}; {printed.getvalue()}")
+    logs = []
+    for job in jobs:
+        with open(os.path.join(job["dir"], "metrics.jsonl")) as f:
+            logs.append([json.loads(line) for line in f])
+    run_training(dict(overrides, seed=1))
+    with open(overrides["trainer.log_path"]) as f:
+        direct = [r["train_loss"] for r in map(json.loads, f) if "train_loss" in r]
+    job0 = [r["train_loss"] for r in logs[0] if "train_loss" in r]
+    if job0 != direct or len(direct) != 5:
+        raise AssertionError(f"run -m job 0's losses {job0} against a direct seed=1 run's {direct}")
+    timing = "; ".join(
+        f"job {i}: launch to its first logged step "
+        f"{next(r['time'] for r in log if 'train_loss' in r) - begin:.2f} s, wall "
+        f"{end - begin:.2f} s" for i, (log, (begin, end)) in enumerate(zip(logs, launches)))
+    print(f"run -m seed=1,2 on the card: 2 jobs exit 0, multirun.jsonl 2 lines, job 0's 5 losses "
+          f"equal a direct seed=1 run's; sweep wall {wall:.2f} s; {timing}", flush=True)
+
+
+def check_trace(torch, root: str, extractor, video) -> None:
+    """Phase 14 (e): one bf16 extraction pass of the 4-clip video inside
+    ``utils.profiling.trace``. Gates: one Chrome trace written, naming the
+    K1, K2 and K3 kernels."""
+    import glob
+
+    from anomaly_detection_on_video_tpu_torch.utils.profiling import trace
+
+    logdir = os.path.join(root, "trace")
+    start = time.perf_counter()
+    with trace(logdir):
+        extractor.extract_frames(video)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    text = open(files[0]).read() if len(files) == 1 else ""
+    names = ("crop_norm_kernel", "stem_kernel", "bottleneck_kernel")
+    if not all(name in text for name in names):
+        raise AssertionError(f"trace: files {files}, kernels named "
+                             f"{[name for name in names if name in text]}")
+    print(f"trace: one bf16 pass of the 4-clip video in {seconds:.2f} s wrote "
+          f"{os.path.basename(files[0])} ({len(text) / 1e6:.1f} MB) naming {', '.join(names)}",
+          flush=True)
+
+
+def check_training_and_weights(torch, root: str, extractor, video, checkpoint: str,
+                               weights: str) -> None:
+    """Phase 14: (a) ``.msgpack`` weights, (b) ``fit`` and ``evaluate`` with
+    and without prefetch, (c) feed-forward dropout, (d) ``run -m``, (e)
+    ``trace``."""
+    start = time.perf_counter()
+    check_msgpack_weights(torch, root, weights, checkpoint)
+    torch.cuda.empty_cache()
+    trained = check_fit_prefetch(torch)
+    check_evaluate_prefetch(torch, trained)
+    del trained
+    torch.cuda.empty_cache()
+    check_dropout(torch, root)
+    check_multirun(torch, root)
+    check_trace(torch, root, extractor, video)
+    print(f"training and weights phase (14): {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3016,6 +3497,12 @@ def main() -> int:
         # --from-export, and restarts with --compile-cache
         check_serving_on_card(torch, work, checkpoints["mgfn"], os.path.join(work, "i3res50.pt"),
                               features)
+        torch.cuda.empty_cache()
+
+        # 14. training and weights: .msgpack I3D weights, fit and evaluate
+        # with and without prefetch, feed-forward dropout, run -m, trace
+        check_training_and_weights(torch, work, extractor, video, checkpoints["mgfn"],
+                                   os.path.join(work, "i3res50.pt"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

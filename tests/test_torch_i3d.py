@@ -28,6 +28,17 @@ from anomaly_detection_on_video_tpu_torch.ops.kernels._operands import cached_op
 from anomaly_detection_on_video_tpu_torch.ops.kernels.stem import fold_bn
 from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_from_flax
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread, as in tests/test_torch_train.py: torch's default
+    pool contends with the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NARROW = ((8, 1, 1, (3,), (1,)), (16, 1, 2, (1,), (1,)))
 
 

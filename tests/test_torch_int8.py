@@ -43,6 +43,17 @@ from anomaly_detection_on_video_tpu_torch.utils.convert import (
 from test_torch_i3d import NARROW, _randomize_bn, stem_slab, stem_tap_rows
 from test_torch_mgfn import NARROW as MGFN_NARROW
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread, as in tests/test_torch_train.py: torch's default
+    pool contends with the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SCRIPTS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts")
 
 # (cin, kernel, stride, padding): every conv geometry of the i3res50 int8 path

@@ -24,6 +24,17 @@ from anomaly_detection_on_video_tpu_torch.ops import metrics as tmetrics
 from anomaly_detection_on_video_tpu_torch.training.runner import eval_bucket, make_eval_step
 from anomaly_detection_on_video_tpu_torch.utils.convert import mgfn_state_dict_from_flax
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread, as in tests/test_torch_train.py: torch's default
+    pool contends with the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NARROW = dict(dims=(16, 16, 32), depths=(1, 1, 1), dim_head=8, channels=64)
 
 

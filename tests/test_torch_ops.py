@@ -29,6 +29,16 @@ from anomaly_detection_on_video_tpu_torch.ops.kernels.crop_norm import (
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread, as in tests/test_torch_train.py: torch's default
+    pool contends with the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("hw", [(240, 320), (320, 240)])
 def test_resize_exact_bit_equal(rng, hw):
     frames = rng.randint(0, 256, (2, *hw, 3), np.uint8)

@@ -16,6 +16,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from anomaly_detection_on_video_tpu.data.features import pad_eval_batch as j_pad_eval_batch
@@ -30,6 +31,17 @@ from anomaly_detection_on_video_tpu_torch.models.i3d import I3DResNet
 from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_from_flax
 from test_torch_i3d import NARROW, _randomize_bn
 from test_torch_mgfn import build_pair
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread, as in tests/test_torch_train.py: torch's default
+    pool contends with the other test workers' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "anomaly_detection_on_video_tpu_torch"
