@@ -29,6 +29,12 @@ runs them through XLA; under int8 K5 takes the 2-channel stem. Features go
 to ``<stem>_flow.npy``, and ``flow_backend.json`` pins the backend of a
 directory (``record_flow_backend``).
 
+``devices`` splits the clip axis of every group over several devices, the
+JAX package's process-local clip-axis mesh: each device runs its slice of
+the group (crops and forward) on its own replica of the model, the groups
+grow by the number of devices, and the features come back to the host in
+clip order, equal to one device's.
+
 ``quantize=True`` is the int8 extractor (the JAX package's
 ``FeatureExtractor(quantize=True)``): the first chunk calibrates static
 per-conv activation scales (``_calibrate``), then every conv runs in int8
@@ -58,6 +64,7 @@ thread's flow or resize sets do not change its features.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import queue as queue_mod
@@ -101,6 +108,11 @@ def _on_device(frames: Frames, device: torch.device) -> torch.Tensor:
     if isinstance(frames, torch.Tensor):
         return frames.to(device)
     return torch.from_numpy(np.ascontiguousarray(frames)).to(device)
+
+
+def _on(device: torch.device):
+    """The context that makes ``device`` current for kernel launches."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def adapt_stem_channels(state_dict: dict, channels: int) -> dict:
@@ -149,6 +161,13 @@ class FeatureExtractor:
     (``utils.convert.load_known_keys``: keys the model lacks, such as a
     Kinetics head, are dropped with a printed line; a missing key raises);
     a ``model`` must have the stream's input channels.
+
+    ``devices`` (several torch devices, ``device`` then unused): each
+    group's clips split evenly over them, every device with its own replica
+    of the model (and its kernels), so groups hold ``group_clips`` clips per
+    device; frames are resized on the first, and the features are gathered
+    in clip order. int8 calibrates on the first device's model and every
+    replica takes its scales.
     """
 
     def __init__(
@@ -168,6 +187,7 @@ class FeatureExtractor:
         crops: str = "ten",
         stream: str = "rgb",
         flow_backend: Optional[str] = None,
+        devices: Optional[Sequence[DeviceLike]] = None,
     ):
         if stream not in STREAMS:
             raise ValueError(f"stream must be rgb or flow, got {stream!r}")
@@ -175,7 +195,8 @@ class FeatureExtractor:
             raise ValueError(f"crops must be ten or center, got {crops!r}")
         if flow_backend not in (None, *FLOW_BACKENDS):
             raise ValueError(f"flow_backend must be host, device, or tvl1, got {flow_backend!r}")
-        self.device = resolve_device(device)
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         self.stream = stream
         # flow on the card where there is one, OpenCV on the host elsewhere
         # (the JAX package's "device on TPU, host elsewhere")
@@ -194,12 +215,16 @@ class FeatureExtractor:
         else:
             seeded_init_(model, seed)
         self.model = model.to(self.device).eval()
+        # one replica per further device (the clip-axis split's shards)
+        self._models = [self.model] + [copy.deepcopy(self.model).to(d) for d in self.devices[1:]]
+        self.n_shards = len(self.devices)
         self.dtype = dtype
         self.crops = crops
         self.n_crops = 10 if crops == "ten" else 1
         # center crops: batch // 4 clips per group, the JAX package's knee
-        # between padding a short video and filling the device
-        self.group_clips = max(1, batch // (4 if crops == "center" else self.n_crops))
+        # between padding a short video and filling the device; a split
+        # group holds that many clips per device
+        self.group_clips = max(1, batch // (4 if crops == "center" else self.n_crops)) * self.n_shards
         self.adaptive_groups = adaptive_groups
         self.frames_per_clip = frames_per_clip
         self.resize = resize
@@ -221,12 +246,14 @@ class FeatureExtractor:
 
     def _group_for(self, n_clips: int) -> int:
         """Clips per group: always ``group_clips`` in fixed mode; in
-        adaptive (serving) mode the smallest power of two that holds the
-        request, capped at ``group_clips``."""
+        adaptive (serving) mode the smallest power of two per device that
+        holds the request, times the devices (so the split stays even),
+        capped at ``group_clips``."""
         if not self.adaptive_groups or n_clips >= self.group_clips:
             return self.group_clips
-        rung = 1 << max(0, n_clips - 1).bit_length()
-        return min(rung, self.group_clips)
+        per_shard = -(-n_clips // self.n_shards)
+        rung = 1 << max(0, per_shard - 1).bit_length()
+        return min(self.n_shards * rung, self.group_clips)
 
     def pad_frames(self, frames: Frames, group_clips: Optional[int] = None) -> Frames:
         """Loop-pad + group-pad of the raw uint8 frames, where they lie (a
@@ -311,30 +338,40 @@ class FeatureExtractor:
         return full_f32() if self.dtype == torch.float32 else contextlib.nullcontext()
 
     def _extract(self, padded: Frames, gc: int, n_clips: int) -> np.ndarray:
-        """The device work of one call: copy in (host frames), resize,
-        crop, forward per group, copy the first ``n_clips`` clips' features
-        out."""
+        """The device work of one call: copy in (host frames), resize, then
+        per group and device slice crop and forward, and copy the first
+        ``n_clips`` clips' features out in clip order."""
         with torch.no_grad(), self._precision():  # grad mode is per thread
-            fpc = self.frames_per_clip
             frames = _on_device(padded, self.device)
             out_h, out_w = short_side_size(frames.shape[1], frames.shape[2], self.resize)
             resize_fn = (resize_bilinear_exact if self.dtype == torch.float32
                          else resize_bilinear_fast)
             resized = resize_fn(frames, out_h, out_w).contiguous()  # uint8 on the device
+            for model in self._models[1:]:
+                if model.act_scales != self.model.act_scales:  # int8: the leader calibrated
+                    model.act_scales = self.model.act_scales
             feats = []
-            size = self.cropsize
-            for group in resized.reshape(-1, gc, fpc, out_h, out_w, self.channels):
-                if self.n_crops == 1:
-                    x = self._standardize(center_crop(group, size)).contiguous()
-                elif self.stream == "rgb":
-                    x = ten_crop_standardize(group, size, self.dtype)  # K1
-                else:
-                    # (10, gc, ...) -> (gc, 10, ...) -> the batch (gc * 10)
-                    x = self._standardize(ten_crop(group, size)).transpose(0, 1)
-                    x = x.reshape(-1, fpc, size, size, self.channels)
-                feats.append(self.model(x).reshape(gc, self.n_crops, -1))
-            out = torch.cat(feats)[:n_clips]
+            for group in resized.reshape(-1, gc, self.frames_per_clip, out_h, out_w, self.channels):
+                for model, device, part in zip(self._models, self.devices,
+                                               group.chunk(self.n_shards)):
+                    with _on(device):
+                        feats.append(self._forward(model, part.to(device)))
+            out = torch.cat([f.to(self.device) for f in feats])[:n_clips]
             return out.to(torch.float32).cpu().numpy()
+
+    def _forward(self, model: nn.Module, group: torch.Tensor) -> torch.Tensor:
+        """Resized uint8 clips (gc, fpc, H, W, channels) -> their features
+        (gc, n_crops, C) on the clips' device."""
+        size = self.cropsize
+        if self.n_crops == 1:
+            x = self._standardize(center_crop(group, size)).contiguous()
+        elif self.stream == "rgb":
+            x = ten_crop_standardize(group, size, self.dtype)  # K1
+        else:
+            # (10, gc, ...) -> (gc, 10, ...) -> the batch (gc * 10)
+            x = self._standardize(ten_crop(group, size)).transpose(0, 1)
+            x = x.reshape(-1, self.frames_per_clip, size, size, self.channels)
+        return model(x).reshape(group.shape[0], self.n_crops, -1)
 
     def _standardize(self, crops: torch.Tensor) -> torch.Tensor:
         """uint8 crops -> the model's input in its dtype: standardized

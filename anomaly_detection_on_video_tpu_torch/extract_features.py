@@ -7,7 +7,9 @@
         [--dtype bfloat16|float32|int8] [--batch 240] \\
         [--crops ten|center] [--decode-workers N] [--profile] \\
         [--stream rgb|flow|both] [--flow-backend host|device|tvl1] \\
-        [--segment-length 32 | --no-segments] [--compile-cache DIR] [--device cuda]
+        [--segment-length 32 | --no-segments] [--compile-cache DIR] [--device cuda] \\
+        [--data-parallel] [--multihost [--coordinator HOST:PORT \\
+         --num-processes N --process-id I]]
 
 Writes ``<stem>_i3d.npy`` of shape ``(n_clips, 10, 2048)`` float32 per
 video, the reference's on-disk contract, into ``--outdir`` (or
@@ -45,9 +47,19 @@ random weights when unset;
 keys the model does not have (a Kinetics head) are dropped with a printed
 line, as the JAX converter ignores them. ``--compile-cache DIR`` builds the
 CUDA kernels into DIR and loads them from there
-(``utils/compile_cache.py``). Single host: the JAX CLI's ``--multihost``,
-``--data-parallel`` and ``--hf-dataset`` are not ported (``ROADMAP.md``,
-queue 1), and the parser refuses them.
+(``utils/compile_cache.py``).
+
+``--data-parallel`` splits the clip axis of every group over the visible
+cards (``FeatureExtractor(devices=...)``); with one card it changes
+nothing. ``--multihost`` is a sweep by several processes, as the JAX CLI
+runs it: they meet at a store (``--coordinator host:port`` with
+``--num-processes`` and ``--process-id``, or torchrun's environment), which
+is all they share, so several may run on one card. Under ``--dtype int8``
+process 0 first calibrates on the first video and pins
+``act_scales_<stream>.json``; after a barrier each process extracts
+``videos[i::n]`` into the shared output directory, and after another only
+process 0 pools the segments. ``--hf-dataset`` is not ported (it needs the
+network), and is refused.
 """
 
 from __future__ import annotations
@@ -67,14 +79,15 @@ from .data.segments import segment_video_features
 from .data.video import find_videos, warn_duplicate_stems
 from .infer import extractor_kwargs, load_i3d_weights
 from .models.i3d import MODEL_ZOO
+from .parallel import barrier, initialize_multihost, process_count, process_index, shutdown
 from .utils.compile_cache import enable_compile_cache
 from .utils.device import resolve_device
 from .utils.profiling import StageTimer
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--videos", required=True,
-                        help="video file, glob, or directory (searched recursively)")
+    parser.add_argument("--videos", help="video file, glob, or directory (searched recursively)")
+    parser.add_argument("--hf-dataset", help="not ported: HF dataset id (network mode)")
     parser.add_argument("--outdir", required=True)
     parser.add_argument("--split", default=None, choices=[None, "train", "test"],
                         help="subdirectory under outdir; train also gets segments")
@@ -113,12 +126,30 @@ def build_parser() -> argparse.ArgumentParser:
                              "built kernels instead of compiling them again "
                              "(utils/compile_cache.py)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="split the clip axis over every visible card (one card: no change)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="multi-process sweep: join the other processes (torchrun's "
+                             "environment, or --coordinator), extract this process's share of "
+                             "the videos into the shared outdir; process 0 pins int8 scales "
+                             "first and pools segments after a barrier")
+    parser.add_argument("--coordinator", default=None,
+                        help="host:port of process 0's store when not under torchrun (requires "
+                             "--num-processes and --process-id)")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.multihost and args.hf_dataset:
+        parser.error("--multihost supports --videos local mode only")
+    if args.hf_dataset:
+        parser.error("--hf-dataset is not ported (it needs the network); pass --videos")
+    if not args.videos:
+        parser.error("one of --videos / --hf-dataset is required")
     if args.batch < 1:
         parser.error(f"--batch must be >= 1 (got {args.batch})")
     if args.flow_backend and args.stream == "rgb":
@@ -133,10 +164,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     # one weight tree for both streams: the flow stem adapts from it
     state_dict = load_i3d_weights(args.weights, args.model) if args.weights else None
     device = resolve_device(args.device)
+    if args.multihost:  # the store only: the processes share no collective
+        device = initialize_multihost(args.coordinator, args.num_processes, args.process_id,
+                                      autodetect=args.coordinator is None, device=device,
+                                      process_group=False)
+    try:
+        return _extract(args, videos, state_dict, device)
+    except BaseException:
+        shutdown(clean=False)
+        raise
+
+
+def _extract(args: argparse.Namespace, videos: List[str], state_dict, device) -> int:
+    import torch
+
+    devices = None
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
     def make_extractor(stream: str) -> FeatureExtractor:
         return FeatureExtractor(model_name=args.model, state_dict=state_dict, device=device,
-                                stream=stream,
+                                devices=devices, stream=stream,
                                 flow_backend=args.flow_backend if stream == "flow" else None,
                                 **extractor_kwargs(args))
 
@@ -152,6 +200,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         decode_workers = 1
 
     outdir = os.path.join(args.outdir, args.split) if args.split else args.outdir
+    pi, pc = process_index(), process_count()
+    if pc > 1:
+        if args.dtype == "int8":
+            # one process owns the calibration: process 0 calibrates on the
+            # global first video and pins the scales before anyone extracts
+            if pi == 0:
+                extractor.ensure_calibrated(outdir, videos[0])
+                if flow_extractor is not None:
+                    flow_extractor.ensure_calibrated(outdir, videos[0])
+            barrier("int8 scales pinned")
+        videos = videos[pi::pc]
     if decode_workers > 1:
         n = extract_videos_pooled(videos, outdir, extractor, flow_extractor,
                                   decode_workers=decode_workers)
@@ -159,7 +218,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         n = extract_videos_two_stream(videos, outdir, extractor, flow_extractor, timer=timer)
     else:
         n = extract_videos(videos, outdir, extractor, timer=timer)
-    print(f"extracted {n} new videos ({len(videos)} total) -> {outdir}")
+    who = f"[process {pi}/{pc}] " if pc > 1 else ""
+    print(f"{who}extracted {n} new videos ({len(videos)} total) -> {outdir}", flush=True)
+    if pc > 1:
+        # every feature file exists before process 0 pools the segments
+        barrier("extraction complete")
+    shutdown()
+    if pi != 0:
+        return 0
     train_dir = outdir if args.split in (None, "train") else None
     if timer is not None:
         print("pipeline stages:", timer.report())

@@ -77,8 +77,10 @@ scorer as ``torch.export`` programs, one per eval bucket up to
 and exits; ``--from-export DIR`` scores with them in place of the
 checkpoint and model flags. ``--compile-cache DIR`` builds the CUDA
 kernels into DIR and loads them from there (``utils/compile_cache.py``),
-so a restarted server does not run nvcc again. Not ported: ``--figure``
-and ``--data-parallel``.
+so a restarted server does not run nvcc again. ``--data-parallel``
+splits the clip axis of extraction over every visible card
+(``FeatureExtractor(devices=...)``; one card: no change), scores equal to
+one card's. Not ported: ``--figure``.
 """
 
 from __future__ import annotations
@@ -731,6 +733,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="score with an artifact directory written by --export instead of a "
                              "checkpoint (no model rebuild)")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="split the clip axis of feature extraction over every visible card "
+                             "(extract_features --data-parallel's serving analog; one card: no "
+                             "change)")
     return parser
 
 
@@ -848,6 +854,10 @@ def main(argv: Optional[List[str]] = None,
     # one weight tree for both streams: the flow stem adapts from it
     state_dict = load_i3d_weights(args.i3d_weights, args.i3d_model) if args.i3d_weights else None
 
+    devices = None
+    if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
     def make_extractor(s: str) -> FeatureExtractor:
         return FeatureExtractor(
             model_name=args.i3d_model,
@@ -855,6 +865,7 @@ def main(argv: Optional[List[str]] = None,
             frames_per_clip=args.frames_per_clip,
             adaptive_groups=args.group_mode == "adaptive",
             device=device,
+            devices=devices,
             stream=s,
             flow_backend=args.flow_backend if s == "flow" else None,
             **extractor_kwargs(args),

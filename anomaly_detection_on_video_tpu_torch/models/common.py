@@ -1,6 +1,7 @@
 """Pieces the scorer heads share (MGFN, RTFM, Sultani): the valid-clip
 masks of padded-bucket scoring, the train-mode check of ``outputs`` and
-the generator-driven dropout."""
+the generator-driven dropout, whose masks a data-parallel rank draws at the
+global batch's shape."""
 
 from __future__ import annotations
 
@@ -39,14 +40,23 @@ def resolve_train(module: torch.nn.Module, train: Optional[bool]) -> bool:
     return bool(train)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            shard=None) -> torch.Tensor:
     """flax ``nn.Dropout``'s rule with a mask drawn from ``generator``:
     each element is kept with probability 1 - rate and scaled by
-    1 / (1 - rate), else zeroed. Identity at rate 0."""
+    1 / (1 - rate), else zeroed. Identity at rate 0.
+
+    ``shard`` (a ``parallel.DataShard``): ``x`` is this rank's slice of
+    axis 0 of the batch; the mask is drawn at the global batch's shape from
+    the generator that every rank seeds alike and sliced, so the ranks
+    together drop what one device drops."""
     if rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs an explicit torch.Generator")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    shape = x.shape if shard is None else (shard.count * x.shape[0], *x.shape[1:])
+    keep = torch.rand(shape, generator=generator, device=x.device) < keep_prob
+    if shard is not None:
+        keep = shard.local(keep)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -21,7 +21,7 @@ outputs): in train mode ``TorchBatchNorm`` normalizes with batch statistics
 and updates its running ones, every feed-forward block drops at
 ``MGFNConfig.dropout`` after its GELU, the normal and abnormal halves of the batch
 each take a dropout-masked top-k selection of clips by feature magnitude
-(``_magnitude_selection``), and the MIL loss (``losses/``) is computed from
+(``_selection_indices``), and the MIL loss (``losses/``) is computed from
 the selected scores and features.
 """
 
@@ -72,21 +72,38 @@ class TorchBatchNorm(nn.BatchNorm1d):
     channel. In eval mode mean and var are the running statistics. In train
     mode they are the batch's, with the biased variance, and the running
     statistics move by momentum 0.1 towards the batch mean and the unbiased
-    variance, in their own dtype."""
+    variance, in their own dtype.
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    The batch statistics are sums: the per-channel sum, then the sum of
+    squared deviations from the mean, each accumulated in at least float32.
+    With ``shard`` (a ``parallel.DataShard``, ``x`` this rank's bags) both
+    sums are reduced over the data axis with autograd, so every rank
+    normalizes by the whole batch's mean and variance, moves its running
+    statistics with the whole batch's count, and the gradients are those of
+    one device."""
+
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
         view = (1, -1, 1)
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps).view(view)
             return (x - self.running_mean.view(view)) * inv * self.weight.view(view) + self.bias.view(view)
-        mean = x.mean(dim=(0, 2))
-        var = x.var(dim=(0, 2), unbiased=False)
+        acc = torch.promote_types(x.dtype, torch.float32)
         n = x.numel() // x.shape[1]
+        total = x.sum(dim=(0, 2), dtype=acc)
+        if shard is not None:
+            total = shard.all_reduce(total)
+            n *= shard.count
+        mean = total / n
+        squares = ((x.to(acc) - mean.view(view)) ** 2).sum(dim=(0, 2))
+        if shard is not None:
+            squares = shard.all_reduce(squares)
+        var = squares / n
         with torch.no_grad():
             m = self.momentum
             unbiased = (var * (n / max(n - 1, 1))).to(self.running_var.dtype)
             self.running_mean.copy_((1 - m) * self.running_mean + m * mean.to(self.running_mean.dtype))
             self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
         inv = torch.rsqrt(var + self.eps).view(view)
         return (x - mean.view(view)) * inv * self.weight.view(view) + self.bias.view(view)
 
@@ -105,10 +122,11 @@ class FeedForward(nn.Module):
         self.in_conv = nn.Conv1d(dim, dim * repe, 1)
         self.out_conv = nn.Conv1d(dim * repe, dim, 1)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                shard=None) -> torch.Tensor:
         x = F.gelu(self.in_conv(self.layer_norm(x)))
         if self.training:
-            x = dropout(x, self.dropout, generator)
+            x = dropout(x, self.dropout, generator, shard)
         return self.out_conv(x)
 
 
@@ -140,7 +158,8 @@ class GlanceAttention(nn.Module):
         self.to_qkv = nn.Conv1d(dim, inner * 3, 1, bias=False)
         self.to_out = nn.Conv1d(inner, dim, 1)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                shard=None) -> torch.Tensor:
         b, _, t = x.shape
         q, k, v = self.to_qkv(self.norm(x)).chunk(3, dim=1)
         # channel index h * dim_head + d ("(h d)")
@@ -174,9 +193,10 @@ class FocusAttention(nn.Module):
                                  padding=local_aggr_kernel // 2, groups=heads)
         self.to_out = nn.Conv1d(inner, dim, 1)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                shard=None) -> torch.Tensor:
         b, _, t = x.shape
-        v = self.to_v(self.norm(x))
+        v = self.to_v(self.norm(x, shard))
         if mask is not None:
             # zero pads so the k5 conv sees the zeros of an unpadded boundary
             v = v * mask
@@ -192,12 +212,12 @@ class _Block(nn.Module):
         self.ffn = FeedForward(dim, config.ff_repe, config.dropout)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
         if mask is not None:
             x = x * mask  # zero pads before the k3 shortcut conv
         x = self.scc(x) + x
-        x = self.attention(x, mask) + x
-        return self.ffn(x, generator) + x
+        x = self.attention(x, mask, shard) + x
+        return self.ffn(x, generator, shard) + x
 
 
 class GlanceBlock(_Block):
@@ -220,7 +240,7 @@ class Intermediate(nn.Module):
         self.conv = nn.Conv1d(in_dim, out_dim, 1)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
         return self.conv(self.layer_norm(x))
 
 
@@ -241,15 +261,17 @@ class MGFNModel(nn.Module):
             self.layers.append(nn.ModuleList(blocks))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, shard=None) -> torch.Tensor:
         """``generator`` feeds the feed-forward dropout masks in train mode,
-        drawn in module order (stage by stage, block by block)."""
+        drawn in module order (stage by stage, block by block); ``shard``
+        (a ``parallel.DataShard``) makes the masks and the BatchNorm
+        statistics those of the whole batch."""
         if mask is not None:
             x = x * mask  # zero pads before the k3 amplifier convs
         x = self.amplifier(x)
         for blocks in self.layers:
             for block in blocks:
-                x = block(x, mask, generator)
+                x = block(x, mask, generator, shard)
         return x
 
 
@@ -274,14 +296,14 @@ class MGFN(nn.Module):
         return self._head(video, length)[1]
 
     def _head(self, video: torch.Tensor, length: Optional[torch.Tensor],
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None, shard=None):
         """-> (head features (bs*ncrops, t, dim), crop-averaged scores
         (bs, t, 1), crop-averaged feature magnitudes (bs, t))."""
         bs, ncrops, t, c = video.shape
         x = video.reshape(bs * ncrops, t, c).transpose(1, 2)  # (B, C, T)
         video_mask, row_mask = clip_masks(length, t, ncrops, video.device)
         mask = None if row_mask is None else row_mask[:, None].to(x.dtype)  # (1|B, 1, t)
-        x = self.layer_norm(self.backbone(x, mask, generator).transpose(1, 2))  # (B, T, C)
+        x = self.layer_norm(self.backbone(x, mask, generator, shard).transpose(1, 2))  # (B, T, C)
         scores = torch.sigmoid(self.fc(x))  # (bs*ncrops, t, 1)
         scores = scores.reshape(bs, ncrops, t).mean(dim=1)[..., None]
         magnitudes = torch.linalg.vector_norm(x, dim=2).reshape(bs, ncrops, t).mean(dim=1)
@@ -300,6 +322,7 @@ class MGFN(nn.Module):
         force_split: bool = False,
         length: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        shard=None,
     ) -> MGFNOutput:
         """The JAX ``MGFNForVideoAnomalyDetection`` outputs.
 
@@ -314,25 +337,46 @@ class MGFN(nn.Module):
         mask from ``generator`` too, in module order and before the
         selection masks. With both label vectors the MIL loss is computed:
         ``mgfn_loss`` + smoothness + sparsity.
+
+        ``shard`` (a ``parallel.DataShard``): ``video`` is this rank's
+        contiguous slice of the batch. Each rank runs the per-bag network on
+        its bags; the scores and magnitudes are gathered, every rank draws
+        the selection masks and picks the clips of the whole batch, each
+        rank gathers its bags' selected features, and those are gathered
+        too, so every rank computes the single-device outputs and loss.
         """
         train = resolve_train(self, train)
         cfg = self.config
-        bs, ncrops, t, _ = video.shape
-        x, scores, magnitudes = self._head(video, length, generator)
-        if force_split or train:
-            half = bs // 2
-            normal_features, abnormal_features = x[: half * ncrops], x[half * ncrops:]
-            normal_scores, abnormal_scores = scores[:half], scores[half:]
-            n_mag, a_mag = magnitudes[:half], magnitudes[half:]
-        else:
-            normal_features = abnormal_features = x
-            normal_scores = abnormal_scores = scores
-            n_mag = a_mag = magnitudes
+        ncrops = video.shape[1]
+        x, scores, magnitudes = self._head(video, length, generator, shard)
+        if shard is not None:
+            scores = shard.gather(scores)
+            magnitudes = shard.gather_detached(magnitudes)  # feeds the top-k indices only
+        bs = scores.shape[0]
+        split = force_split or train
+        half = bs // 2 if split else 0
+        halves = {"abnormal": (half, bs - half), "normal": (0, half if split else bs)}  # (start, count)
         rate = cfg.dropout_rate if train else 0.0
-        a_selected, score_abnormal = _magnitude_selection(
-            a_mag, abnormal_features, abnormal_scores, cfg.k, ncrops, rate, generator)
-        n_selected, score_normal = _magnitude_selection(
-            n_mag, normal_features, normal_scores, cfg.k, ncrops, rate, generator)
+        picked = {}
+        for name in ("abnormal", "normal"):  # the selection masks' draw order
+            start, count = halves[name]
+            idx = _selection_indices(magnitudes[start:start + count], cfg.k, rate, generator)
+            top = torch.gather(scores[start:start + count], 1, idx[:, :, None]).mean(dim=1)
+            picked[name] = (idx, top)
+
+        def selected(name):
+            """(count * ncrops, k, dim) crop-major features of a half."""
+            start, count = halves[name]
+            idx = picked[name][0]
+            if shard is None:
+                return _crop_major(_take(x[start * ncrops:(start + count) * ncrops], idx, ncrops))
+            rows = idx.new_zeros((bs, idx.shape[1]))
+            rows[start:start + count] = idx
+            local = _take(x, shard.local(rows), ncrops)
+            return _crop_major(shard.gather(local)[start:start + count])
+
+        a_selected, n_selected = selected("abnormal"), selected("normal")
+        score_abnormal, score_normal = picked["abnormal"][1], picked["normal"][1]
         loss = None
         if abnormal_labels is not None and normal_labels is not None:
             loss = (mgfn_loss(score_abnormal, score_normal, a_selected, n_selected,
@@ -341,6 +385,35 @@ class MGFN(nn.Module):
                     + sparsity_loss(scores[: bs // 2].reshape(-1)))
         return MGFNOutput(loss=loss, abnormal_scores=score_abnormal, normal_scores=score_normal,
                           a_feat_magnitude=a_selected, n_feat_magnitude=n_selected, scores=scores)
+
+
+def _selection_indices(magnitudes: torch.Tensor, k: int, dropout_rate: float,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+    """(n, t) magnitudes -> (n, k) clip indices: top-k of the magnitudes
+    times a keep mask scaled by 1 / (1 - rate)."""
+    n, t = magnitudes.shape
+    masked = magnitudes
+    if dropout_rate > 0.0:
+        if generator is None:
+            raise ValueError("the selection dropout needs an explicit torch.Generator")
+        keep = torch.rand((n, t), generator=generator, device=magnitudes.device) < 1.0 - dropout_rate
+        masked = magnitudes * (keep.to(magnitudes.dtype) / (1.0 - dropout_rate))
+    return torch.topk(masked, k, dim=1).indices
+
+
+def _take(features: torch.Tensor, idx: torch.Tensor, ncrops: int) -> torch.Tensor:
+    """(n * ncrops, t, dim) sample-major features at (n, k) clip indices,
+    the same for every crop of a sample -> (n, ncrops, k, dim)."""
+    n, k = idx.shape
+    feats = features.reshape(n, ncrops, features.shape[1], -1)
+    return torch.gather(feats, 2, idx[:, None, :, None].expand(n, ncrops, k, feats.shape[-1]))
+
+
+def _crop_major(selected: torch.Tensor) -> torch.Tensor:
+    """(n, ncrops, k, dim) -> (ncrops * n, k, dim): row crop * n + i is
+    sample i's crop."""
+    n, ncrops, k, _ = selected.shape
+    return selected.transpose(0, 1).reshape(ncrops * n, k, -1)
 
 
 def _magnitude_selection(
@@ -358,16 +431,6 @@ def _magnitude_selection(
     crop of a sample. Returns (selected features (ncrops * n, k, dim),
     crop-major: row crop * n + i is sample i's crop; mean selected score
     (n, 1))."""
-    n, t = magnitudes.shape
-    masked = magnitudes
-    if dropout_rate > 0.0:
-        if generator is None:
-            raise ValueError("the selection dropout needs an explicit torch.Generator")
-        keep = torch.rand((n, t), generator=generator, device=magnitudes.device) < 1.0 - dropout_rate
-        masked = magnitudes * (keep.to(magnitudes.dtype) / (1.0 - dropout_rate))
-    idx = torch.topk(masked, k, dim=1).indices  # (n, k)
-    feats = features.reshape(n, ncrops, t, -1)
-    selected = torch.gather(feats, 2, idx[:, None, :, None].expand(n, ncrops, k, feats.shape[-1]))
-    selected = selected.transpose(0, 1).reshape(ncrops * n, k, -1)
+    idx = _selection_indices(magnitudes, k, dropout_rate, generator)
     top_scores = torch.gather(scores, 1, idx[:, :, None])
-    return selected, top_scores.mean(dim=1)
+    return _crop_major(_take(features, idx, ncrops)), top_scores.mean(dim=1)

@@ -121,7 +121,7 @@ class RTFM(nn.Module):
         score 0."""
         return self._head(video, length, 0.0, None)[0]
 
-    def _head(self, video, length, rate, generator):
+    def _head(self, video, length, rate, generator, shard=None):
         """-> (crop-averaged scores (bs, t, 1), crop-averaged feature
         magnitudes (bs, t), padded clips at -1)."""
         cfg = self.config
@@ -136,8 +136,8 @@ class RTFM(nn.Module):
             length = torch.as_tensor(length, device=video.device)
             denom = length if length.dim() == 0 else length.repeat_interleave(ncrops)
         features = self.Aggregate(x, mask, denom).transpose(1, 2)  # (B, T, C)
-        h = dropout(torch.relu(self.fc1(features)), rate, generator)
-        h = dropout(torch.relu(self.fc2(h)), rate, generator)
+        h = dropout(torch.relu(self.fc1(features)), rate, generator, shard)
+        h = dropout(torch.relu(self.fc2(h)), rate, generator, shard)
         scores = torch.sigmoid(self.fc3(h)).reshape(bs, ncrops, t).mean(dim=1)[..., None]
         magnitudes = torch.linalg.vector_norm(features, dim=2).reshape(bs, ncrops, t).mean(dim=1)
         if video_mask is not None:
@@ -154,18 +154,26 @@ class RTFM(nn.Module):
         force_split: bool = False,
         length: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        shard=None,
     ) -> RTFMOutput:
         """The JAX ``RTFMForVideoAnomalyDetection`` outputs. ``train`` is
         the module's mode (passing it only checks that it agrees); in train
         mode the head's two dropouts draw their masks from ``generator``
         (needed when ``config.dropout_rate > 0``) and the batch splits into
         its normal and abnormal halves, as with ``force_split``. With both
-        label vectors the loss is computed."""
+        label vectors the loss is computed.
+
+        ``shard`` (a ``parallel.DataShard``): ``video`` is this rank's
+        contiguous slice of the batch; its scores and magnitudes are
+        gathered with autograd (the dropout masks drawn at the whole batch's
+        shape), so every rank computes the single-device outputs and loss."""
         cfg = self.config
         train = resolve_train(self, train)
-        bs = video.shape[0]
         scores, magnitudes = self._head(video, length, cfg.dropout_rate if train else 0.0,
-                                        generator)
+                                        generator, shard)
+        if shard is not None:
+            scores, magnitudes = shard.gather(scores), shard.gather(magnitudes)
+        bs = scores.shape[0]
         if force_split or train:
             half = bs // 2
             n_mag, a_mag = magnitudes[:half], magnitudes[half:]

@@ -50,15 +50,15 @@ class Sultani(nn.Module):
         ``length`` (a scalar or (bs,)) zeroes the padded clips' scores."""
         return self._scores(video, length, 0.0, None)
 
-    def _scores(self, video, length, rate, generator) -> torch.Tensor:
+    def _scores(self, video, length, rate, generator, shard=None) -> torch.Tensor:
         cfg = self.config
         bs, ncrops, t, fdim = video.shape
         if fdim > cfg.channels:
             video = video[..., : cfg.channels]  # drop the magnitude channel
         x = video.reshape(bs * ncrops, t, cfg.channels)
         # the official topology: the 32-d layer has no activation
-        h = dropout(torch.relu(self.fc1(x)), rate, generator)
-        h = dropout(self.fc2(h), rate, generator)
+        h = dropout(torch.relu(self.fc1(x)), rate, generator, shard)
+        h = dropout(self.fc2(h), rate, generator, shard)
         scores = torch.sigmoid(self.fc3(h)).reshape(bs, ncrops, t).mean(dim=1)[..., None]
         video_mask, _ = clip_masks(length, t, ncrops, video.device)
         if video_mask is not None:
@@ -74,18 +74,26 @@ class Sultani(nn.Module):
         force_split: bool = False,
         length: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        shard=None,
     ) -> SultaniOutput:
         """The JAX ``SultaniForVideoAnomalyDetection`` outputs. ``train`` is
         the module's mode (passing it only checks that it agrees); in train
         mode both dropouts draw their masks from ``generator`` (needed when
         ``config.dropout_rate > 0``) and the batch splits into its normal
         and abnormal halves, as with ``force_split``. With both label
-        vectors the ranking loss is computed."""
+        vectors the ranking loss is computed.
+
+        ``shard`` (a ``parallel.DataShard``): ``video`` is this rank's
+        contiguous slice of the batch; its scores are gathered with autograd
+        (the dropout masks drawn at the whole batch's shape), so every rank
+        computes the single-device outputs and loss."""
         cfg = self.config
         train = resolve_train(self, train)
-        scores = self._scores(video, length, cfg.dropout_rate if train else 0.0, generator)
+        scores = self._scores(video, length, cfg.dropout_rate if train else 0.0, generator, shard)
+        if shard is not None:
+            scores = shard.gather(scores)
         if force_split or train:
-            half = video.shape[0] // 2
+            half = scores.shape[0] // 2
             n_scores, a_scores = scores[:half], scores[half:]
         else:
             n_scores = a_scores = scores

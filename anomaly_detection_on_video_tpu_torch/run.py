@@ -6,9 +6,16 @@ repository's ``configs/`` with the same override grammar:
     python -m anomaly_detection_on_video_tpu_torch.run runner=mgfn --cfg
 
 It trains on the card unless ``device=cpu`` (or another torch device) is
-given, on one device only: a config asking for a mesh (``tensor_parallel``
-above 1, ``multihost``, or ``data_parallel`` with several cards visible)
-raises. ``main`` composes the config and calls ``train(cfg, device)``,
+given. Scale-out follows the root ``run.py`` with one process per card
+(``parallel/``): ``trainer.data_parallel`` with several cards visible
+starts one rank per card on this host (a localhost store on a free port);
+``trainer.multihost=true`` joins a run over ``trainer.coordinator``
+(``host:port``, with ``num_processes`` and ``process_id``) or torchrun's
+environment; ``trainer.tensor_parallel=N`` builds the (data, model) DP x TP
+mesh (``build_mesh``). The process group is ``nccl`` on the card and
+``gloo`` on the CPU. Every rank feeds the same batches and computes the
+single-device step; only rank 0 logs and writes checkpoints.
+``main`` composes the config and calls ``train(cfg, device)``,
 which takes a composed dict and needs no PyYAML. ``trainer.eval_only``
 prints one JSON line of metrics. ``trainer.compile_cache: DIR`` builds the
 CUDA kernels into DIR and loads them from there
@@ -146,30 +153,74 @@ def run_multirun(config_dir: str, argv: List[str], sweep_dir: str, device: str) 
         raise SystemExit(f"multirun: {failures} of {len(jobs)} jobs failed")
 
 
-def check_one_device(trainer_cfg: Dict[str, Any], device) -> None:
-    """Raise when the config asks for more than one device."""
-    import torch
+def mesh_shape(trainer_cfg: Dict[str, Any], n_devices: int, distributed: bool = False
+               ) -> Optional[Tuple[Tuple[int, ...], Tuple[str, ...]]]:
+    """(axis sizes, axis names) of the mesh the root ``run.build_mesh``
+    builds over ``n_devices``, or None: ``tensor_parallel: N > 1`` -> the
+    (data, model) DP x TP mesh, raising SystemExit when N does not divide
+    the devices; else ``data_parallel`` -> the 1-D data mesh when there is
+    more than one device, or (``distributed``) a process group joins even
+    one."""
+    tensor_parallel = int(trainer_cfg.get("tensor_parallel", 1) or 1)
+    if not trainer_cfg.get("data_parallel", False) and tensor_parallel <= 1:
+        return None
+    if tensor_parallel > 1:
+        if n_devices % tensor_parallel:
+            raise SystemExit(f"trainer.tensor_parallel={tensor_parallel} does not divide the "
+                             f"{n_devices} available devices")
+        return (n_devices // tensor_parallel, tensor_parallel), ("data", "model")
+    if n_devices > 1 or distributed:
+        return (n_devices,), ("data",)
+    return None
 
-    if int(trainer_cfg.get("tensor_parallel", 1) or 1) > 1 or trainer_cfg.get("multihost"):
-        raise SystemExit("config error: the port trains on one device; tensor_parallel > 1 and "
-                         "multihost are not ported (set trainer.tensor_parallel=1 "
-                         "trainer.multihost=false)")
-    if (trainer_cfg.get("data_parallel") and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise SystemExit(f"config error: the port trains on one device and {torch.cuda.device_count()} "
-                         "are visible; set trainer.data_parallel=false or CUDA_VISIBLE_DEVICES")
+
+def build_mesh(trainer_cfg: Dict[str, Any]):
+    """The training mesh over this run's ranks (``mesh_shape``); None for
+    a single-device run."""
+    import torch.distributed as dist
+
+    from .parallel import make_mesh, process_count
+
+    shape = mesh_shape(trainer_cfg, process_count(), dist.is_initialized())
+    return None if shape is None else make_mesh(*shape)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _local_rank(index: int, cfg: Dict[str, Any], n: int, port: int) -> None:
+    """One rank of ``spawn_local_ranks``: the config as a multihost run."""
+    trainer = dict(cfg["trainer"], multihost=True, coordinator=f"127.0.0.1:{port}",
+                   num_processes=n, process_id=index)
+    train(dict(cfg, trainer=trainer), "cuda")
+
+
+def spawn_local_ranks(cfg: Dict[str, Any], n: int) -> None:
+    """``trainer.data_parallel`` with ``n`` > 1 cards on this host: one
+    process per card, joined over a localhost store; a rank that fails
+    stops the others and the run exits non-zero."""
+    import torch.multiprocessing as mp
+
+    print(f"data_parallel: starting {n} ranks, one per visible card", flush=True)
+    try:
+        mp.spawn(_local_rank, args=(cfg, n, _free_port()), nprocs=n, join=True)
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as exc:
+        raise SystemExit(f"data_parallel: a rank failed: {exc}")
 
 
 def train(cfg: Dict[str, Any], device: str = "cuda"):
     """Run a composed config: train with evaluation, or evaluate a
     checkpoint with ``trainer.eval_only``. Returns the last ``EvalResult``
-    (None when there is no test split to evaluate)."""
-    from .config import instantiate, locate
-    from .data.features import build_feature_dataset
-    from .training import VideoAnomalyDetectionRunner
-    from .training.checkpoints import TopKCheckpointer
-    from .training.loggers import ConsoleLogger, JsonlLogger
-    from .training.runner import DataConfigError
+    (None when there is no test split to evaluate, or when the ranks run in
+    processes of their own)."""
+    import torch
+
+    from .parallel import initialize_multihost, shutdown
     from .utils.device import resolve_device
 
     device = resolve_device(device)
@@ -178,7 +229,38 @@ def train(cfg: Dict[str, Any], device: str = "cuda"):
         from .utils.compile_cache import enable_compile_cache
 
         enable_compile_cache(trainer_cfg["compile_cache"])
-    check_one_device(trainer_cfg, device)
+    multihost = bool(trainer_cfg.get("multihost"))
+    if (trainer_cfg.get("data_parallel") and not multihost and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        return spawn_local_ranks(cfg, torch.cuda.device_count())
+    if multihost:
+        # rendezvous before the model is built: every rank then builds the same one
+        device = initialize_multihost(
+            coordinator=trainer_cfg.get("coordinator"),
+            num_processes=trainer_cfg.get("num_processes"),
+            process_id=trainer_cfg.get("process_id"),
+            autodetect=trainer_cfg.get("coordinator") is None, device=device)
+    try:
+        result = _train(cfg, device)
+    except BaseException:
+        shutdown(clean=False)
+        raise
+    shutdown()
+    return result
+
+
+def _train(cfg: Dict[str, Any], device):
+    from .config import instantiate, locate
+    from .data.features import build_feature_dataset
+    from .parallel import process_index
+    from .training import VideoAnomalyDetectionRunner
+    from .training.checkpoints import TopKCheckpointer
+    from .training.loggers import ConsoleLogger, JsonlLogger
+    from .training.runner import DataConfigError
+
+    trainer_cfg = cfg.get("trainer", {})
+    # ranks other than 0 write nothing: no logs, no checkpoints, no hparams
+    is_primary = process_index() == 0
     runner_cfg = cfg.get("runner") or {}
     if not runner_cfg.get("model_class"):
         raise SystemExit("no model selected: run with `runner=mgfn` (the default runner group "
@@ -187,19 +269,20 @@ def train(cfg: Dict[str, Any], device: str = "cuda"):
     model = locate(runner_cfg["model_class"])(model_config)
     data_cfg = cfg.get("data", {})
 
-    loggers = [ConsoleLogger()]
+    loggers = [ConsoleLogger()] if is_primary else []
     log_path = trainer_cfg.get("log_path", "logs/metrics.jsonl")
-    if log_path:
+    if log_path and is_primary:
         loggers.append(JsonlLogger(log_path))
-    if cfg.get("wandb_key"):
+    if cfg.get("wandb_key") and is_primary:
         print("warning: wandb_key is set but W&B logging is not ported; JSONL and console "
               "logging are unaffected", file=sys.stderr)
 
     checkpointer = None
     ckpt_cfg = trainer_cfg.get("checkpoint", {})
     if ckpt_cfg.get("dirpath"):
+        # every rank reads the directory (a resume restores everywhere); rank 0 writes
         checkpointer = TopKCheckpointer(ckpt_cfg["dirpath"], top_k=int(ckpt_cfg.get("save_top_k", 10)))
-        if not trainer_cfg.get("eval_only"):
+        if is_primary and not trainer_cfg.get("eval_only"):
             checkpointer.write_metadata({
                 "model_name": cfg.get("_choices_", {}).get("runner"),
                 "model_class": runner_cfg["model_class"],
@@ -222,6 +305,7 @@ def train(cfg: Dict[str, Any], device: str = "cuda"):
         accumulate_grad_batches=(1 if trainer_cfg.get("accumulate_grad_batches") is None
                                  else int(trainer_cfg["accumulate_grad_batches"])),
         device=device,
+        mesh=build_mesh(trainer_cfg),
     )
 
     stream = data_cfg.get("stream", "rgb")
@@ -264,7 +348,8 @@ def train(cfg: Dict[str, Any], device: str = "cuda"):
             runner._log(metrics, runner.state.step)
             if trainer_cfg.get("eval_report"):
                 metrics["report"] = result.report()
-            print(json.dumps(metrics))
+            if is_primary:
+                print(json.dumps(metrics))
             return result
 
         train_datasets = load_split("train")
@@ -272,7 +357,8 @@ def train(cfg: Dict[str, Any], device: str = "cuda"):
         if trainer_cfg.get("resume") and checkpointer is not None:
             runner.init_state()
             restore_selected()
-            print(f"resumed from step {runner.state.step}")
+            if is_primary:
+                print(f"resumed from step {runner.state.step}")
         signals = trainer_cfg.get("preempt_signals") or ()
         try:
             result = runner.fit(
@@ -292,7 +378,7 @@ def train(cfg: Dict[str, Any], device: str = "cuda"):
             )
         except DataConfigError as exc:
             raise SystemExit(f"data error: {exc}")
-        if result is not None:
+        if result is not None and is_primary:
             print(f"final valid/rec_auc={result.rec_auc:.4f} valid/pr_auc={result.pr_auc:.4f}")
         return result
     finally:

@@ -10,6 +10,11 @@ most ``top_k``); a metric-less save (preemption, an epoch without eval) is
 kept only while it is the latest. ``hparams.json`` holds the run's
 hyperparameters with the JAX checkpointer's keys. The JAX package's orbax
 checkpoints do not load here.
+
+In a multi-process run every rank opens the directory and reads it; only
+rank 0 (``parallel.process_index``) writes, and every rank calls ``save``,
+which assembles a DP x TP state into the single-device layout first, so a
+checkpoint resumes at any ``tensor_parallel`` and serves through ``infer``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from ..parallel import process_index
 
 METADATA_FILE = "hparams.json"
 STATE_FILE = "state.pt"
@@ -48,16 +55,21 @@ class TopKCheckpointer:
         with open(path) as f:
             return json.load(f)
 
-    def save(self, step: int, state: Any, metric: Optional[float] = None) -> str:
+    def save(self, step: int, state: Any, metric: Optional[float] = None) -> Optional[str]:
         """Save ``state`` (a ``TrainState``) as ``step``; returns the step
-        directory. A step already on disk (a run resumed from an earlier
-        step) is replaced."""
+        directory (None on ranks other than 0, which write nothing). A step
+        already on disk (a run resumed from an earlier step) is replaced.
+        Every rank of a DP x TP run must call it: the state's slices are
+        gathered."""
+        model_sd, optimizer_sd = state.state_dicts()
+        if process_index() != 0:
+            return None
         path = os.path.join(self.directory, str(step))
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                    "step": int(state.step)}, os.path.join(tmp, STATE_FILE))
+        torch.save({"model": model_sd, "optimizer": optimizer_sd, "step": int(state.step)},
+                   os.path.join(tmp, STATE_FILE))
         if metric is not None:
             with open(os.path.join(tmp, METRICS_FILE), "w") as f:
                 json.dump({"metric": float(metric)}, f)
@@ -119,8 +131,7 @@ class TopKCheckpointer:
         payload = torch.load(os.path.join(self.directory, str(step), STATE_FILE),
                              map_location=device, weights_only=True)
         try:
-            state.model.load_state_dict(payload["model"])
-            state.optimizer.load_state_dict(payload["optimizer"])
+            state.load_state_dicts(payload["model"], payload["optimizer"])
         except (RuntimeError, ValueError, KeyError) as exc:
             raise ValueError(
                 f"could not restore checkpoint step {step} from {self.directory}: the saved "
@@ -129,8 +140,11 @@ class TopKCheckpointer:
         state.step = int(payload["step"])
         return state
 
-    def write_metadata(self, metadata: Dict[str, Any]) -> str:
-        """Atomically write the run's hyperparameters to hparams.json."""
+    def write_metadata(self, metadata: Dict[str, Any]) -> Optional[str]:
+        """Atomically write the run's hyperparameters to hparams.json (rank
+        0 only)."""
+        if process_index() != 0:
+            return None
         path = os.path.join(self.directory, METADATA_FILE)
         tmp = path + ".tmp"
         with open(tmp, "w") as f:

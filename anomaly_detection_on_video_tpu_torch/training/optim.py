@@ -37,10 +37,12 @@ class AdamWithL2(torch.optim.Adam):
         self.grad_clip = float(grad_clip) if grad_clip else None
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def step(self, closure=None, clip: bool = True):
+        """One update; ``clip=False`` skips the clip (the caller clipped
+        the gradients these are slices of, ``parallel.ShardedParameters``)."""
         if closure is not None:
             raise ValueError("AdamWithL2 clips the gradients it is given; it takes no closure")
-        if self.grad_clip:
+        if self.grad_clip and clip:
             grads = [p.grad for group in self.param_groups for p in group["params"]
                      if p.grad is not None]
             clip_by_global_norm_(grads, self.grad_clip)

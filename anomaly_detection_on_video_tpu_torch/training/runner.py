@@ -1,18 +1,22 @@
 """Training and eval runtime (counterpart of the JAX package's
 ``training/runner.py``).
 
-- ``TrainState``: the model, its optimizer, the optimizer-step count and
-  the generator the model's dropout masks draw from.
+- ``TrainState``: the model, its optimizer, the optimizer-step count, the
+  generator the model's dropout masks draw from and, under DP x TP, the
+  sliced storage of its parameters (``parallel.ShardedParameters``).
 - ``make_train_step``: one MIL step on a batch of normal then abnormal bags
   (the model's training forward and loss, backward, clip, coupled L2,
   Adam), in ``32-true`` or ``bf16-mixed``, optionally accumulated over
-  micro-batches.
+  micro-batches; on a mesh, data parallel over the bags (and tensor
+  parallel storage over a ``model`` axis), computing the single-device
+  step.
 - ``make_eval_step`` / ``eval_bucket`` / ``evaluate``: padded-bucket
-  scoring and frame-level ROC/PR AUC over a test set (``EvalResult``).
+  scoring and frame-level ROC/PR AUC over a test set (``EvalResult``), the
+  videos of each group split over a mesh's data axis.
 - ``VideoAnomalyDetectionRunner``: the epoch loop with evaluation,
-  checkpoints, logs, ``max_steps``, resume and a graceful stop on signals,
-  on one device, its numpy batches assembled on a prefetch thread
-  (``data.num_workers >= 1``).
+  checkpoints, logs, ``max_steps``, resume and a graceful stop on signals
+  (agreed by every rank of a mesh), its numpy batches assembled on a
+  prefetch thread (``data.num_workers >= 1``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..data.features import eval_batches, is_normal, train_batches, video_class
 from ..data.prefetch import prefetch
 from ..models import seeded_init_
 from ..ops.metrics import false_alarm_rate, frame_level_scores, pr_auc, roc_auc
+from ..parallel import Mesh, ShardedParameters, batch_sharding
 from ..utils.device import DeviceLike, full_f32, resolve_device
 from .optim import adam_with_l2
 
@@ -47,11 +52,39 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0
     generator: Optional[torch.Generator] = None  # the dropout masks' draws
+    tp: Optional[ShardedParameters] = None  # DP x TP: the parameters' sliced storage
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: torch.optim.Optimizer, seed: int = 0) -> "TrainState":
         device = next(model.parameters()).device
         return cls(model, optimizer, 0, torch.Generator(device=device).manual_seed(seed))
+
+    def shard_tensor_parallel(self, mesh: Mesh) -> None:
+        """Keep the parameters and the optimizer's moments sliced over
+        ``mesh``'s ``model`` axis (``tensor_parallel_specs``)."""
+        if self.tp is None:
+            self.tp = ShardedParameters(self.model, mesh)
+            self.tp.adopt(self.optimizer)
+
+    def materialized(self):
+        """Context in which ``model`` holds its full weights (a gather
+        under DP x TP, nothing otherwise)."""
+        return contextlib.nullcontext() if self.tp is None else self.tp.materialized()
+
+    def state_dicts(self) -> Tuple[dict, dict]:
+        """(model, optimizer) state dicts in the single-device layout; under
+        DP x TP a collective every rank of the mesh must call."""
+        if self.tp is None:
+            return self.model.state_dict(), self.optimizer.state_dict()
+        return self.tp.state_dicts(self.optimizer)
+
+    def load_state_dicts(self, model_sd: dict, optimizer_sd: dict) -> None:
+        """Load single-device state dicts (sliced again under DP x TP)."""
+        if self.tp is None:
+            self.model.load_state_dict(model_sd)
+            self.optimizer.load_state_dict(optimizer_sd)
+        else:
+            self.tp.load_state_dicts(self.optimizer, model_sd, optimizer_sd)
 
 
 def _grouped(iterable, size: int):
@@ -91,7 +124,20 @@ class _TrainForward(nn.Module):
         return self.model.outputs(*args, **kwargs)
 
 
-def make_train_step(precision: str = "32-true", microbatched: bool = False) -> Callable:
+def _sum_gradients(model: nn.Module, shard) -> None:
+    """Sum the parameter gradients over the data axis, divided by its size
+    (``DataShard``: each rank's gradients are that many times its part of
+    the single-device ones), in one collective."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    torch.distributed.all_reduce(flat, group=shard.group)
+    flat /= shard.count
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def make_train_step(precision: str = "32-true", microbatched: bool = False,
+                    mesh: Optional[Mesh] = None, state: Optional[TrainState] = None) -> Callable:
     """The train step: ``step(state, feature, normal_labels,
     abnormal_labels) -> loss`` (a float32 scalar tensor), which updates
     ``state`` in place.
@@ -110,14 +156,30 @@ def make_train_step(precision: str = "32-true", microbatched: bool = False) -> C
     axis ``(k, ...)``; the micro-batches run in order (BN statistics thread
     through them), their gradients and losses are averaged, and the
     optimizer steps once.
+
+    ``mesh``: data parallel over its ``data`` axis. ``feature`` is then
+    this rank's contiguous slice of the bags (``parallel.shard_batch``,
+    axis 1 when micro-batched) and the labels are whole. Each rank runs
+    the per-bag forward on its bags, the model gathers with autograd what
+    the selection and the loss need (``outputs(shard=...)``), every rank
+    computes the global loss, and the parameter gradients are summed over
+    the data axis before the optimizer steps: the single-device step,
+    with every rank's generator seeded alike. A ``model`` axis keeps the
+    parameters and moments sliced over it (``TrainState.tp``); ``state``,
+    when given, is placed so here, as the JAX step shards its template.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     half = precision == "bf16-mixed"
+    shard = batch_sharding(mesh)
+    if state is not None and mesh is not None and "model" in mesh.shape:
+        state.shard_tensor_parallel(mesh)
 
     def loss_of(state: TrainState, x, n_labels, a_labels) -> torch.Tensor:
         kwargs = dict(abnormal_labels=a_labels, normal_labels=n_labels, train=True,
                       generator=state.generator)
+        if shard is not None:
+            kwargs["shard"] = shard
         if not half:
             return state.model.outputs(x, **kwargs).loss
         params = {f"model.{name}": p.to(torch.bfloat16) if p.dtype == torch.float32 else p
@@ -128,23 +190,29 @@ def make_train_step(precision: str = "32-true", microbatched: bool = False) -> C
 
     def step(state: TrainState, feature, normal_labels, abnormal_labels) -> torch.Tensor:
         model = state.model
-        model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        micro = (zip(feature, normal_labels, abnormal_labels) if microbatched
-                 else [(feature, normal_labels, abnormal_labels)])
-        loss_sum, k = None, 0
-        with contextlib.nullcontext() if half else full_f32():
-            for x, n_labels, a_labels in micro:
-                loss = loss_of(state, x, n_labels, a_labels)
-                loss.backward()
-                loss = loss.detach().float()
-                loss_sum = loss if loss_sum is None else loss_sum + loss
-                k += 1
-            if k > 1:
-                for p in model.parameters():
-                    if p.grad is not None:
-                        p.grad.div_(k)
-            state.optimizer.step()
+        with state.materialized():
+            model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            micro = (zip(feature, normal_labels, abnormal_labels) if microbatched
+                     else [(feature, normal_labels, abnormal_labels)])
+            loss_sum, k = None, 0
+            with contextlib.nullcontext() if half else full_f32():
+                for x, n_labels, a_labels in micro:
+                    loss = loss_of(state, x, n_labels, a_labels)
+                    loss.backward()
+                    loss = loss.detach().float()
+                    loss_sum = loss if loss_sum is None else loss_sum + loss
+                    k += 1
+                if k > 1:
+                    for p in model.parameters():
+                        if p.grad is not None:
+                            p.grad.div_(k)
+                if shard is not None:
+                    _sum_gradients(model, shard)
+                if state.tp is None:
+                    state.optimizer.step()
+                else:
+                    state.tp.step(state.optimizer)
         state.step += 1
         return loss_sum / k
 
@@ -169,7 +237,8 @@ def buckets_up_to(max_clips: int, minimum: int = 32) -> list:
     return sorted(buckets)
 
 
-def make_eval_step() -> Callable[[nn.Module, torch.Tensor, torch.Tensor], torch.Tensor]:
+def make_eval_step(mesh: Optional[Mesh] = None
+                   ) -> Callable[[nn.Module, torch.Tensor, torch.Tensor], torch.Tensor]:
     """The scoring step: ``step(model, feature (bs, ncrops, bucket, C+1),
     length (bs,)) -> scores (bs, bucket, 1)``.
 
@@ -177,12 +246,25 @@ def make_eval_step() -> Callable[[nn.Module, torch.Tensor, torch.Tensor], torch.
     step pins "highest" matmul precision: the scorer's operations are
     negligible next to extraction, and lower-precision products are not a
     stable numeric contract.
+
+    ``mesh``: every rank passes the same whole batch; the videos are padded
+    to a multiple of the data axis, each rank scores its slice and the
+    scores are all-gathered, so every rank returns the whole batch's.
     """
+    shard = batch_sharding(mesh)
 
     @torch.no_grad()
     def step(model: nn.Module, feature: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
         with full_f32():
-            return model(feature, length=length)
+            if shard is None:
+                return model(feature, length=length)
+            n = feature.shape[0]
+            pad = -n % shard.count
+            if pad:  # one-clip zero videos, dropped below
+                feature = torch.cat([feature, feature.new_zeros((pad, *feature.shape[1:]))])
+                length = torch.cat([length, length.new_ones((pad,))])
+            scores = model(shard.local(feature), length=shard.local(length))
+            return shard.gather_detached(scores)[:n]
 
     return step
 
@@ -270,7 +352,13 @@ def evaluate(state: TrainState, dataset, frames_per_clip: int = 16, eval_step=No
     so the scores are the same either way; the worker touches numpy only.
     """
     eval_step = eval_step or make_eval_step()
-    model = state.model
+    with state.materialized():
+        return _evaluate(state.model, dataset, frames_per_clip, eval_step, batch_videos,
+                         prefetch_assembly)
+
+
+def _evaluate(model, dataset, frames_per_clip, eval_step, batch_videos, prefetch_assembly
+              ) -> EvalResult:
     model.eval()
     param = next(model.parameters())
     buckets: Dict[int, list] = {}
@@ -334,10 +422,19 @@ def evaluate(state: TrainState, dataset, frames_per_clip: int = 16, eval_step=No
 
 
 class VideoAnomalyDetectionRunner:
-    """The epoch loop (the reference's LightningModule role) on one device:
-    a model and its optimizer settings, with evaluation, checkpoints and
-    logs. ``data_cfg`` is the data config group; the runner reads its
-    ``num_workers``."""
+    """The epoch loop (the reference's LightningModule role): a model and
+    its optimizer settings, with evaluation, checkpoints and logs.
+    ``data_cfg`` is the data config group; the runner reads its
+    ``num_workers``.
+
+    ``mesh`` (a ``parallel.Mesh``, one rank per device): every rank runs
+    the loop on the same batches (the loader is deterministic given the
+    seed and epoch) and feeds the train step its slice of the bags; eval
+    groups split their videos over the data axis, ``eval_batch_videos``
+    rounded up to a multiple of the mesh; a ``model`` axis keeps the state
+    sliced (``TrainState.tp``). Checkpoints are written by rank 0 only
+    (``TopKCheckpointer``), and a stop signal on any rank stops every rank
+    at the same step."""
 
     def __init__(
         self,
@@ -352,6 +449,7 @@ class VideoAnomalyDetectionRunner:
         grad_clip: Optional[float] = None,
         accumulate_grad_batches: int = 1,
         device: DeviceLike = "cuda",
+        mesh: Optional[Mesh] = None,
     ):
         optimizer_cfg = dict(optimizer_cfg or {})
         accumulate_grad_batches = int(accumulate_grad_batches)
@@ -371,23 +469,37 @@ class VideoAnomalyDetectionRunner:
         self.learning_rate = float(optimizer_cfg.get("learning_rate", 1e-3))
         self.weight_decay = float(optimizer_cfg.get("weight_decay", 5e-4))
         self.grad_clip = grad_clip
+        self.mesh = mesh
+        if mesh is not None:
+            # groups split their videos over the mesh: a multiple of it fills every rank
+            eval_batch_videos = -(-eval_batch_videos // mesh.size) * mesh.size
         self.eval_batch_videos = eval_batch_videos
-        self._train_step = make_train_step(precision, microbatched=accumulate_grad_batches > 1)
-        self._eval_step = make_eval_step()
+        self._train_step = make_train_step(precision, microbatched=accumulate_grad_batches > 1,
+                                           mesh=mesh)
+        self._eval_step = make_eval_step(mesh)
         self.state: Optional[TrainState] = None
 
     def init_state(self) -> TrainState:
         """Fresh weights from ``seed`` (``seeded_init_``: LeCun-normal conv
         and linear weights, zero biases, identity norms) on the device, and
-        a fresh optimizer. Unlike the JAX runner it needs no example batch:
-        a torch module has its shapes."""
+        a fresh optimizer; sliced over a mesh's ``model`` axis. Unlike the
+        JAX runner it needs no example batch: a torch module has its
+        shapes."""
         model = seeded_init_(self.model, self.seed).to(self.device)
         optimizer = adam_with_l2(model.parameters(), self.learning_rate, self.weight_decay,
                                  self.grad_clip)
         self.state = TrainState.create(model, optimizer, self.seed + 2)
+        self._place(self.state)
         return self.state
 
+    def _place(self, state: TrainState) -> None:
+        if self.mesh is not None and "model" in self.mesh.shape:
+            state.shard_tensor_parallel(self.mesh)
+
     def restore(self, state: TrainState) -> None:
+        """Adopt a restored state, sliced over a mesh's ``model`` axis if
+        it is not yet (a checkpoint holds the single-device layout)."""
+        self._place(state)
         self.state = state
 
     def _log(self, metrics: Dict[str, float], step: int) -> None:
@@ -401,7 +513,27 @@ class VideoAnomalyDetectionRunner:
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         dtype = next(self.state.model.parameters()).dtype
-        return torch.from_numpy(array).to(self.device, dtype)
+        return torch.from_numpy(np.ascontiguousarray(array)).to(self.device, dtype)
+
+    def _step_inputs(self, parts) -> list:
+        """A step's arrays on the device: under a mesh, only this rank's
+        slice of the bags (axis 1 of micro-batched arrays); labels whole."""
+        feature, normal_labels, abnormal_labels = parts
+        if self.mesh is not None:
+            feature = batch_sharding(self.mesh).local(feature, 1 if self.accumulate_grad_batches > 1
+                                                  else 0)
+        return [self._to_device(a) for a in (feature, normal_labels, abnormal_labels)]
+
+    def _stop_requested(self, stop_signal: Dict[str, Any]) -> bool:
+        """Whether to stop after this step: the local signal, or with
+        ``stop_signal["agree"]`` any rank's (an all-reduce of the flag every
+        step, so all ranks stop at the same step)."""
+        local = stop_signal["num"] is not None
+        if not stop_signal["agree"]:
+            return local
+        flag = torch.tensor([int(local)], device=self.device)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX)
+        return bool(flag.item())
 
     def fit(
         self,
@@ -431,7 +563,9 @@ class VideoAnomalyDetectionRunner:
             print(f"warning: eval figures are not ported; nothing is written to {figure_dir}")
         if isinstance(handle_signals, str):  # a CLI scalar override
             handle_signals = (handle_signals,)
-        stop_signal: Dict[str, Any] = {"num": None}
+        # on a mesh with signals handled, every rank agrees on the stop each step
+        stop_signal: Dict[str, Any] = {"num": None,
+                                       "agree": self.mesh is not None and bool(handle_signals)}
         restore_handlers = {}
         if handle_signals:
             import signal
@@ -499,7 +633,7 @@ class VideoAnomalyDetectionRunner:
                 for parts in steps:
                     if self.state is None:
                         self.init_state()
-                    loss = float(self._train_step(self.state, *map(self._to_device, parts)))
+                    loss = float(self._train_step(self.state, *self._step_inputs(parts)))
                     epoch_losses.append(loss)
                     if (step + 1) % log_every == 0:
                         self._log({"train_loss": loss, "lr-Adam": self.learning_rate}, step)
@@ -507,7 +641,7 @@ class VideoAnomalyDetectionRunner:
                     if max_steps >= 0 and step >= max_steps:
                         hit_max = True
                         break
-                    if stop_signal["num"] is not None:
+                    if self._stop_requested(stop_signal):
                         stopped = True
                         break
             finally:
@@ -521,7 +655,7 @@ class VideoAnomalyDetectionRunner:
                     self.checkpointer.save(step=step, state=self.state, metric=None)
                     saved = True
                 self._log({"preempted_at_step": step}, step)
-                print(f"signal {stop_signal['num']}: "
+                print(f"signal {stop_signal['num'] or 'on another rank'}: "
                       + (f"checkpoint saved at step {step}, stopping" if saved
                          else f"stopping at step {step}"))
                 return last_eval

@@ -217,6 +217,24 @@ Phases, each of which raises on failure (exit code != 0):
    ``multirun.jsonl`` holds 2 lines, job 0's losses equal a direct
    ``seed=1`` run's; each job's start-up and wall time; (e) ``trace``
    around one bf16 pass: its Chrome trace names K1, K2 and K3.
+15. scale-out on the card: (a) ``extract_features --multihost`` as two
+   processes sharing the card over a store on 127.0.0.1 (``--batch 120``,
+   ten crops, stand-in decode over phase 10's three videos), bf16 then
+   int8: every feature file bit-equal to a one-process run, int8's
+   ``act_scales_rgb.json`` equal to the one-process scales and older than
+   every feature file, ``segmented`` printed by process 0 only, each
+   process's K1-K5 launches printed; (b) ``FeatureExtractor(devices=
+   ["cuda:0", "cuda:0"])`` on a 48-clip video (two shards of B = 240 per
+   group) bit-equal to one device in bf16 and int8 (the same scales),
+   timed against it; (c) ``run trainer.multihost=true`` with a coordinator
+   on 127.0.0.1, world size 1, over nccl (the distributed step, the BN
+   sums, the gathers, the stop flag's all-reduce: their collective calls
+   counted, each > 0), 3 steps of full-width MGFN against the plain run:
+   bf16-mixed losses equal, 32-true within 1e-6 relative (both under
+   cuDNN's deterministic algorithms); (d) the visible card count, and with
+   more than one card ``run`` with ``data_parallel`` over all of them (one
+   rank per card, nccl, two bags a rank): finite losses, printed beside
+   (c)'s plain run; with one, a line saying multi-card NCCL was not run.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -2840,6 +2858,280 @@ def check_serving_on_card(torch, root: str, checkpoint: str, weights: str, reque
     print(f"serving phase (13): {time.perf_counter() - start:.1f} s", flush=True)
 
 
+# ------------------------------------------------------ phase 15: scale-out
+
+# phase 15 (a)'s processes: extract_features.main with the stand-in decode
+MULTIHOST_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.extract_stand_in(sys.argv[1]))"
+
+
+def extract_stand_in(spec: str) -> int:
+    """Phase 15 (a)'s process body: ``extract_features.main`` under the
+    stand-in decode for each argv of the JSON list in ``spec``, each run's
+    kernel launches and seconds printed."""
+    from anomaly_detection_on_video_tpu_torch import extract_features
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    print("multihost child: torch and the port imported", flush=True)
+    with open(spec) as f:
+        runs = json.load(f)
+    for argv in runs:
+        kernels.reset_launch_counts()
+        start = time.perf_counter()
+        with stand_in_decode():
+            code = extract_features.main(argv)
+        print(f"child run {argv[argv.index('--dtype') + 1]}: {time.perf_counter() - start:.2f} s, "
+              f"launches {json.dumps(kernels.launch_counts())}", flush=True)
+        if code:
+            return code
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def check_multihost_extraction(torch, root: str, weights: str) -> None:
+    """Phase 15 (a): two processes of ``extract_features --multihost`` on
+    the card against one process, bf16 and int8."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import extract_features
+
+    videos = os.path.join(root, "stand_in_videos")
+    os.makedirs(videos, exist_ok=True)
+    for name in ("Abuse030_x264.mp4", "Arson011_x264.mp4", "Normal_Videos_015_x264.mp4"):
+        open(os.path.join(videos, name), "wb").close()  # decoded by the stand-in
+
+    def argv(dtype, out):
+        return ["--videos", videos, "--outdir", out, "--split", "train", "--weights", weights,
+                "--dtype", dtype, "--batch", "120", "--decode-workers", "1", "--device", "cuda"]
+
+    dtypes = ("bfloat16", "int8")
+    single = {}
+    for dtype in dtypes:
+        single[dtype] = os.path.join(root, f"p15_single_{dtype}")
+        start = time.perf_counter()
+        with stand_in_decode():
+            run_cli(extract_features, argv(dtype, single[dtype]))
+        torch.cuda.synchronize()
+        single[dtype + "_s"] = time.perf_counter() - start
+    torch.cuda.empty_cache()
+    ports = {dtype: free_port() for dtype in dtypes}
+    procs, logs = [], []
+    here = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    for pid in range(2):
+        spec = os.path.join(root, f"p15_spec{pid}.json")
+        with open(spec, "w") as f:
+            json.dump([argv(dtype, os.path.join(root, f"p15_multi_{dtype}")) + [
+                "--multihost", "--coordinator", f"127.0.0.1:{ports[dtype]}", "--num-processes",
+                "2", "--process-id", str(pid)] for dtype in dtypes], f)
+        logs.append(open(os.path.join(root, f"p15_child{pid}.log"), "w+"))
+        procs.append(subprocess.Popen([sys.executable, "-c", MULTIHOST_CHILD, spec], cwd=here,
+                                      stdout=logs[-1], stderr=subprocess.STDOUT,
+                                      env=dict(os.environ, PYTHONUNBUFFERED="1")))
+    try:
+        codes = [proc.wait(600) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    wall = time.perf_counter() - start
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    if codes != [0, 0]:
+        raise AssertionError(f"multihost extraction: exit codes {codes}: {texts[0][-3000:]} "
+                             f"{texts[1][-3000:]}")
+    for pid, text in enumerate(texts):
+        runs = [line for line in text.splitlines() if line.startswith(("child run", "[process"))]
+        print(f"phase 15 (a) process {pid}: " + " | ".join(runs), flush=True)
+        if text.count(f"[process {pid}/2] extracted") != 2:
+            raise AssertionError(f"multihost extraction process {pid}: {text[-3000:]}")
+    if texts[0].count("segmented 3 feature files") != 2 or "segmented" in texts[1]:
+        raise AssertionError("multihost extraction: segments not written by process 0 alone")
+    for dtype in dtypes:
+        multi = os.path.join(root, f"p15_multi_{dtype}", "train")
+        ref = os.path.join(single[dtype], "train")
+        names = sorted(n for n in os.listdir(ref) if n.endswith("_i3d.npy"))
+        if len(names) != 3:
+            raise AssertionError(f"multihost extraction {dtype}: reference files {names}")
+        for name in names:
+            if not np.array_equal(np.load(os.path.join(multi, name)),
+                                  np.load(os.path.join(ref, name))):
+                raise AssertionError(f"multihost extraction {dtype}: {name} differs from one "
+                                     "process's")
+        if dtype == "int8":
+            scales = os.path.join(multi, "act_scales_rgb.json")
+            with open(scales) as f, open(os.path.join(ref, "act_scales_rgb.json")) as g:
+                if json.load(f) != json.load(g):
+                    raise AssertionError("multihost int8 scales differ from one process's")
+            if os.path.getmtime(scales) > min(os.path.getmtime(os.path.join(multi, n))
+                                              for n in names):
+                raise AssertionError("multihost int8 scales were written after a feature file")
+    clips = sum(STAND_IN_VIDEOS[n] for n in ("Abuse030_x264.mp4", "Arson011_x264.mp4",
+                                              "Normal_Videos_015_x264.mp4"))
+    print(f"phase 15 (a): extract_features --multihost, 2 processes on one card, {clips} clips of "
+          f"3 stand-in videos, bf16 then int8: every feature file bit-equal to one process, int8 "
+          f"scales pinned by process 0 before any feature file and equal to one process's, "
+          f"segments by process 0 alone; wall from launch to both exits {wall:.2f} s (each "
+          f"process imports torch and loads the weights); one process in this one, bf16 "
+          f"{single['bfloat16_s']:.2f} s, int8 {single['int8_s']:.2f} s", flush=True)
+
+
+def check_split_extractor(torch, model) -> None:
+    """Phase 15 (b): ``FeatureExtractor(devices=["cuda:0", "cuda:0"])``
+    against one device on a 48-clip video at B = 240 per shard."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    frames = np.random.RandomState(15).randint(0, 256, (48 * 16, 240, 320, 3), dtype=np.uint8)
+    state_dict = model.state_dict()
+    for quantize in (False, True):
+        label = "int8" if quantize else "bf16"
+        one = FeatureExtractor(state_dict=state_dict, dtype=torch.bfloat16, batch=240,
+                               device="cuda", quantize=quantize)
+        two = FeatureExtractor(state_dict=state_dict, dtype=torch.bfloat16, batch=240,
+                               devices=["cuda:0", "cuda:0"], quantize=quantize)
+        want = one.extract_frames(frames)  # int8: calibrates on the first clips
+        kernels.reset_launch_counts()
+        got = two.extract_frames(frames)  # int8: the leader calibrates on the same clips
+        counts = kernels.launch_counts()
+        if quantize and not (two.model.act_scales == two._models[1].act_scales
+                             == one.model.act_scales):
+            raise AssertionError("split extractor: the replica's int8 scales differ")
+        if two.group_clips != 48 or got.shape != (48, 10, FEATURE_DIM) or not np.array_equal(
+                got, want):
+            raise AssertionError(f"split extractor {label}: group {two.group_clips}, shape "
+                                 f"{got.shape}, max |diff| {float(np.abs(got - want).max())}")
+        times = {}
+        for name, extractor in (("one device", one), ("split", two)):
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                extractor.extract_frames(frames)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - start)
+            times[name] = sorted(runs)[1]
+        print(f"phase 15 (b) {label}: FeatureExtractor(devices=['cuda:0', 'cuda:0']) on 48 clips "
+              f"(one group of 48, two shards of B = 240) bit-equal to one device (two groups of "
+              f"24); launches of the split pass {json.dumps(counts)}; median of 3: one device "
+              f"{times['one device'] * 1e3:.1f} ms, split {times['split'] * 1e3:.1f} ms "
+              f"({48 / times['one device']:.1f} and {48 / times['split']:.1f} clips/s)",
+              flush=True)
+        del one, two
+        torch.cuda.empty_cache()
+
+
+def check_multihost_run(torch, root: str):
+    """Phase 15 (c): ``run trainer.multihost=true``, world size 1 over
+    nccl, against the plain run. Returns the plain 32-true run's losses."""
+    import numpy as np
+    import torch.distributed as dist
+
+    calls = {"all_reduce": 0, "all_gather": 0}
+    real = {name: getattr(dist, name) for name in calls}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    plain_losses = {}
+    for precision in ("bf16-mixed", "32-true"):
+        losses = {}
+        for mode in ("plain", "multihost"):
+            overrides = dict(training_overrides(root, "mgfn", f"p15_{mode}_{precision}"),
+                             **{"trainer.max_steps": 3, "trainer.max_epochs": 2,
+                                "trainer.eval_every": 2, "trainer.precision": precision,
+                                "trainer.checkpoint.dirpath": None,
+                                "trainer.data_parallel": mode == "multihost"})
+            if mode == "multihost":
+                overrides.update({"trainer.multihost": True,
+                                  "trainer.coordinator": f"127.0.0.1:{free_port()}",
+                                  "trainer.num_processes": 1, "trainer.process_id": 0})
+            saved = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            for name in calls:
+                setattr(dist, name, counted(name))
+            before = dict(calls)
+            try:
+                run_training(overrides)
+            finally:
+                torch.backends.cudnn.deterministic = saved
+                for name in calls:
+                    setattr(dist, name, real[name])
+            with open(overrides["trainer.log_path"]) as f:
+                losses[mode] = [r["train_loss"] for r in map(json.loads, f) if "train_loss" in r]
+            made = {name: calls[name] - before[name] for name in calls}
+            if mode == "multihost" and (min(made.values()) == 0 or dist.is_initialized()):
+                raise AssertionError(f"multihost run: collectives {made}, group still up: "
+                                     f"{dist.is_initialized()}")
+            if mode == "plain" and any(made.values()):
+                raise AssertionError(f"plain run: collectives {made}")
+            if mode == "multihost":
+                print(f"phase 15 (c) {precision}: the multihost run (world size 1, nccl) made "
+                      f"{made['all_reduce']} all_reduce and {made['all_gather']} all_gather "
+                      "calls", flush=True)
+        plain, multi = (np.asarray(losses[m]) for m in ("plain", "multihost"))
+        gap = float(np.max(np.abs(multi - plain) / np.abs(plain)))
+        if len(plain) != 3 or len(multi) != 3 or (
+                gap != 0.0 if precision == "bf16-mixed" else gap > 1e-6):
+            raise AssertionError(f"multihost run {precision}: losses {multi.tolist()} against the "
+                                 f"plain run's {plain.tolist()}")
+        print(f"phase 15 (c) {precision}: 3 steps of full-width MGFN, multihost losses "
+              f"{multi.tolist()}, plain {plain.tolist()}, max relative gap {gap:.3e}", flush=True)
+        plain_losses[precision] = plain
+    return plain_losses["32-true"]
+
+
+def check_multi_card(torch, root: str, plain) -> None:
+    """Phase 15 (d): the card count; with several, ``run`` with
+    ``data_parallel`` over all of them against the one-card run."""
+    import numpy as np
+
+    n = torch.cuda.device_count()
+    print(f"phase 15 (d): torch.cuda.device_count() = {n}", flush=True)
+    if n < 2:
+        print("phase 15 (d): multi-card NCCL was not run (one card visible)", flush=True)
+        return
+    overrides = dict(training_overrides(root, "mgfn", "p15_cards"),
+                     **{"trainer.max_steps": 3, "trainer.max_epochs": 3, "trainer.eval_every": 3,
+                        "trainer.checkpoint.dirpath": None, "trainer.data_parallel": True,
+                        "data.batch_size": n})  # two bags a rank of the 6 + 6
+    run_training(overrides)
+    with open(overrides["trainer.log_path"]) as f:
+        losses = [r["train_loss"] for r in map(json.loads, f) if "train_loss" in r]
+    if len(losses) != 3 or not np.isfinite(losses).all():
+        raise AssertionError(f"data_parallel over {n} cards: losses {losses}")
+    print(f"phase 15 (d): data_parallel over {n} cards (one rank each, nccl), batch {n} + {n}: "
+          f"losses {losses}; one card at batch 3 + 3: {plain.tolist()}", flush=True)
+
+
+def check_scale_out(torch, root: str, model, weights: str) -> None:
+    """Phase 15: (a) multi-process extraction, (b) the clip-axis split,
+    (c) the multihost run, (d) the card count."""
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    check_multihost_extraction(torch, root, weights)
+    torch.cuda.empty_cache()
+    check_split_extractor(torch, model)
+    plain = check_multihost_run(torch, root)
+    check_multi_card(torch, root, plain)
+    print(f"scale-out phase (15): {time.perf_counter() - start:.1f} s", flush=True)
+
+
 # ------------------------------------------- phase 14: training and weights
 
 def timed(iterator, totals: dict, key: str):
@@ -3503,6 +3795,11 @@ def main() -> int:
         # with and without prefetch, feed-forward dropout, run -m, trace
         check_training_and_weights(torch, work, extractor, video, checkpoints["mgfn"],
                                    os.path.join(work, "i3res50.pt"))
+        torch.cuda.empty_cache()
+
+        # 15. scale-out: extract_features --multihost as two processes, the
+        # clip-axis split over two replicas, run trainer.multihost=true
+        check_scale_out(torch, work, model, os.path.join(work, "i3res50.pt"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

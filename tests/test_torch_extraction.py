@@ -93,12 +93,13 @@ def _jax_features(narrow, frames, crops="ten"):
     clips = frames[jgt.loop_pad_indices(n, 16)]  # (n_clips, 16, H, W, 3)
     out_h, out_w = short_side_size(frames.shape[1], frames.shape[2], RESIZE)
     resized = j_resize_exact(jnp.asarray(clips), out_h, out_w)
+    forward = jax.jit(model.apply)  # one compile instead of op-by-op dispatch
     if crops == "center":
         batch = jgt.standardize(jgt.center_crop(resized, CROP))
-        return np.asarray(model.apply(variables, batch)).reshape(len(clips), 1, -1)
+        return np.asarray(forward(variables, batch)).reshape(len(clips), 1, -1)
     crops10 = jgt.standardize(jgt.ten_crop(resized, CROP))  # (10, n_clips, 16, c, c, 3)
     batch = jnp.transpose(crops10, (1, 0, 2, 3, 4, 5)).reshape(-1, 16, CROP, CROP, 3)
-    return np.asarray(model.apply(variables, batch)).reshape(len(clips), 10, -1)
+    return np.asarray(forward(variables, batch)).reshape(len(clips), 10, -1)
 
 
 def _write_mjpg(path, frames):
@@ -546,11 +547,19 @@ def test_extract_features_center_crops_and_flag_checks(narrow, rng, tmp_path, mo
         assert exc.value.code == 2
         errors.append(capsys.readouterr().err.strip().splitlines()[-1])
     assert errors[0] == errors[1]
-    for unported in (["--data-parallel"], ["--multihost"], ["--hf-dataset", "jinmang2/ucf_crime"]):
+    # --hf-dataset needs the network and stays unported; with --multihost
+    # both CLIs refuse it in the same words
+    with pytest.raises(SystemExit) as exc:
+        t_extract_features.main(["--outdir", "o", "--hf-dataset", "jinmang2/ucf_crime"])
+    assert exc.value.code == 2
+    assert "--hf-dataset is not ported" in capsys.readouterr().err
+    errors = []
+    for main in (j_extract_features.main, t_extract_features.main):
         with pytest.raises(SystemExit) as exc:
-            t_extract_features.main(["--videos", "v", "--outdir", "o"] + unported)
+            main(["--outdir", "o", "--multihost", "--hf-dataset", "jinmang2/ucf_crime"])
         assert exc.value.code == 2
-        assert "unrecognized arguments" in capsys.readouterr().err
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errors[0] == errors[1] and "--multihost supports --videos local mode only" in errors[0]
     # --model is ported (i3d_8x8_r50); an unknown backbone stops at the parser
     with pytest.raises(SystemExit) as exc:
         t_extract_features.main(["--videos", "v", "--outdir", "o", "--model", "nope"])

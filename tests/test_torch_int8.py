@@ -264,7 +264,7 @@ def narrow_int8():
     variables = _randomize_bn(jax.jit(model.init)(jax.random.PRNGKey(0), jnp.asarray(x[:1])), rng)
     scales = ji3d.calibrate_act_scales(model, variables, jnp.asarray(x))
     quant = ji3d.I3DResNet(stages=NARROW, dtype=jnp.float32, act_scales=scales)
-    feats = np.asarray(quant.apply(variables, jnp.asarray(x)))
+    feats = np.asarray(jax.jit(quant.apply)(variables, jnp.asarray(x)))  # one compile
     return {"variables": variables, "x": x, "scales": scales, "feats": feats}
 
 

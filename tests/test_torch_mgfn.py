@@ -64,15 +64,32 @@ def randomize_norms(variables, rng):
     return variables
 
 
+_INITS = {}
+
+
 def build_pair(rng, ncrops=3, t=12, **overrides):
-    """A flax MGFN and the port's MGFN holding the same random weights."""
+    """A flax MGFN and the port's MGFN holding the same random weights (the
+    flax init, the same values eagerly or jitted, compiled once per shape
+    and config)."""
     cfg = dict(NARROW, **overrides)
     model = MGFNForVideoAnomalyDetection(JConfig(**cfg))
-    video = jnp.zeros((2, ncrops, t, cfg["channels"] + 1), jnp.float32)
-    variables = randomize_norms(model.init(jax.random.PRNGKey(0), video), rng)
+    key = (ncrops, t, tuple(sorted(cfg.items())))
+    if key not in _INITS:
+        video = jnp.zeros((2, ncrops, t, cfg["channels"] + 1), jnp.float32)
+        _INITS[key] = jax.tree_util.tree_map(
+            np.asarray, jax.jit(model.init)(jax.random.PRNGKey(0), video))
+    variables = randomize_norms(_INITS[key], rng)
     port = MGFN(MGFNConfig(**cfg))
     port.load_state_dict(mgfn_state_dict_from_flax(variables))
     return model, variables, port.eval()
+
+
+def _jax_scores(model, variables, video, length=None):
+    """The flax model's scores, jitted: one compile instead of op-by-op
+    dispatch."""
+    fn = jax.jit(lambda v, x, n: model.apply(v, x, length=n).scores)
+    return np.asarray(fn(variables, jnp.asarray(video), None if length is None
+                         else jnp.asarray(length)))
 
 
 def _features(rng, *shape):
@@ -82,7 +99,7 @@ def _features(rng, *shape):
 def test_scores_match_jax_unmasked(rng):
     model, variables, port = build_pair(rng)
     video = _features(rng, 2, 3, 12, 65)
-    ref = np.asarray(model.apply(variables, jnp.asarray(video)).scores)
+    ref = _jax_scores(model, variables, video)
     with torch.no_grad():
         got = port(torch.from_numpy(video)).numpy()
     assert got.shape == ref.shape == (2, 12, 1)
@@ -97,7 +114,7 @@ def test_scores_match_jax_on_padded_bucket(rng, lengths):
     for i, n in enumerate(lengths):
         video[i, :, :n] = _features(rng, 3, n, 65)
     length = np.asarray(lengths if len(lengths) > 1 else lengths[0], np.int32)
-    ref = np.asarray(model.apply(variables, jnp.asarray(video), length=jnp.asarray(length)).scores)
+    ref = _jax_scores(model, variables, video, length)
     with torch.no_grad():
         got = port(torch.from_numpy(video), length=torch.from_numpy(length)).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
@@ -122,7 +139,7 @@ def test_frame_level_auc_equal(rng):
     model, variables, port = build_pair(rng)
     feats = _features(rng, 20, 3, 64)
     batch = pad_eval_batch(feats, eval_bucket(20))
-    ref = np.asarray(model.apply(variables, jnp.asarray(batch), length=jnp.asarray([20])).scores)[0, :20, 0]
+    ref = _jax_scores(model, variables, batch, [20])[0, :20, 0]
     got = make_eval_step()(port, torch.from_numpy(batch), torch.tensor([20]))[0, :20, 0].numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
     labels = np.repeat((rng.rand(20) > 0.5).astype(np.float64), 16)

@@ -68,10 +68,11 @@ def test_slice_matches_jax_composition(rng):
     resized = resize_bilinear_exact(jnp.asarray(clips), out_h, out_w)
     crops = jgt.standardize(jgt.ten_crop(resized, 56))  # (10, 2, 16, 56, 56, 3)
     batch = jnp.transpose(crops, (1, 0, 2, 3, 4, 5)).reshape(20, 16, 56, 56, 3)
-    j_feats = np.asarray(jmodel.apply(jvars, batch)).reshape(2, 10, -1)
+    # jitted: one compile each instead of op-by-op dispatch
+    j_feats = np.asarray(jax.jit(jmodel.apply)(jvars, batch)).reshape(2, 10, -1)
     bucket = j_pad_eval_batch(j_feats, j_eval_bucket(2))
-    j_scores = np.asarray(
-        mgfn.apply(mvars, jnp.asarray(bucket), length=jnp.asarray([2])).scores)[0, :2, 0]
+    scores_of = jax.jit(lambda v, x, n: mgfn.apply(v, x, length=n).scores)
+    j_scores = np.asarray(scores_of(mvars, jnp.asarray(bucket), jnp.asarray([2])))[0, :2, 0]
 
     extractor = FeatureExtractor(model=port_i3d, state_dict=port_i3d.state_dict(),
                                  dtype=torch.float32, batch=20, resize=64, cropsize=56,

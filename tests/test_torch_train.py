@@ -119,13 +119,26 @@ def test_batch_norm_train_mode_matches_jax_f64(rng):
 
 # ------------------------------------------------------- the train step
 
+_INITS = {}
+
+
+def _init(model, cfg):
+    """The flax init of ``model`` (the same values eagerly or jitted),
+    compiled once per config for the file's tests."""
+    key = tuple(sorted(cfg.items()))
+    if key not in _INITS:
+        video = jnp.zeros((2, 10, 16, cfg["channels"] + 1), jnp.float32)
+        _INITS[key] = jax.tree_util.tree_map(
+            np.asarray, jax.jit(model.init)(jax.random.PRNGKey(0), video))
+    return _INITS[key]
+
+
 def _pair(seed=11, **overrides):
     """A flax MGFN with randomized norms and the port's MGFN (float64,
     train mode) holding the same weights."""
     cfg = dict(DYN, **overrides)
     model = MGFNForVideoAnomalyDetection(JConfig(**cfg))
-    video = jnp.zeros((2, 10, 16, cfg["channels"] + 1), jnp.float32)
-    variables = randomize_norms(model.init(jax.random.PRNGKey(0), video), np.random.RandomState(seed))
+    variables = randomize_norms(_init(model, cfg), np.random.RandomState(seed))
     port = MGFN(MGFNConfig(**cfg))
     port.load_state_dict(mgfn_state_dict_from_flax(variables))
     return model, variables, port.double().train()

@@ -382,10 +382,10 @@ def test_dropout_train_mode_matches_jax_at_a_fixed_mask(monkeypatch, tiny_variab
     assert 0.5 < keep_share < 0.9  # the masks do drop
     handed = iter(masks)
 
-    def fixed_mask(x, rate, generator):
+    def fixed_mask(x, rate, generator, shard=None):
         """``common.dropout``'s rule at the next flax keep mask."""
         keep = next(handed)
-        assert tuple(keep.shape) == tuple(x.shape) and rate == 0.3
+        assert tuple(keep.shape) == tuple(x.shape) and rate == 0.3 and shard is None
         return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype))
 
     monkeypatch.setattr(tmgfn_model, "dropout", fixed_mask)
