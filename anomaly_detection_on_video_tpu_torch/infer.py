@@ -152,7 +152,9 @@ def load_state_dict(path: str) -> dict:
 def load_i3d_weights(path: str, model_name: str) -> dict:
     """An I3D weight file -> the port's state dict for ``model_name``, as
     the JAX CLIs' ``load_weights`` reads it: a ``.msgpack`` file holds flax
-    variables (``scripts/convert_checkpoint.py --kind i3d``'s output), read
+    variables (``convert_checkpoint --kind i3d``'s output: the JAX package's
+    ``scripts/convert_checkpoint.py`` or the port's
+    ``anomaly_detection_on_video_tpu_torch.scripts.convert_checkpoint``), read
     by the port's own codec and mapped by ``i3d_state_dict_from_flax`` for
     every backbone; a torch file's ``.pyth`` ``model_state`` (or a
     ``state_dict`` wrapper) is unwrapped, then ``i3d_8x8_r50`` weights are
@@ -768,16 +770,19 @@ def check_args(parser: argparse.ArgumentParser, args: argparse.Namespace) -> Non
         parser.error(f"--threshold must be in [0, 1] (got {args.threshold}; frame scores are "
                      "sigmoid probabilities)")
     if args.threshold is not None and args.dtype == "int8":
-        print("warning: --threshold with --dtype int8: absolute thresholds derived on bf16 scores "
-              "may not transfer (frame scores shift up to ~0.5; AUC is stable). Re-derive the "
-              "operating point on int8-scored data (scripts/operating_point.py); see "
-              "docs/ROOFLINE.md.", file=sys.stderr)
+        print("warning: --threshold with --dtype int8: a threshold derived on bf16 scores may not "
+              "transfer to int8 scores. Re-derive the operating point on int8-scored data "
+              "(python -m anomaly_detection_on_video_tpu_torch.scripts.operating_point); the "
+              "int8 score and AUC deltas that the port's scripts.int8_e2e measured on an H100 "
+              "80GB HBM3 (700 W power limit) are in PERF.md, section 6.", file=sys.stderr)
     if args.crops == "center":
         # scorers are trained on ten-crop features; center-crop scores see crop row 4 only
         print("note: --crops center is the throughput serving mode; it scores ONE center crop "
-              "per clip and measurably costs accuracy vs the reference ten-crop protocol "
-              "(multi-seed AUC deltas: docs/int8_e2e.json protocol_cost; docs/ROOFLINE.md). "
-              "Use --crops ten where accuracy matters more than latency.", file=sys.stderr)
+              "per clip and can cost accuracy against the reference ten-crop protocol (the "
+              "per-seed AUC cost that the port's scripts.int8_e2e measured on an H100 80GB HBM3 "
+              "(700 W power limit) is in PERF.md, section 6). Use --crops ten where accuracy "
+              "matters more than latency.",
+              file=sys.stderr)
 
 
 def write_export(args: argparse.Namespace, scorer: nn.Module, model_name: str, channels: int,

@@ -17,12 +17,32 @@ import torch
 from .base import contrastive_loss
 
 
+class _BCE(torch.autograd.Function):
+    """torch ``BCELoss``'s forward and backward. The backward is the
+    reference's, ``(p - y) / max(p (1 - p), 1e-12)``: autograd through the
+    clamped logs (the JAX package's formula) gives ``0 * inf = NaN`` where
+    a probability is exactly 0 or 1, which a confident scorer reaches in
+    float32 (a logit above about 17)."""
+
+    @staticmethod
+    def forward(ctx, probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(probs, labels)
+        log_p = torch.clamp(torch.log(probs), min=-100.0)
+        log_1p = torch.clamp(torch.log1p(-probs), min=-100.0)
+        return -torch.mean(labels * log_p + (1.0 - labels) * log_1p)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        probs, labels = ctx.saved_tensors
+        dp = (probs - labels) / torch.clamp(probs * (1.0 - probs), min=1e-12)
+        return (grad * dp / probs.numel()).to(probs.dtype), None
+
+
 def bce_loss(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """torch ``BCELoss``: mean of -(y log p + (1 - y) log(1 - p)), each log
-    term clamped at -100."""
-    log_p = torch.clamp(torch.log(probs), min=-100.0)
-    log_1p = torch.clamp(torch.log1p(-probs), min=-100.0)
-    return -torch.mean(labels * log_p + (1.0 - labels) * log_1p)
+    term clamped at -100, with ``BCELoss``'s gradient (finite at p = 0 and
+    1; ``_BCE``)."""
+    return _BCE.apply(probs, labels)
 
 
 def mgfn_loss(

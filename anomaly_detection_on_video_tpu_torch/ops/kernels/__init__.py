@@ -4,7 +4,18 @@ Each module holds the kernel's wrapper, its plain PyTorch version and a
 launch counter on the wrapper. A wrapper given a CPU tensor runs the plain
 version; given a CUDA tensor it launches the kernel or raises. The CUDA
 sources live in ``csrc/`` and build at first use (``_build.py``).
+
+With ``ANOMALY_TORCH_LAUNCH_LOG`` set to a file, a process that imported
+this module appends one JSON line at exit: its pid, ``sys.argv`` and its
+launch counts. It is how a caller reads the launches of a tool that runs
+in processes of its own (the ``scripts`` demo's CLI steps, ``tp_audit``'s
+ranks, the processes of ``extract_features --multihost``).
 """
+
+import atexit
+import json
+import os
+import sys
 
 from .bottleneck import bottleneck_block, bottleneck_plain, pack_block_params
 from .crop_norm import ten_crop_standardize, ten_crop_standardize_plain
@@ -38,7 +49,23 @@ def stem_stride_launch_counts() -> dict:
     return dict(int8_conv.stem_stride_launches)
 
 
+LAUNCH_LOG_ENV = "ANOMALY_TORCH_LAUNCH_LOG"
+
+
+def _append_launch_log(path: str) -> None:
+    record = {"pid": os.getpid(), "argv": list(sys.argv), "launches": launch_counts(),
+              "stem_launches": stem_launch_counts()}
+    # one write of one line in append mode: the lines of concurrent processes do not interleave
+    with open(path, "a") as f:
+        f.write(json.dumps(record) + "\n")
+
+
+if os.environ.get(LAUNCH_LOG_ENV):
+    atexit.register(_append_launch_log, os.environ[LAUNCH_LOG_ENV])
+
+
 __all__ = [
+    "LAUNCH_LOG_ENV",
     "WRAPPERS",
     "bottleneck_block",
     "bottleneck_plain",

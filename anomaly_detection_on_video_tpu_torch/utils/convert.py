@@ -6,7 +6,10 @@ exporters (``export_{i3res50,mgfn,rtfm,sultani}_state_dict`` in its
 ``utils/convert.py``). Each takes the ``{"params", "batch_stats"}`` tree as
 nested dicts of numpy arrays and returns the state dict that
 ``load_state_dict`` takes on the port's models (and the reference's);
-``i3d_state_dict_to_flax`` is the inverse for I3D. One I3D tree serves every
+``{i3d,mgfn,rtfm,sultani}_state_dict_to_flax`` are their exact inverses
+(the JAX package's ``convert_*_state_dict`` layouts, what the converter
+``anomaly_detection_on_video_tpu_torch.scripts.convert_checkpoint``
+writes). One I3D tree serves every
 variant (i3res50 with or without non-local blocks, ``i3d_8x8_r50``);
 ``i3d_state_dict_{from,to}_pytorchvideo`` move it to and
 from pytorchvideo's ``create_resnet`` names (the ``I3D_8x8_R50.pyth``
@@ -113,45 +116,80 @@ def _i3d_flax_path(module: str) -> Optional[Tuple[str, ...]]:
     return (block, {"1": "branch_a", "2": "branch_b", "3": "branch_c"}[part[-1]], part[:-1])
 
 
-def i3d_state_dict_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+SKIP = object()  # a key ``_flax_variables`` drops without a word
+
+
+def _flax_variables(state_dict: Mapping[str, Any], leaf_of: Callable, what: str,
+                    unknown: str = "raise") -> Dict[str, Dict[str, Any]]:
+    """A state dict -> flax variables, one key at a time: ``leaf_of(key,
+    array)`` gives the key's ``(collection, path, array)``, ``SKIP`` for a
+    key with no flax counterpart that no converter reads (BatchNorm's
+    ``num_batches_tracked``), or None for a key of no part of ``what``.
+    ``unknown="raise"`` raises KeyError naming every such key;
+    ``"ignore"`` drops them, naming them on stderr, as the JAX package's
+    lenient converters read only their own keys. ``batch_stats`` is left
+    out when empty. Arrays are copies in their own dtype."""
+    if unknown not in ("raise", "ignore"):
+        raise ValueError(f"unknown must be raise or ignore, got {unknown!r}")
+    variables: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    refused = []
+    for key, value in state_dict.items():
+        leaf = leaf_of(key, np.array(_array(value), copy=True))
+        if leaf is SKIP:
+            continue
+        if leaf is None:
+            refused.append(key)
+            continue
+        collection, path, array = leaf
+        node = variables[collection]
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = array
+    if refused and unknown == "raise":
+        raise KeyError(f"not part of the ported {what} (no flax name): {', '.join(refused)}")
+    if refused:
+        print(f"{what}: ignoring {len(refused)} key(s) with no flax name: {', '.join(refused)}",
+              file=sys.stderr)
+    if not variables["batch_stats"]:
+        del variables["batch_stats"]
+    return variables
+
+
+def _i3d_leaf(key: str, array: np.ndarray):
+    module, _, tensor = key.rpartition(".")
+    path = _i3d_flax_path(module)
+    if path is None:
+        return None
+    if path[-1] == "bn":
+        if tensor == "num_batches_tracked":
+            return SKIP
+        if tensor in _BN_TO_FLAX:
+            collection, leaf = _BN_TO_FLAX[tensor]
+            return collection, path + (leaf,), array
+        return None
+    if tensor == "weight":
+        return "params", path + ("kernel",), np.transpose(array, (2, 3, 4, 1, 0))
+    if path[-1] in _NL_CONVS and tensor == "bias":
+        return "params", path + ("bias",), array
+    return None
+
+
+def i3d_state_dict_to_flax(state_dict: Mapping[str, Any], unknown: str = "raise"
+                           ) -> Dict[str, Dict[str, Any]]:
     """The port's I3D state dict (any variant) -> flax ``{"params",
     "batch_stats"}`` variables of numpy arrays, the exact inverse of
     ``i3d_state_dict_from_flax`` (the layout the JAX package's
-    ``convert_i3res50_state_dict`` builds and ``scripts/convert_checkpoint.py
-    --kind i3d`` writes): ``conv1``/``bn1`` are ``stem/{conv,bn}``,
+    ``convert_i3res50_state_dict`` builds and ``convert_checkpoint --kind
+    i3d`` writes, the JAX script's or the port's
+    ``anomaly_detection_on_video_tpu_torch.scripts.convert_checkpoint``):
+    ``conv1``/``bn1`` are ``stem/{conv,bn}``,
     ``layer{L}.{i}.conv{1,2,3}``/``bn{1,2,3}`` ``stage{L}_block{i}/branch_{a,b,c}``,
     ``downsample.{0,1}`` ``proj``, ``nl.*`` ``NonLocalBlock_0``. BatchNorm's
     ``num_batches_tracked`` has no flax counterpart and is dropped; any other
-    key raises KeyError naming it. Arrays keep their dtype."""
-    variables: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
-
-    def put(collection: str, path: Tuple[str, ...], value: np.ndarray) -> None:
-        node = variables[collection]
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = value
-
-    unknown = []
-    for key, value in state_dict.items():
-        module, _, tensor = key.rpartition(".")
-        path = _i3d_flax_path(module)
-        if tensor == "num_batches_tracked" and path is not None and path[-1] == "bn":
-            continue
-        array = np.array(_array(value), copy=True)
-        if path is None:
-            unknown.append(key)
-        elif path[-1] == "bn" and tensor in _BN_TO_FLAX:
-            collection, leaf = _BN_TO_FLAX[tensor]
-            put(collection, path + (leaf,), array)
-        elif path[-1] != "bn" and tensor == "weight":
-            put("params", path + ("kernel",), np.transpose(array, (2, 3, 4, 1, 0)))
-        elif path[-1] in _NL_CONVS and tensor == "bias":
-            put("params", path + ("bias",), array)
-        else:
-            unknown.append(key)
-    if unknown:
-        raise KeyError(f"not part of the ported I3D (no flax name): {', '.join(unknown)}")
-    return variables
+    key raises KeyError naming it (``unknown="ignore"``: dropped and named
+    on stderr, as the JAX converter ignores a Kinetics head). Arrays keep
+    their dtype."""
+    return _flax_variables(state_dict, _i3d_leaf, "I3D", unknown)
 
 
 # pytorchvideo's top-level block of each stage: with ``stage1_pool`` set (the
@@ -320,6 +358,117 @@ def sultani_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torc
         sd[f"{name}.weight"] = _t(np.asarray(params[name]["kernel"]).T)
         sd[f"{name}.bias"] = _t(params[name]["bias"])
     return sd
+
+
+_MGFN_CHAN_LN = {"g": "g", "b": "b"}
+_MGFN_BN = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+            "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+_MGFN_CONVS = {"conv", "scc", "attention.to_qkv", "attention.to_v", "attention.rel_pos",
+               "attention.to_out", "ffn.in_conv", "ffn.out_conv"}
+_MGFN_LNS = {"layer_norm": "norm", "attention.norm": "attention/norm", "ffn.layer_norm": "ffn/norm"}
+_MGFN_BLOCK = re.compile(r"^backbone\.layers\.(\d+)\.(\d+)\.(.+)\.([a-z_]+)$")
+
+
+def _kernel1d(w: np.ndarray) -> np.ndarray:
+    """torch Conv1d (O, I, K) -> flax (K, I, O)."""
+    return np.transpose(w, (2, 1, 0))
+
+
+def _kernel_leaf(path: Tuple[str, ...], tensor: str, array: np.ndarray, kernel: Callable):
+    """A conv or linear ``weight`` as ``path/kernel`` (through ``kernel``),
+    its ``bias`` as ``path/bias``."""
+    if tensor == "weight":
+        return "params", path + ("kernel",), kernel(array)
+    if tensor == "bias":
+        return "params", path + ("bias",), array
+    return None
+
+
+def _mgfn_leaf(key: str, array: np.ndarray):
+    m = re.match(r"^backbone\.amplifier\.(to_tokens|to_mag)\.([a-z]+)$", key)
+    if m:
+        return _kernel_leaf(("backbone", "amplifier", m.group(1)), m.group(2), array, _kernel1d)
+    if key in ("layer_norm.weight", "layer_norm.bias"):
+        return "params", ("head_norm", "scale" if key.endswith("weight") else "bias"), array
+    if key in ("fc.weight", "fc.bias"):
+        return _kernel_leaf(("fc",), key[3:], array, np.transpose)
+    m = _MGFN_BLOCK.match(key)
+    if m is None:
+        return None
+    base = ("backbone", f"stage{m.group(1)}_block{m.group(2)}")
+    module, tensor = m.group(3), m.group(4)
+    if module in _MGFN_CONVS:
+        return _kernel_leaf(base + tuple(module.split(".")), tensor, array, _kernel1d)
+    if module in _MGFN_LNS and tensor in _MGFN_CHAN_LN:  # channel LayerNorm, (1, dim, 1)
+        return "params", base + tuple(_MGFN_LNS[module].split("/")) + (tensor,), array.reshape(-1)
+    if module == "attention.norm":  # a focus block's BatchNorm1d
+        if tensor == "num_batches_tracked":
+            return SKIP
+        if tensor in _MGFN_BN:
+            collection, leaf = _MGFN_BN[tensor]
+            return collection, base + ("attention", "norm", leaf), array
+    return None
+
+
+def mgfn_state_dict_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """The port's (the reference's HF-style) MGFN state dict -> flax
+    variables, the exact inverse of ``mgfn_state_dict_from_flax`` (the
+    layout of the JAX package's ``convert_mgfn_state_dict``): Conv1d
+    weights (O, I, K) -> kernels (K, I, O), channel LayerNorms' ``g``/``b``
+    (1, dim, 1) -> (dim,), a focus block's BatchNorm1d -> ``scale``/``bias``
+    and ``batch_stats`` ``mean``/``var`` (its ``num_batches_tracked``
+    dropped), ``layer_norm`` -> ``head_norm``, ``fc`` transposed. Any other
+    key raises KeyError naming it. ``batch_stats`` only when a focus block
+    has one."""
+    return _flax_variables(state_dict, _mgfn_leaf, "MGFN", "raise")
+
+
+_RTFM_CONVS = {"conv_1": "dilated1", "conv_2": "dilated2", "conv_3": "dilated4", "conv_5": "fuse",
+               "conv_4": "proj"}
+_RTFM_HEADS = {"fc1": "fc1", "fc2": "fc2", "fc3": "fc_out"}
+
+
+def _rtfm_leaf(key: str, array: np.ndarray):
+    m = re.match(r"^Aggregate\.(conv_[1-5])\.0\.(weight|bias)$", key)
+    if m and not (m.group(1) == "conv_4" and m.group(2) == "bias"):
+        return _kernel_leaf(("aggregate", _RTFM_CONVS[m.group(1)]), m.group(2), array,
+                            _kernel1d)
+    m = re.match(r"^Aggregate\.non_local\.(theta|phi|g|W\.0)\.(weight|bias)$", key)
+    if m:  # 1x1 Conv1d (O, I, 1) -> Dense (I, O)
+        name = "out" if m.group(1) == "W.0" else m.group(1)
+        return _kernel_leaf(("aggregate", "non_local", name), m.group(2), array,
+                            lambda w: w[:, :, 0].T)
+    m = re.match(r"^(fc[123])\.(weight|bias)$", key)
+    if m:
+        return _kernel_leaf((_RTFM_HEADS[m.group(1)],), m.group(2), array, np.transpose)
+    return None
+
+
+def rtfm_state_dict_to_flax(state_dict: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """The port's RTFM state dict (the official release's names, BN-free)
+    -> flax ``{"params"}``, the exact inverse of ``rtfm_state_dict_from_flax``
+    (the layout of the JAX package's ``convert_rtfm_state_dict``):
+    ``Aggregate.conv_{1,2,3,5}`` / ``conv_4`` are ``dilated{1,2,4}`` /
+    ``fuse`` / ``proj``, the non-local 1x1 convs Dense layers (``W.0`` is
+    ``out``), ``fc3`` is ``fc_out``. An official checkpoint with BatchNorm
+    goes through ``rtfm_state_dict_from_official`` first, which folds it.
+    Any other key raises KeyError naming it."""
+    return _flax_variables(state_dict, _rtfm_leaf, "RTFM", "raise")
+
+
+def _sultani_leaf(key: str, array: np.ndarray):
+    m = re.match(r"^(fc[123])\.(weight|bias)$", key)
+    return _kernel_leaf((m.group(1),), m.group(2), array, np.transpose) if m else None
+
+
+def sultani_state_dict_to_flax(state_dict: Mapping[str, Any], unknown: str = "raise"
+                               ) -> Dict[str, Dict[str, Any]]:
+    """The port's Sultani state dict -> flax ``{"params"}``, the exact
+    inverse of ``sultani_state_dict_from_flax`` (the JAX package's
+    ``convert_sultani_state_dict``): ``fc{1,2,3}`` Linear weights
+    transposed to Dense kernels. Any other key raises KeyError naming it
+    (``unknown="ignore"``: dropped, named on stderr)."""
+    return _flax_variables(state_dict, _sultani_leaf, "Sultani", unknown)
 
 
 # ---------------------------------------------------------------------------

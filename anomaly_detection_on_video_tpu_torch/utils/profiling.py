@@ -24,15 +24,26 @@ from typing import Any, Dict, Iterator
 def trace(logdir: str) -> Iterator[Any]:
     """Profile the block; on exit write ``<host>_<pid>.<stamp>.pt.trace.json``
     under ``logdir``. Yields the ``torch.profiler.profile`` (its events and
-    ``key_averages()`` are read after the block)."""
+    ``key_averages()`` are read after the block).
+
+    The profiler starts in a warm-up step whose records are discarded: on
+    the card one device op runs and is waited for there, so CUDA activity
+    tracing is live before the block's first kernel (started and recording
+    at once, it has lost the first kernel of a block)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+    with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        if cuda:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        prof.step()  # warm-up -> recording
         yield prof
 
 

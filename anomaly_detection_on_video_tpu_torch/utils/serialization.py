@@ -1,7 +1,10 @@
 """Flax msgpack variable files (counterpart of the JAX package's
 ``utils/serialization.py``), through the port's own codec.
 
-``scripts/convert_checkpoint.py --kind i3d`` and the JAX package write I3D
+``convert_checkpoint --kind i3d`` (the JAX package's
+``scripts/convert_checkpoint.py``, or the port's
+``anomaly_detection_on_video_tpu_torch.scripts.convert_checkpoint``, which
+writes the same bytes through this codec) and the JAX package write I3D
 weights as flax's ``msgpack_serialize`` of a ``{"params", "batch_stats"}``
 tree. The port reads and writes that layout without the ``msgpack`` or
 ``flax`` packages, which the card's machine lacks. The codec covers what

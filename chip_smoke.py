@@ -223,7 +223,8 @@ Phases, each of which raises on failure (exit code != 0):
    int8: every feature file bit-equal to a one-process run, int8's
    ``act_scales_rgb.json`` equal to the one-process scales and older than
    every feature file, ``segmented`` printed by process 0 only, each
-   process's K1-K5 launches printed; (b) ``FeatureExtractor(devices=
+   process's launches (read from the launch log,
+   ``ANOMALY_TORCH_LAUNCH_LOG``) K1-K5 each > 0; (b) ``FeatureExtractor(devices=
    ["cuda:0", "cuda:0"])`` on a 48-clip video (two shards of B = 240 per
    group) bit-equal to one device in bf16 and int8 (the same scales),
    timed against it; (c) ``run trainer.multihost=true`` with a coordinator
@@ -235,6 +236,30 @@ Phases, each of which raises on failure (exit code != 0):
    more than one card ``run`` with ``data_parallel`` over all of them (one
    rank per card, nccl, two bags a rank): finite losses, printed beside
    (c)'s plain run; with one, a line saying multi-card NCCL was not run.
+16. the user tools of ``scripts/``, ported to
+   ``anomaly_detection_on_video_tpu_torch/scripts/``, each run as a user
+   runs it (``python -m``, its own process, on the card), every process
+   of each appending its kernel launches at exit to a log
+   (``ANOMALY_TORCH_LAUNCH_LOG``): (a) ``demo --epochs 16`` alone, timed:
+   features (n_clips, 10, 2048), K1, K2 and K3 launched by its
+   ``extract_features`` process, AUC >= 0.7 (the script's own gate), the
+   export's ``manifest.json``; then at once (their gates are outcomes, not
+   times): (c) ``convert_checkpoint`` round trips of phase 8's MGFN
+   ``state.pt`` (``mgfn-hf``) and phase 10's ``i3res50.pt`` (``i3d``) to
+   ``.msgpack`` and back, every tensor bit-equal (``num_batches_tracked``
+   back as 0), and ``infer.load_i3d_weights`` of the ``.msgpack`` equal to
+   the ``.pt``, then (b) ``infer`` on four ``int8_e2e`` corpus videos saved
+   as MJPG (phase 8's checkpoint, phase 10's weights) and
+   ``operating_point`` over its score JSONs and a ground truth of their
+   anomalous halves: AUCs and the best-F1 threshold in [0, 1]; (d)
+   ``convergence_bench`` at its defaults: every family's best AUC > 0.8 on
+   every seed, the full-scale MGFN's divergence printed, not gated; (e)
+   ``int8_e2e`` at its defaults (12 videos of 256 frames, 150 steps, seeds
+   0 1 2): every AUC finite and in [0, 1], K1-K5 launched (K4 and K5 by its
+   int8 variants alone), the report written; then (f) ``tp_audit``:
+   Sultani's split ideal (sharded bytes >= 0.999, memory within 1e-3 of
+   1/tp), the full-size MGFN step timed at every mesh shape the card count
+   allows and the others reported as skipped.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -250,6 +275,7 @@ import ctypes
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1190,8 +1216,9 @@ def time_train_step(torch, precision: str, runner: str = "mgfn", steps: int = 20
     of (10, 32, 2049) made from a seed, at the full width of ``runner``'s
     default config: median ms per step (host clock around a synchronized
     step), steps/s, peak memory, and one profiled step's device time. lr
-    1e-4, as in check_training: at 1e-3 these inputs drive MGFN's losses to
-    NaN within a few steps. Returns the median ms."""
+    1e-4, as in check_training: at 1e-3 these inputs drove MGFN's losses to
+    NaN within a few steps (before the BCE gradient's repair, fault 6 in
+    ROADMAP.md). Returns the median ms."""
     import numpy as np
 
     from anomaly_detection_on_video_tpu_torch.models import build_model, seeded_init_
@@ -2867,20 +2894,18 @@ MULTIHOST_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.extract_stand_in(
 def extract_stand_in(spec: str) -> int:
     """Phase 15 (a)'s process body: ``extract_features.main`` under the
     stand-in decode for each argv of the JSON list in ``spec``, each run's
-    kernel launches and seconds printed."""
+    seconds printed (the process's launches go to the launch log)."""
     from anomaly_detection_on_video_tpu_torch import extract_features
-    from anomaly_detection_on_video_tpu_torch.ops import kernels
 
     print("multihost child: torch and the port imported", flush=True)
     with open(spec) as f:
         runs = json.load(f)
     for argv in runs:
-        kernels.reset_launch_counts()
         start = time.perf_counter()
         with stand_in_decode():
             code = extract_features.main(argv)
-        print(f"child run {argv[argv.index('--dtype') + 1]}: {time.perf_counter() - start:.2f} s, "
-              f"launches {json.dumps(kernels.launch_counts())}", flush=True)
+        print(f"child run {argv[argv.index('--dtype') + 1]}: {time.perf_counter() - start:.2f} s",
+              flush=True)
         if code:
             return code
     return 0
@@ -2900,6 +2925,7 @@ def check_multihost_extraction(torch, root: str, weights: str) -> None:
     import numpy as np
 
     from anomaly_detection_on_video_tpu_torch import extract_features
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
 
     videos = os.path.join(root, "stand_in_videos")
     os.makedirs(videos, exist_ok=True)
@@ -2923,6 +2949,7 @@ def check_multihost_extraction(torch, root: str, weights: str) -> None:
     ports = {dtype: free_port() for dtype in dtypes}
     procs, logs = [], []
     here = os.path.dirname(os.path.abspath(__file__))
+    launch_log = os.path.join(root, "p15_launches.jsonl")
     start = time.perf_counter()
     for pid in range(2):
         spec = os.path.join(root, f"p15_spec{pid}.json")
@@ -2933,7 +2960,8 @@ def check_multihost_extraction(torch, root: str, weights: str) -> None:
         logs.append(open(os.path.join(root, f"p15_child{pid}.log"), "w+"))
         procs.append(subprocess.Popen([sys.executable, "-c", MULTIHOST_CHILD, spec], cwd=here,
                                       stdout=logs[-1], stderr=subprocess.STDOUT,
-                                      env=dict(os.environ, PYTHONUNBUFFERED="1")))
+                                      env=dict(os.environ, PYTHONUNBUFFERED="1",
+                                               **{kernels.LAUNCH_LOG_ENV: launch_log})))
     try:
         codes = [proc.wait(600) for proc in procs]
     finally:
@@ -2950,11 +2978,18 @@ def check_multihost_extraction(torch, root: str, weights: str) -> None:
     if codes != [0, 0]:
         raise AssertionError(f"multihost extraction: exit codes {codes}: {texts[0][-3000:]} "
                              f"{texts[1][-3000:]}")
+    with open(launch_log) as f:
+        records = {record["argv"][-1]: record["launches"] for record in map(json.loads, f)}
     for pid, text in enumerate(texts):
         runs = [line for line in text.splitlines() if line.startswith(("child run", "[process"))]
-        print(f"phase 15 (a) process {pid}: " + " | ".join(runs), flush=True)
+        counts = records.get(os.path.join(root, f"p15_spec{pid}.json"), {})
+        print(f"phase 15 (a) process {pid}: " + " | ".join(runs) + f" | launches of bf16 and int8 "
+              f"{json.dumps(counts)}", flush=True)
         if text.count(f"[process {pid}/2] extracted") != 2:
             raise AssertionError(f"multihost extraction process {pid}: {text[-3000:]}")
+        if sorted(counts) != sorted(w.__name__ for w in kernels.WRAPPERS) or not all(
+                counts.values()):
+            raise AssertionError(f"multihost extraction process {pid}: launches {counts}")
     if texts[0].count("segmented 3 feature files") != 2 or "segmented" in texts[1]:
         raise AssertionError("multihost extraction: segments not written by process 0 alone")
     for dtype in dtypes:
@@ -3318,8 +3353,9 @@ def fit_once(torch, precision: str, workers: int, bags, steps: int, profiled: bo
              lr: float = 1e-5):
     """MGFN at full width from seed 0 through ``VideoAnomalyDetectionRunner.fit``
     on ``bags`` at 16 + 16 per step for ``steps`` steps, with ``data.num_workers
-    = workers``, at ``lr`` (1e-5: at 1e-4 bf16-mixed's loss on these bags turns
-    NaN, which ``check_fit_prefetch`` records). Returns (runner, losses, seconds,
+    = workers``, at ``lr`` (1e-5: at 1e-4 bf16-mixed's loss on these bags turned
+    NaN before the BCE gradient's repair, fault 6; ``check_fit_prefetch`` records
+    the 1e-4 fit). Returns (runner, losses, seconds,
     loader seconds, and with ``profiled`` the fit's ``device_breakdown``)."""
     from anomaly_detection_on_video_tpu_torch.models import MGFN
     from anomaly_detection_on_video_tpu_torch.training import VideoAnomalyDetectionRunner
@@ -3539,6 +3575,9 @@ def check_multirun(torch, root: str) -> None:
           f"equal a direct seed=1 run's; sweep wall {wall:.2f} s; {timing}", flush=True)
 
 
+TRACE_KERNELS = ("crop_norm_kernel", "stem_kernel", "bottleneck_kernel")
+
+
 def check_trace(torch, root: str, extractor, video) -> None:
     """Phase 14 (e): one bf16 extraction pass of the 4-clip video inside
     ``utils.profiling.trace``. Gates: one Chrome trace written, naming the
@@ -3555,13 +3594,66 @@ def check_trace(torch, root: str, extractor, video) -> None:
     seconds = time.perf_counter() - start
     files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
     text = open(files[0]).read() if len(files) == 1 else ""
-    names = ("crop_norm_kernel", "stem_kernel", "bottleneck_kernel")
-    if not all(name in text for name in names):
-        raise AssertionError(f"trace: files {files}, kernels named "
-                             f"{[name for name in names if name in text]}")
+    missing = [name for name in TRACE_KERNELS if name not in text]
+    if missing:
+        raise AssertionError(f"trace: files {files}, kernels missing {missing}")
     print(f"trace: one bf16 pass of the 4-clip video in {seconds:.2f} s wrote "
-          f"{os.path.basename(files[0])} ({len(text) / 1e6:.1f} MB) naming {', '.join(names)}",
-          flush=True)
+          f"{os.path.basename(files[0])} ({len(text) / 1e6:.1f} MB) naming "
+          f"{', '.join(TRACE_KERNELS)}", flush=True)
+
+
+def probe_trace(passes: int) -> int:
+    """``python3 chip_smoke.py --trace-probe N`` (not part of the smoke's
+    run): how often the Chrome trace of one bf16 extraction pass of a
+    4-clip video lacks a K1, K2 or K3 record, N passes under a profiler
+    that starts recording at once (``trace`` without its warm-up step)
+    against N under ``utils.profiling.trace``, in turns, after one pass
+    outside any profiler. Prints one JSON line of the counts."""
+    import glob
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
+        return 1
+    from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
+    from anomaly_detection_on_video_tpu_torch.ops.kernels._build import build
+    from anomaly_detection_on_video_tpu_torch.utils.profiling import trace
+
+    build()
+    video = np.random.RandomState(0).randint(0, 256, (64, 240, 320, 3), dtype=np.uint8)
+    extractor = FeatureExtractor(dtype=torch.bfloat16, batch=40, device="cuda", seed=0)
+    extractor.extract_frames(video)
+    torch.cuda.synchronize()
+    work = tempfile.mkdtemp(prefix="trace_probe_")
+    lacking = {"at once": {name: 0 for name in TRACE_KERNELS},
+               "trace": {name: 0 for name in TRACE_KERNELS}}
+    try:
+        for i in range(passes):
+            for way in lacking:
+                path = os.path.join(work, f"{way.replace(' ', '_')}{i}")
+                if way == "trace":
+                    with trace(path):
+                        extractor.extract_frames(video)
+                        torch.cuda.synchronize()
+                    path = glob.glob(os.path.join(path, "*.pt.trace.json"))[0]
+                else:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        extractor.extract_frames(video)
+                        torch.cuda.synchronize()
+                    prof.export_chrome_trace(path)
+                with open(path) as f:
+                    text = f.read()
+                for name in TRACE_KERNELS:
+                    lacking[way][name] += name not in text
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"{smi_line()}", flush=True)
+    print(json.dumps({"passes": passes, "traces lacking each kernel": lacking}), flush=True)
+    return 0
 
 
 def check_training_and_weights(torch, root: str, extractor, video, checkpoint: str,
@@ -3580,6 +3672,333 @@ def check_training_and_weights(torch, root: str, extractor, video, checkpoint: s
     check_multirun(torch, root)
     check_trace(torch, root, extractor, video)
     print(f"training and weights phase (14): {time.perf_counter() - start:.1f} s", flush=True)
+
+
+# --------------------------------------------------- phase 16: the user tools
+
+TOOLS = "anomaly_detection_on_video_tpu_torch.scripts"
+
+
+def run_tool(root: str, name: str, argv: list, tag: str = None, timeout: float = 900):
+    """``python -m <TOOLS>.<name> argv`` as a process of its own, from the
+    repository root, each process of it (the tool's CLI children and
+    spawned ranks too) appending its kernel launches at exit to
+    ``<root>/<tag>_launches.jsonl`` (``ANOMALY_TORCH_LAUNCH_LOG``). Raises
+    on a nonzero exit. Returns (stdout, launch records, seconds)."""
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    tag = tag or name
+    log = os.path.join(root, f"{tag}_launches.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    env = dict(os.environ, PYTHONUNBUFFERED="1", **{kernels.LAUNCH_LOG_ENV: log})
+    here = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    with open(os.path.join(root, f"{tag}.log"), "w+") as err:
+        result = subprocess.run([sys.executable, "-m", f"{TOOLS}.{name}", *map(str, argv)],
+                                cwd=here, env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+                                timeout=timeout)
+        seconds = time.perf_counter() - start
+        if result.returncode:
+            err.seek(0)
+            raise AssertionError(f"{TOOLS}.{name} exited {result.returncode}: "
+                                 f"{result.stdout[-3000:]} {err.read()[-3000:]}")
+    records = []
+    if os.path.exists(log):
+        with open(log) as f:
+            records = [json.loads(line) for line in f]
+    return result.stdout, records, seconds
+
+
+def launches_of(records: list, module: str) -> dict:
+    """The kernel launches summed over the processes whose program is
+    ``module`` (a ``python -m`` process's ``argv[0]`` is the module's file)."""
+    total = {}
+    for record in records:
+        if record["argv"] and record["argv"][0].endswith(module.replace(".", os.sep) + ".py"):
+            for name, count in record["launches"].items():
+                total[name] = total.get(name, 0) + count
+    return total
+
+
+def check_demo(root: str) -> None:
+    """Phase 16 (a): ``demo --epochs 16`` on the card."""
+    import numpy as np
+
+    work = os.path.join(root, "demo")
+    out, records, seconds = run_tool(root, "demo", ["--workdir", work, "--epochs", "16",
+                                                    "--device", "cuda"])
+    feats = np.load(os.path.join(work, "features", "test", "Demo001_x264_i3d.npy"))
+    if feats.ndim != 3 or feats.shape[1:] != (10, 2048) or not np.isfinite(feats).all():
+        raise AssertionError(f"demo features: shape {feats.shape}")
+    match = re.search(r"trained MGFN frame-level AUC: ([0-9.]+)", out)
+    auc = float(match.group(1)) if match else float("nan")
+    if not auc >= 0.7:
+        raise AssertionError(f"demo AUC {auc} below 0.7: {out[-2000:]}")
+    if not os.path.isfile(os.path.join(work, "scorer_export", "manifest.json")):
+        raise AssertionError("demo: no manifest.json in the export")
+    if "demo complete" not in out:
+        raise AssertionError(f"demo did not complete: {out[-2000:]}")
+    counts = launches_of(records, "anomaly_detection_on_video_tpu_torch.extract_features")
+    if not all(counts.get(k, 0) >= 1 for k in ("ten_crop_standardize", "stem_conv_pool",
+                                                "bottleneck_block")):
+        raise AssertionError(f"demo extraction: K1-K3 launches {counts}")
+    print(f"phase 16 (a) demo --epochs 16: features {tuple(feats.shape)}, MGFN frame AUC "
+          f"{auc:.3f} (gate >= 0.7), export manifest written; extract_features launches "
+          f"{json.dumps(counts)}; {len(records)} processes logged; wall {seconds:.1f} s",
+          flush=True)
+
+
+def write_mjpg(path: str, frames) -> None:
+    import cv2
+
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 30,
+                             (frames.shape[2], frames.shape[1]))
+    if not writer.isOpened():
+        raise AssertionError(f"cv2 cannot write {path}")
+    for frame in frames:
+        writer.write(frame)
+    writer.release()
+
+
+def check_operating_point(root: str, checkpoint: str, weights: str) -> None:
+    """Phase 16 (b): ``infer`` on the card over four ``int8_e2e`` corpus
+    videos saved as MJPG, with phase 8's MGFN and phase 10's weights, then
+    ``operating_point`` over its score JSONs and a ground truth that marks
+    the anomalous halves."""
+    from anomaly_detection_on_video_tpu_torch.scripts.int8_e2e import gt_frames, synth_video
+
+    videos = os.path.join(root, "op_videos")
+    os.makedirs(videos, exist_ok=True)
+    gt, n_frames = {}, 64
+    for i in range(4):
+        anomalous = i % 2 == 1
+        stem = f"{'Abuse' if anomalous else 'Normal_Videos'}{i:03d}_x264"
+        write_mjpg(os.path.join(videos, f"{stem}.avi"), synth_video(n_frames, anomalous, 10 + i))
+        gt[stem] = gt_frames(n_frames, n_frames // 16, anomalous)
+    with open(os.path.join(root, "op_gt.json"), "w") as f:
+        json.dump(gt, f)
+    scores = os.path.join(root, "op_scores")
+    here = os.path.dirname(os.path.abspath(__file__))
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, "-m", "anomaly_detection_on_video_tpu_torch.infer", "--videos", videos,
+         "--outdir", scores, "--checkpoint", checkpoint, "--i3d-weights", weights, "--device",
+         "cuda"], cwd=here, capture_output=True, text=True, timeout=600)
+    if result.returncode:
+        raise AssertionError(f"infer exited {result.returncode}: {result.stderr[-3000:]}")
+    infer_s = time.perf_counter() - start
+    out, _, seconds = run_tool(root, "operating_point", [
+        "--scores", scores, "--gt", os.path.join(root, "op_gt.json"), "--per-video",
+        "--per-class"])
+    report = json.loads(out.strip().splitlines()[-1])
+    best = report["best_f1"]
+    if report["videos"] != 4 or not (0.0 <= report["roc_auc"] <= 1.0 and 0.0 <= report["pr_auc"]
+                                     <= 1.0) or not 0.0 <= best["threshold"] <= 1.0:
+        raise AssertionError(f"operating_point: {report}")
+    print(f"phase 16 (b) operating_point over infer's scores of 4 MJPG corpus videos (infer "
+          f"{infer_s:.1f} s, the tool {seconds:.1f} s): frames {report['frames']}, positive "
+          f"{report['positive_frames']}, roc_auc {report['roc_auc']}, pr_auc {report['pr_auc']}, "
+          f"best F1 {best['f1']} at threshold {best['threshold']:.6f} (precision "
+          f"{best['precision']}, recall {best['recall']}), at_target_fpr "
+          f"{json.dumps(report['at_target_fpr'])}, far {report['far']}", flush=True)
+
+
+def check_round_trip(root: str, kind: str, src: str, want: dict) -> tuple:
+    """``convert_checkpoint --kind kind src`` to ``.msgpack`` and back with
+    ``--reverse``: every tensor of ``want`` bit-equal (dtype, shape,
+    values) but BatchNorm's ``num_batches_tracked``, which comes back 0.
+    Returns (the .msgpack path, tensors compared, seconds)."""
+    import torch
+
+    msgpack = os.path.join(root, f"{kind}.msgpack")
+    back = os.path.join(root, f"{kind}_back.pt")
+    _, _, forward_s = run_tool(root, "convert_checkpoint", ["--kind", kind, src, msgpack],
+                               tag=f"convert_{kind}")
+    _, _, reverse_s = run_tool(root, "convert_checkpoint", ["--kind", kind, "--reverse", msgpack,
+                                                            back], tag=f"reverse_{kind}")
+    got = torch.load(back, map_location="cpu", weights_only=True)
+    compared = 0
+    for key, value in want.items():
+        value = value.detach().cpu()
+        if key.endswith("num_batches_tracked"):
+            if int(got[key]) != 0:
+                raise AssertionError(f"{kind} round trip: {key} = {got[key]}")
+            continue
+        if got[key].dtype != value.dtype or not torch.equal(got[key], value):
+            raise AssertionError(f"{kind} round trip: {key} differs")
+        compared += 1
+    if set(got) != set(want):
+        raise AssertionError(f"{kind} round trip keys: {sorted(set(got) ^ set(want))}")
+    return msgpack, compared, forward_s + reverse_s
+
+
+def check_conversions(root: str, checkpoint: str, weights: str) -> None:
+    """Phase 16 (c): phase 8's MGFN checkpoint and phase 10's i3res50
+    ``.pt`` to ``.msgpack`` and back on a machine without JAX (the two
+    chains at once), and ``infer.load_i3d_weights`` of the ``.msgpack``
+    against the ``.pt``."""
+    import threading
+
+    import torch
+
+    from anomaly_detection_on_video_tpu_torch.infer import load_i3d_weights
+    from anomaly_detection_on_video_tpu_torch.training.checkpoints import STATE_FILE, TopKCheckpointer
+
+    step = TopKCheckpointer(checkpoint).latest_step()
+    state = os.path.join(checkpoint, str(step), STATE_FILE)
+    chains = {"mgfn-hf": (state, torch.load(state, map_location="cpu", weights_only=True)["model"]),
+              "i3d": (weights, torch.load(weights, map_location="cpu", weights_only=True))}
+    results, errors = {}, []
+
+    def chain(kind):
+        try:
+            results[kind] = check_round_trip(root, kind, *chains[kind])
+        except BaseException as exc:  # re-raised below, on the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=chain, args=(kind,)) for kind in chains]
+    start = time.perf_counter()
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    if errors:
+        raise errors[0]
+    wall = time.perf_counter() - start
+    loaded = load_i3d_weights(results["i3d"][0], "tushar-n-baseline")
+    pt = chains["i3d"][1]
+    for key, value in pt.items():
+        if not key.endswith("num_batches_tracked") and not torch.equal(loaded[key],
+                                                                       value.detach().cpu()):
+            raise AssertionError(f"load_i3d_weights(.msgpack): {key} differs from the .pt")
+    print(f"phase 16 (c) convert_checkpoint round trips, bit-equal: mgfn-hf (phase 8's step-{step} "
+          f"state.pt) {results['mgfn-hf'][1]} tensors, i3d (phase 10's i3res50.pt, "
+          f"{os.path.getsize(results['i3d'][0]) / 1e6:.1f} MB .msgpack) {results['i3d'][1]} "
+          f"tensors; num_batches_tracked back as 0; load_i3d_weights(.msgpack) equals the .pt; "
+          f"wall {wall:.1f} s for both chains at once (four processes)", flush=True)
+
+
+def check_convergence(root: str) -> dict:
+    """Phase 16 (d): ``convergence_bench`` at its defaults."""
+    out = os.path.join(root, "convergence.json")
+    stdout, _, seconds = run_tool(root, "convergence_bench", ["--out", out, "--device", "cuda"])
+    with open(out) as f:
+        report = json.load(f)
+    failed = {m: s["best_auc_per_seed"] for m, s in report["summary"].items()
+              if not all(a > 0.8 for a in s["best_auc_per_seed"])}
+    if failed or len(report["summary"]) != 3:
+        raise AssertionError(f"convergence: best AUC not > 0.8: {failed}")
+    for model, summary in report["summary"].items():
+        print(f"phase 16 (d) convergence {model}: best AUC per seed "
+              f"{[round(a, 4) for a in summary['best_auc_per_seed']]}, final "
+              f"{[round(a, 4) for a in summary['final_auc_per_seed']]}", flush=True)
+    for seed, run in report["reference_hparams_full_scale"]["per_seed"].items():
+        if run["error"] is not None and run["diverged_at_epoch"] is None:
+            raise AssertionError(f"convergence full-scale seed {seed}: {run['error']} without a "
+                                 "recorded divergence")
+        print(f"phase 16 (d) full-scale MGFN (lr 1e-3, batch 16, 8 epochs, 2048-d) seed {seed}: "
+              f"finite {run['finite']}, diverged at epoch {run['diverged_at_epoch']}, error "
+              f"{run['error']}, AUCs {[round(a, 4) for a in run['rec_auc']]}, losses "
+              f"{[round(v, 4) for v in run['train_loss_epoch']]} (a divergence recorded, not gated)",
+              flush=True)
+    print(f"phase 16 (d) convergence_bench: {seconds:.1f} s; "
+          f"{'figure' if 'no figure' not in stdout else 'no figure (no matplotlib)'}", flush=True)
+    return report
+
+
+def check_int8_e2e(root: str) -> dict:
+    """Phase 16 (e): ``int8_e2e`` at its defaults (12 videos of 256 frames,
+    150 steps, seeds 0 1 2)."""
+    import numpy as np
+
+    out = os.path.join(root, "int8_e2e.json")
+    _, records, seconds = run_tool(root, "int8_e2e", ["--out", out, "--device", "cuda"])
+    with open(out) as f:
+        report = json.load(f)
+    aucs = [r[part][key] for r in report["per_seed"] for part in ("tencrop", "center_serving")
+            for key in ("auc_bf16", "auc_int8")]
+    if len(report["per_seed"]) != 3 or not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
+        raise AssertionError(f"int8_e2e AUCs: {aucs}")
+    counts = launches_of(records, f"{TOOLS}.int8_e2e")
+    if not all(counts.get(k, 0) >= 1 for k in ("ten_crop_standardize", "stem_conv_pool",
+                                                "bottleneck_block", "int8_matmul", "int8_conv")):
+        raise AssertionError(f"int8_e2e launches: {counts}")
+    agg = report["aggregate"]
+    for key in ("int8_auc_delta_tencrop", "int8_auc_delta_center", "int8_max_score_delta_tencrop",
+                "int8_max_score_delta_center", "protocol_auc_cost_center_vs_tencrop_bf16",
+                "auc_bf16_tencrop", "auc_bf16_center"):
+        print(f"phase 16 (e) int8_e2e {key}: per seed {agg[key]['per_seed']}, mean "
+              f"{agg[key]['mean']}", flush=True)
+    print(f"phase 16 (e) int8_e2e: 3 seeds x 12 videos x 16 clips x 4 variants on "
+          f"{report['device']}; launches {json.dumps(counts)} (K4 and K5 by the int8 variants "
+          f"alone); {seconds:.1f} s", flush=True)
+    return report
+
+
+def check_tp_audit(root: str) -> None:
+    """Phase 16 (f): ``tp_audit`` (the step timed at the mesh shapes the
+    card count allows)."""
+    import numpy as np
+    import torch
+
+    out = os.path.join(root, "tp_audit.json")
+    _, _, seconds = run_tool(root, "tp_audit", ["--out", out, "--device", "cuda"])
+    with open(out) as f:
+        report = json.load(f)
+    for row in report["audit"]:
+        if row["family"] == "sultani" and (row["sharded_bytes_frac"] < 0.999 or abs(
+                row["memory_vs_replicated"] - 1.0 / row["tp"]) >= 1e-3):
+            raise AssertionError(f"tp_audit sultani: {row}")
+        print(f"phase 16 (f) tp_audit {row['family']} tp {row['tp']}: total "
+              f"{row['total_mib']} MiB, sharded bytes {row['sharded_bytes_frac']}, leaves "
+              f"{row['sharded_leaf_frac']}, per device {row['per_device_mib']} MiB "
+              f"({row['memory_vs_replicated']} of replicated)", flush=True)
+    timed = report["mgfn_step_time_cuda"]
+    ran = [r for r in timed if "skipped" not in r]
+    if len(ran) < 1 or not all(np.isfinite(r["loss"]) for r in ran):
+        raise AssertionError(f"tp_audit timing: {timed}")
+    n = torch.cuda.device_count()
+    if any("skipped" in r and r["mesh"]["data"] * r["mesh"]["model"] <= n for r in timed):
+        raise AssertionError(f"tp_audit skipped a mesh that {n} card(s) allow: {timed}")
+    print(f"phase 16 (f) tp_audit full-size MGFN step, {n} card(s): {json.dumps(timed)}; "
+          f"{seconds:.1f} s", flush=True)
+
+
+def check_user_tools(torch, root: str, checkpoint: str, weights: str) -> None:
+    """Phase 16: the repository's user tools of ``scripts/``, ported, run
+    as a user runs them (``python -m``) on the card: (a) the demo alone,
+    timed; then (b)-(c), (d) and (e) at once (their gates are outcomes,
+    not times); then (f), whose step times want the card to itself."""
+    import threading
+
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    check_demo(root)
+    errors = []
+
+    def guarded(fn, *args):
+        try:
+            fn(*args)
+        except BaseException as exc:  # re-raised below, on the main thread
+            errors.append(exc)
+
+    def tools_over_checkpoints():
+        check_conversions(root, checkpoint, weights)
+        check_operating_point(root, checkpoint, weights)
+
+    threads = [threading.Thread(target=guarded, args=(fn, *args)) for fn, args in (
+        (tools_over_checkpoints, ()), (check_convergence, (root,)), (check_int8_e2e, (root,)))]
+    t0 = time.perf_counter()
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    if errors:
+        raise errors[0]
+    print(f"phase 16 (b)-(e) at once: {time.perf_counter() - t0:.1f} s", flush=True)
+    check_tp_audit(root)
+    print(f"user tools phase (16): {time.perf_counter() - start:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -3800,6 +4219,11 @@ def main() -> int:
         # 15. scale-out: extract_features --multihost as two processes, the
         # clip-axis split over two replicas, run trainer.multihost=true
         check_scale_out(torch, work, model, os.path.join(work, "i3res50.pt"))
+        torch.cuda.empty_cache()
+
+        # 16. the user tools of scripts/, ported: demo, operating_point,
+        # convert_checkpoint, convergence_bench, int8_e2e, tp_audit
+        check_user_tools(torch, work, checkpoints["mgfn"], os.path.join(work, "i3res50.pt"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3829,4 +4253,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--trace-probe"]:
+        sys.exit(probe_trace(int(sys.argv[2])))
     sys.exit(main())

@@ -369,7 +369,9 @@ def test_main_matches_jax_main_on_cached_features(rng, tmp_path, monkeypatch):
 
 def test_main_parser_checks_match_jax(tmp_path, capsys):
     """--threshold outside [0, 1] and --batch 0 stop at the parser with the
-    JAX wording; --threshold with int8 warns as JAX does."""
+    JAX wording; --threshold with int8 warns as JAX does, where JAX sends
+    the user to its own tool and TPU records the port sends them to the
+    port's ``scripts.operating_point`` and its H100 record in PERF.md."""
     base = ["--videos", str(tmp_path / "none*.mp4"), "--outdir", str(tmp_path / "o"),
             "--torch-weights", "w.pt"]
     for extra in (["--threshold", "7"], ["--batch", "0"]):
@@ -385,7 +387,11 @@ def test_main_parser_checks_match_jax(tmp_path, capsys):
         with pytest.raises(SystemExit, match="no videos match"):
             main(base + ["--threshold", "0.5", "--dtype", "int8"])
         warnings.append(capsys.readouterr().err)
-    assert warnings[0] == warnings[1] and "--threshold with --dtype int8" in warnings[0]
+    prefix = "warning: --threshold with --dtype int8: "
+    assert warnings[0].startswith(prefix) and warnings[1].startswith(prefix)
+    assert "scripts/operating_point.py" in warnings[0] and "docs/ROOFLINE.md" in warnings[0]
+    assert "anomaly_detection_on_video_tpu_torch.scripts.operating_point" in warnings[1]
+    assert "PERF.md" in warnings[1] and "docs/" not in warnings[1]
 
 
 def test_main_flags_reach_the_extractor_warmup_and_pin(rng, tmp_path, monkeypatch, capsys):
