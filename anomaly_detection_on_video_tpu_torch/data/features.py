@@ -7,8 +7,9 @@ directories of ``<video>_i3d.npy`` files: train features are ``(10, 32,
 normal iff ``"Normal"`` is in its filename. ``add_magnitude`` appends the
 L2 norm channel, 2048 -> 2049. The test split carries frame-level ground
 truth from ``ground_truth.json``. Training batches are numpy arrays
-``(2 * bsz, 10, T, 2049)``, normal bags first. Local paths only: the JAX
-package's Hugging Face hub download is not ported.
+``(2 * bsz, 10, T, 2049)``, normal bags first. With no local path the zips
+come from the reference's feature repo in the local Hugging Face cache
+(``utils/hub.py``); the port downloads nothing.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.hub import cached_file
+
+DEFAULT_FEATURE_HUB = "jinmang2/ucf_crime_tencrop_i3d_seg32"
 DEFAULT_FILENAMES = {"train": "train.zip", "test": "test.zip"}
 
 
@@ -170,21 +174,45 @@ def _select_stream(filenames: List[str], stream: str) -> Tuple[List[str], Dict[s
 def build_feature_dataset(
     mode: str = "train",
     local_path: Optional[str] = None,
+    filename: Optional[str] = None,
+    cache_dir: Optional[str] = None,
+    revision: str = "main",
     dynamic_load: bool = True,
     ground_truth_path: Optional[str] = None,
     stream: str = "rgb",
 ):
     """Train (``{"normal", "abnormal"}``) or test (one dataset) features
-    from ``local_path``: a zip, a directory holding ``train.zip`` /
-    ``test.zip``, or a directory of ``.npy`` files. ``stream`` is ``rgb``,
-    ``flow`` or ``both``."""
+    from ``local_path`` (joined with ``filename`` if given): a zip, a
+    directory holding ``train.zip`` / ``test.zip``, or a directory of
+    ``.npy`` files. ``stream`` is ``rgb``, ``flow`` or ``both``.
+
+    With no ``local_path``, the split's zip of ``DEFAULT_FEATURE_HUB`` at
+    ``revision`` is read from the local Hugging Face cache (``cache_dir``
+    or the default root), and a test split without ``ground_truth_path``
+    takes the repo's ``ground_truth.json``. As in the JAX package, that
+    file is read at ``main`` in the default cache root, whatever
+    ``revision`` and ``cache_dir`` say. A file that is not cached raises
+    ``FileNotFoundError``."""
     if mode not in ("train", "test"):
         raise ValueError(f"mode must be train or test, got {mode!r}")
     if local_path is None:
-        raise FileNotFoundError(
-            f"no {mode} features given: the port reads local features only; set "
-            f"data.{mode}_path=<zip-or-dir> (or data.local_path=<dir> for both splits)")
-    filepath = local_path
+        try:
+            filepath = cached_file(DEFAULT_FEATURE_HUB, DEFAULT_FILENAMES[mode], revision,
+                                   cache_dir, repo_type="dataset")
+            if mode == "test" and ground_truth_path is None:
+                ground_truth_path = cached_file(DEFAULT_FEATURE_HUB, "ground_truth.json",
+                                                repo_type="dataset")
+        except FileNotFoundError as exc:
+            # the JAX package's text: the port has no network either
+            raise FileNotFoundError(
+                f"cannot download {DEFAULT_FEATURE_HUB}/{DEFAULT_FILENAMES[mode]} from the HF "
+                f"hub (no network or not cached). Point the {mode} split at local features "
+                f"instead: data.{mode}_path=<zip-or-dir> (or data.local_path=<dir> for both "
+                f"splits).") from exc
+    elif filename is not None:
+        filepath = os.path.join(local_path, filename)
+    else:
+        filepath = local_path
     if os.path.isdir(filepath):
         candidate = os.path.join(filepath, DEFAULT_FILENAMES[mode])
         if os.path.exists(candidate):

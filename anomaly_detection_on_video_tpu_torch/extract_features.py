@@ -42,8 +42,10 @@ section 5). ``--model`` picks the backbone, ``tushar-n-baseline`` (the
 default) or ``i3d_8x8_r50``, for both streams; ``--weights`` is its weight
 file, read as the JAX CLI's ``load_weights`` reads it (flax variables in a
 ``.msgpack`` file, an I3Res50 state dict, or for ``i3d_8x8_r50`` a
-pytorchvideo ``.pyth`` whose ``model_state`` is converted), with seeded
-random weights when unset;
+pytorchvideo ``.pyth`` whose ``model_state`` is converted), or an
+``hf://org/repo[@revision]/file`` spec read from the local Hugging Face
+cache (``utils/hub.py``; one that is not cached exits), with seeded random
+weights when unset;
 keys the model does not have (a Kinetics head) are dropped with a printed
 line, as the JAX converter ignores them. ``--compile-cache DIR`` builds the
 CUDA kernels into DIR and loads them from there
@@ -82,6 +84,7 @@ from .models.i3d import MODEL_ZOO
 from .parallel import barrier, initialize_multihost, process_count, process_index, shutdown
 from .utils.compile_cache import enable_compile_cache
 from .utils.device import resolve_device
+from .utils.hub import is_hub_spec
 from .utils.profiling import StageTimer
 
 def build_parser() -> argparse.ArgumentParser:
@@ -152,6 +155,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         parser.error("one of --videos / --hf-dataset is required")
     if args.batch < 1:
         parser.error(f"--batch must be >= 1 (got {args.batch})")
+    if args.weights and not is_hub_spec(args.weights) and not os.path.isfile(args.weights):
+        parser.error(f"--weights {args.weights!r}: no such file (or use hf://org/repo/file "
+                     "from the local HF cache)")
     if args.flow_backend and args.stream == "rgb":
         print("warning: --flow-backend has no effect with --stream rgb (no optical-flow stream "
               "is extracted)", file=sys.stderr)
@@ -162,7 +168,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.compile_cache:  # before the first extractor builds the kernels
         enable_compile_cache(args.compile_cache)
     # one weight tree for both streams: the flow stem adapts from it
-    state_dict = load_i3d_weights(args.weights, args.model) if args.weights else None
+    try:
+        state_dict = load_i3d_weights(args.weights, args.model) if args.weights else None
+    except FileNotFoundError as exc:  # an hf:// spec the cache lacks
+        raise SystemExit(str(exc))
     device = resolve_device(args.device)
     if args.multihost:  # the store only: the processes share no collective
         device = initialize_multihost(args.coordinator, args.num_processes, args.process_id,

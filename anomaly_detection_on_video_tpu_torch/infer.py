@@ -42,6 +42,9 @@ CLI's ``load_weights`` reads it (``load_i3d_weights``: flax variables in a
 ``.msgpack`` file; a ``.pyth`` file's ``model_state`` unwrapped;
 ``i3d_8x8_r50`` weights in pytorchvideo's names),
 with seeded random weights when unset, as the JAX CLI initializes randomly.
+Both weight flags also take ``hf://org/repo[@revision]/file``, read from
+the local Hugging Face cache (``utils/hub.py``); a spec that is not cached
+exits with a one-line message.
 
 ``--dtype int8`` runs the I3D convs in int8 (kernels K4 and K5) around
 bfloat16 compute, with scales calibrated on the first video's first chunk
@@ -135,6 +138,7 @@ from .utils.convert import (
     rtfm_state_dict_from_official,
 )
 from .utils.device import resolve_device
+from .utils.hub import is_hub_spec, resolve_weights
 from .utils.npyio import atomic_save, atomic_write_bytes
 from .utils.serialization import load_variables
 
@@ -150,7 +154,10 @@ def load_state_dict(path: str) -> dict:
 
 
 def load_i3d_weights(path: str, model_name: str) -> dict:
-    """An I3D weight file -> the port's state dict for ``model_name``, as
+    """An I3D weight file, or an ``hf://`` spec resolved in the local HF
+    cache (``utils/hub.resolve_weights``, which raises
+    ``FileNotFoundError`` when it is not cached) -> the port's state dict
+    for ``model_name``, as
     the JAX CLIs' ``load_weights`` reads it: a ``.msgpack`` file holds flax
     variables (``convert_checkpoint --kind i3d``'s output: the JAX package's
     ``scripts/convert_checkpoint.py`` or the port's
@@ -160,6 +167,7 @@ def load_i3d_weights(path: str, model_name: str) -> dict:
     ``state_dict`` wrapper) is unwrapped, then ``i3d_8x8_r50`` weights are
     taken from pytorchvideo's names (``i3d_state_dict_from_pytorchvideo``);
     i3res50 weights already carry the reference's names."""
+    path = resolve_weights(path)
     if path.endswith(".msgpack"):
         return i3d_state_dict_from_flax(load_variables(path))
     state_dict = load_state_dict(path)
@@ -203,10 +211,14 @@ def build_scorer(args: argparse.Namespace) -> Tuple[nn.Module, str]:
     # fail fast on path typos: scoring with random weights would be garbage
     if checkpoint and not os.path.isdir(checkpoint):
         raise SystemExit(f"--checkpoint {checkpoint!r}: no such directory")
-    if torch_weights and not os.path.isfile(torch_weights):
-        raise SystemExit(f"--torch-weights {torch_weights!r}: no such file")
-    if args.i3d_weights and not os.path.isfile(args.i3d_weights):
-        raise SystemExit(f"--i3d-weights {args.i3d_weights!r}: no such file")
+    # hf://org/repo/file specs resolve in the local HF cache (utils/hub.py)
+    if torch_weights and not is_hub_spec(torch_weights) and not os.path.isfile(torch_weights):
+        raise SystemExit(f"--torch-weights {torch_weights!r}: no such file "
+                         "(or use hf://org/repo/file)")
+    if (args.i3d_weights and not is_hub_spec(args.i3d_weights)
+            and not os.path.isfile(args.i3d_weights)):
+        raise SystemExit(f"--i3d-weights {args.i3d_weights!r}: no such file "
+                         "(or use hf://org/repo/file)")
 
     overrides = _parse_model_config(args.model_config)
     metadata = TopKCheckpointer.load_metadata(checkpoint) if checkpoint else None
@@ -225,10 +237,14 @@ def build_scorer(args: argparse.Namespace) -> Tuple[nn.Module, str]:
 
     if torch_weights:
         try:
+            resolved = resolve_weights(torch_weights)
+        except FileNotFoundError as exc:  # an hf:// spec the cache lacks
+            raise SystemExit(str(exc))
+        try:
             # keys the model lacks are dropped and named, as the JAX
             # converters ignore them; MGFN keeps refusing the keys its
             # JAX converter refuses
-            load_known_keys(model, _weights_to_port(model_name, load_state_dict(torch_weights),
+            load_known_keys(model, _weights_to_port(model_name, load_state_dict(resolved),
                                                     args.official),
                             f"--torch-weights {torch_weights!r}",
                             refuse=mgfn_key_refused if model_name == "mgfn" else None)
@@ -857,7 +873,11 @@ def main(argv: Optional[List[str]] = None,
         return 0
 
     # one weight tree for both streams: the flow stem adapts from it
-    state_dict = load_i3d_weights(args.i3d_weights, args.i3d_model) if args.i3d_weights else None
+    try:
+        state_dict = (load_i3d_weights(args.i3d_weights, args.i3d_model) if args.i3d_weights
+                      else None)
+    except FileNotFoundError as exc:  # an hf:// spec the cache lacks
+        raise SystemExit(str(exc))
 
     devices = None
     if args.data_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:

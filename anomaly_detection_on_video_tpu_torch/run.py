@@ -318,8 +318,10 @@ def _train(cfg: Dict[str, Any], device):
 
     def load_split(mode, **kw):
         try:
+            # with no local path, the split comes from the local HF cache (utils/hub.py)
             return build_feature_dataset(
                 mode, local_path=data_cfg.get(f"{mode}_path") or data_cfg.get("local_path"),
+                cache_dir=data_cfg.get("cache_dir"), revision=data_cfg.get("revision", "main"),
                 dynamic_load=bool(data_cfg.get("dynamic_load", False)), stream=stream, **kw)
         except FileNotFoundError as exc:
             raise SystemExit(f"data error: {exc}")

@@ -15,7 +15,7 @@ high-contrast moving block in their second half and ``Normal*`` videos
 never do: enough structure for the MIL objective to separate through a
 random-weight, calibrated I3D at full i3res50 width, so the trained scorer
 is not degenerate. Real weights: ``--i3d-weights`` (a local ``.pt``,
-``.pyth`` or ``.msgpack``).
+``.pyth`` or ``.msgpack``, or an ``hf://`` spec in the local HF cache).
 
     python -m anomaly_detection_on_video_tpu_torch.scripts.int8_e2e \\
         --out int8_e2e.json [--device cuda]
@@ -42,6 +42,7 @@ from ..ops.metrics import frame_level_scores, roc_auc
 from ..training.optim import adam_with_l2
 from ..training.runner import TrainState, make_eval_step, make_train_step
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.hub import is_hub_spec
 
 VARIANTS = ("tencrop_bf16", "tencrop_int8", "center_bf16", "center_int8")
 
@@ -227,7 +228,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         help="one full corpus and scorer per seed: the int8 and center-crop AUC "
                              "deltas are reported as mean/min/max across seeds, not one draw")
     parser.add_argument("--i3d-weights", default=None,
-                        help="optional real i3res50 weights: a local .pt, .pyth or .msgpack")
+                        help="optional real i3res50 weights: a local .pt, .pyth or .msgpack, or "
+                             "an hf://org/repo/file spec in the local HF cache")
     parser.add_argument("--dump-segments", default=None, metavar="NPZ",
                         help="save the first seed's bf16 segment bags")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -237,10 +239,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
                              "them, as the CLIs' output directories do)")
     args = parser.parse_args(argv)
     args.device = resolve_device(args.device)
-    if args.i3d_weights and not os.path.isfile(args.i3d_weights):
-        parser.error(f"--i3d-weights {args.i3d_weights!r}: no such file")
-
-    state_dict = load_i3d_weights(args.i3d_weights, "tushar-n-baseline") if args.i3d_weights else None
+    if args.i3d_weights and not is_hub_spec(args.i3d_weights) and not os.path.isfile(
+            args.i3d_weights):
+        parser.error(f"--i3d-weights {args.i3d_weights!r}: no such file (or use "
+                     "hf://org/repo/file)")
+    try:
+        state_dict = (load_i3d_weights(args.i3d_weights, "tushar-n-baseline") if args.i3d_weights
+                      else None)
+    except FileNotFoundError as exc:  # an hf:// spec the cache lacks
+        raise SystemExit(str(exc))
     with tempfile.TemporaryDirectory(prefix="int8_e2e_scales_") as tmp:
         scales = os.path.splitext(args.out)[0] + "_scales" if args.out else tmp
         extractors = build_extractors(state_dict, args.device, scales)

@@ -20,6 +20,13 @@ from collections import defaultdict
 from typing import Any, Dict, Iterator
 
 
+# idle time at each end of the recorded window on the card: the profiler
+# keeps the device records that fall inside the window by their timestamps,
+# and a kernel's start, mapped to the host clock, can read milliseconds
+# before its own launch (chip_smoke.py --trace-probe measures it)
+WINDOW_PAD_S = 0.05
+
+
 @contextlib.contextmanager
 def trace(logdir: str) -> Iterator[Any]:
     """Profile the block; on exit write ``<host>_<pid>.<stamp>.pt.trace.json``
@@ -28,8 +35,11 @@ def trace(logdir: str) -> Iterator[Any]:
 
     The profiler starts in a warm-up step whose records are discarded: on
     the card one device op runs and is waited for there, so CUDA activity
-    tracing is live before the block's first kernel (started and recording
-    at once, it has lost the first kernel of a block)."""
+    tracing is live before the block's first kernel. The recorded window
+    then opens ``WINDOW_PAD_S`` before the block and closes as long after
+    it, the device idle and waited for: the profiler drops device records
+    whose host-clock start falls outside the window, and that mapping
+    jitters, so a block's first kernels were lost without the margin."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
 
@@ -44,7 +54,12 @@ def trace(logdir: str) -> Iterator[Any]:
             torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
         prof.step()  # warm-up -> recording
+        if cuda:
+            time.sleep(WINDOW_PAD_S)
         yield prof
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(WINDOW_PAD_S)
 
 
 class StageTimer:

@@ -260,6 +260,24 @@ Phases, each of which raises on failure (exit code != 0):
    Sultani's split ideal (sharded bytes >= 0.999, memory within 1e-3 of
    1/tp), the full-size MGFN step timed at every mesh shape the card count
    allows and the others reported as skipped.
+17. the last of the JAX package: (a) a Hugging Face cache in the work
+   directory (``HF_HUB_CACHE``) holding phase 10's ``i3res50.pt`` as the
+   reference's model repo file and phase 8's bags as its feature repo
+   (zips at ``refs/tushar-n``, the ground truth at ``refs/main``), under
+   cuDNN's deterministic algorithms: ``extract_features --weights hf://...``
+   bit-equal to the file by path (stand-in decode, K1-K3 launched), an
+   uncached spec exiting with one line, and a 3-step ``run runner=mgfn``
+   with no data path equal to the run by path, record for record; (b)
+   ``parity_check`` on two MJPG videos with phase 10's weights and phase
+   8's MGFN in float32 and float64 against ``tests/torch_oracles.py``:
+   every stage and the features within 1e-3 (float32) and 1e-8 (float64),
+   the float32 pipeline (K1-K3, launch counts reset before each run and
+   read after) within 1e-3, MGFN scores within 1e-4, AUCs in [0, 1], and a
+   perturbed ``layer4`` conv on the oracle's side raising the features'
+   difference over 10x; (c) ``dynamics_ab`` at its defaults: the port's
+   step and the oracle's agree on finite-or-NaN at every (profile, lr);
+   from random LayerNorms at full width in float64 their first 3 losses
+   agree within 1e-6 relative.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -1149,8 +1167,8 @@ def training_overrides(root: str, runner: str = "mgfn", tag: str = None) -> dict
     if not os.path.isdir(data):
         write_training_data(data)
     tag = tag or runner
-    # at the configs' 1e-3 the JAX trainer, and the port with it, diverge
-    # on these bags (PERF.md, section 6)
+    # the configs' 1e-3 drove the JAX trainer and the port to NaN on these
+    # bags, measured before fault 6 was repaired (PERF.md, section 6)
     return {"data.train_path": os.path.join(data, "train"),
             "data.test_path": os.path.join(data, "test"),
             "data.ground_truth_path": os.path.join(data, "ground_truth.json"),
@@ -3606,9 +3624,12 @@ def probe_trace(passes: int) -> int:
     """``python3 chip_smoke.py --trace-probe N`` (not part of the smoke's
     run): how often the Chrome trace of one bf16 extraction pass of a
     4-clip video lacks a K1, K2 or K3 record, N passes under a profiler
-    that starts recording at once (``trace`` without its warm-up step)
-    against N under ``utils.profiling.trace``, in turns, after one pass
-    outside any profiler. Prints one JSON line of the counts."""
+    that starts recording at once (``trace`` without its warm-up step and
+    margins) against N under ``utils.profiling.trace``, in turns, after one
+    pass outside any profiler; and in each way the least start of a kernel
+    minus its launch's (correlated runtime call, µs on the trace's host
+    clock; below 0 the device-to-host clock mapping put a kernel before its
+    own launch). Prints one JSON line."""
     import glob
 
     import numpy as np
@@ -3630,6 +3651,7 @@ def probe_trace(passes: int) -> int:
     work = tempfile.mkdtemp(prefix="trace_probe_")
     lacking = {"at once": {name: 0 for name in TRACE_KERNELS},
                "trace": {name: 0 for name in TRACE_KERNELS}}
+    least_gap_us = dict.fromkeys(lacking, float("inf"))
     try:
         for i in range(passes):
             for way in lacking:
@@ -3649,10 +3671,18 @@ def probe_trace(passes: int) -> int:
                     text = f.read()
                 for name in TRACE_KERNELS:
                     lacking[way][name] += name not in text
+                events = json.loads(text)["traceEvents"]
+                launched = {e["args"]["correlation"]: e["ts"] for e in events
+                            if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+                for e in events:
+                    correlation = e.get("args", {}).get("correlation")
+                    if e.get("cat") == "kernel" and correlation in launched:
+                        least_gap_us[way] = min(least_gap_us[way], e["ts"] - launched[correlation])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"{smi_line()}", flush=True)
-    print(json.dumps({"passes": passes, "traces lacking each kernel": lacking}), flush=True)
+    print(json.dumps({"passes": passes, "traces lacking each kernel": lacking,
+                      "least kernel start minus its launch, us": least_gap_us}), flush=True)
     return 0
 
 
@@ -4001,6 +4031,303 @@ def check_user_tools(torch, root: str, checkpoint: str, weights: str) -> None:
     print(f"user tools phase (16): {time.perf_counter() - start:.1f} s", flush=True)
 
 
+# ------------- phase 17: the HF cache, parity_check and dynamics_ab
+
+HUB_WEIGHTS = "hf://jinmang2/test_video_fe/converted_ref_i3d.pt"
+FEATURE_REPO = "jinmang2/ucf_crime_tencrop_i3d_seg32"
+K123 = ("ten_crop_standardize", "stem_conv_pool", "bottleneck_block")
+PARITY_BOUNDS = {"float32": 1e-3, "float64": 1e-8}  # the JAX tests' 1e-3; float64's regime
+
+
+def hub_put(cache: str, repo_id: str, revision: str, relpath: str, src: str,
+            repo_type: str = "model") -> str:
+    """The file ``src`` as ``relpath`` of ``repo_id`` at ``revision`` in the
+    Hugging Face cache layout under ``cache``: a blob named by its sha256, a
+    snapshot symlink to it, a ref naming the snapshot's commit."""
+    import hashlib
+
+    storage = os.path.join(cache, "--".join([f"{repo_type}s", *repo_id.split("/")]))
+    digest = hashlib.sha256()
+    with open(src, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            digest.update(block)
+    blob = os.path.join(storage, "blobs", digest.hexdigest())
+    os.makedirs(os.path.dirname(blob), exist_ok=True)
+    shutil.copyfile(src, blob)
+    commit = hashlib.sha1(f"{repo_id}@{revision}".encode()).hexdigest()
+    link = os.path.join(storage, "snapshots", commit, *relpath.split("/"))
+    os.makedirs(os.path.dirname(link), exist_ok=True)
+    os.symlink(os.path.relpath(blob, os.path.dirname(link)), link)
+    os.makedirs(os.path.join(storage, "refs"), exist_ok=True)
+    with open(os.path.join(storage, "refs", revision), "w") as f:
+        f.write(commit)
+    return link
+
+
+def write_hub_cache(root: str, weights: str) -> str:
+    """Phase 17 (a)'s cache under ``root``: phase 10's i3res50 weights as
+    the reference's model repo file, and phase 8's bags (``root/data``) as
+    the reference's feature repo: ``train.zip`` and ``test.zip`` at
+    ``refs/tushar-n``, ``ground_truth.json`` at ``refs/main``."""
+    import zipfile
+
+    cache = os.path.join(root, "hf_cache")
+    hub_put(cache, "jinmang2/test_video_fe", "main", "converted_ref_i3d.pt", weights)
+    data = os.path.join(root, "data")
+    if not os.path.isdir(data):
+        write_training_data(data)
+    for split in ("train", "test"):
+        archive = os.path.join(root, f"{split}.zip")
+        with zipfile.ZipFile(archive, "w") as z:
+            for name in sorted(os.listdir(os.path.join(data, split))):
+                z.write(os.path.join(data, split, name), f"{split}/{name}")
+        hub_put(cache, FEATURE_REPO, "tushar-n", f"{split}.zip", archive, "dataset")
+    hub_put(cache, FEATURE_REPO, "main", "ground_truth.json",
+            os.path.join(data, "ground_truth.json"), "dataset")
+    return cache
+
+
+def untimed(record: dict) -> dict:
+    return {k: v for k, v in record.items() if k != "time" and not k.endswith("_time_s")}
+
+
+def check_hub(torch, root: str, weights: str) -> None:
+    """Phase 17 (a), with ``HF_HUB_CACHE`` at the cache and cuDNN's
+    deterministic algorithms: ``extract_features --weights hf://...``
+    (stand-in decode, one 24-clip video) bit-equal to the same file by
+    path, K1-K3 launched in each; an uncached spec exits with one line;
+    a 3-step ``run runner=mgfn`` with no data path (the config's
+    ``revision: tushar-n``) equal to the run on the same bags by path."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import extract_features
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    start = time.perf_counter()
+    cache = write_hub_cache(root, weights)
+    saved = os.environ.get("HF_HUB_CACHE"), torch.backends.cudnn.deterministic
+    os.environ["HF_HUB_CACHE"] = cache
+    torch.backends.cudnn.deterministic = True
+    try:
+        videos = os.path.join(root, "hub_videos")
+        os.makedirs(videos)
+        open(os.path.join(videos, "Abuse030_x264.mp4"), "wb").close()  # the stand-in decodes it
+        common = ["--videos", videos, "--device", "cuda", "--decode-workers", "1",
+                  "--no-segments"]
+        feats, launches = {}, {}
+        for label, spec in (("path", weights), ("hf", HUB_WEIGHTS)):
+            out = os.path.join(root, f"hub_{label}")
+            kernels.reset_launch_counts()
+            with stand_in_decode():
+                run_cli(extract_features, common + ["--outdir", out, "--weights", spec])
+            launches[label] = kernels.launch_counts()
+            feats[label] = np.load(os.path.join(out, "Abuse030_x264_i3d.npy"))
+            if feats[label].shape != (24, 10, FEATURE_DIM) or min(
+                    launches[label][k] for k in K123) < 1:
+                raise AssertionError(f"extract_features --weights {spec}: features "
+                                     f"{feats[label].shape}, launches {launches[label]}")
+        if not np.array_equal(feats["hf"], feats["path"]):
+            raise AssertionError("extract_features: hf:// weights' features differ from the "
+                                 "same file's by path")
+        missing = HUB_WEIGHTS.replace("test_video_fe/", "test_video_fe@nope/")
+        try:
+            run_cli(extract_features, common + ["--outdir", os.path.join(root, "hub_x"),
+                                                "--weights", missing])
+        except SystemExit as exc:
+            message = exc.code
+        else:
+            raise AssertionError(f"extract_features --weights {missing} did not exit")
+        if not isinstance(message, str) or missing not in message or "\n" in message:
+            raise AssertionError(f"an uncached spec's exit: {message!r}")
+        print(f"phase 17 (a) extract_features --weights {HUB_WEIGHTS}: (24, 10, 2048) features "
+              f"bit-equal to the file by path; launches {launches['hf']} (path: "
+              f"{launches['path']}); an uncached spec exits 1: {message}", flush=True)
+
+        records = {}
+        for mode in ("path", "cache"):
+            overrides = dict(training_overrides(root, "mgfn", f"p17_{mode}"),
+                             **{"trainer.max_steps": 3, "trainer.max_epochs": 2,
+                                "trainer.eval_every": 2, "trainer.checkpoint.dirpath": None})
+            if mode == "cache":
+                overrides.update({"data.train_path": None, "data.test_path": None,
+                                  "data.ground_truth_path": None})
+            run_training(overrides)
+            with open(overrides["trainer.log_path"]) as f:
+                records[mode] = [untimed(json.loads(line)) for line in f]
+        losses = [r["train_loss"] for r in records["cache"] if "train_loss" in r]
+        aucs = [r["valid/rec_auc"] for r in records["cache"] if "valid/rec_auc" in r]
+        if records["cache"] != records["path"] or len(losses) != 3 or not aucs:
+            raise AssertionError(f"run from the cache: {records['cache']} against the run by "
+                                 f"path: {records['path']}")
+        print(f"phase 17 (a) run runner=mgfn from the cache (no data path, revision tushar-n): "
+              f"losses {losses}, rec_auc {aucs}, records equal to the run by path; "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+    finally:
+        if saved[0] is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = saved[0]
+        torch.backends.cudnn.deterministic = saved[1]
+
+
+def check_parity(torch, root: str, weights: str, checkpoint: str) -> None:
+    """Phase 17 (b): ``parity_check`` on two MJPG videos (32 seeded 240x320
+    frames each) with phase 10's weights and phase 8's MGFN, in float32 and
+    float64, and the AUC summary over phase 8's test features. Gates:
+    stages and features within ``PARITY_BOUNDS``, the float32 pipeline
+    within 1e-3 in both runs, MGFN scores within 1e-4, K1-K3 launched by the
+    pipeline, AUCs in [0, 1]; a perturbed ``layer4`` conv on the oracle's
+    side raises the features' difference over 10x."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+    from anomaly_detection_on_video_tpu_torch.scripts import parity_check
+    from anomaly_detection_on_video_tpu_torch.training.checkpoints import STATE_FILE, TopKCheckpointer
+
+    start = time.perf_counter()
+    videos = os.path.join(root, "parity_videos")
+    os.makedirs(videos)
+    gen = np.random.default_rng(17)
+    for name in ("Abuse031_x264.avi", "Normal_Videos_016_x264.avi"):
+        write_mjpg(os.path.join(videos, name),
+                   gen.integers(0, 256, (32, 240, 320, 3), dtype=np.uint8))
+    step = TopKCheckpointer(checkpoint).latest_step()
+    mgfn = os.path.join(root, "mgfn_hf.pt")
+    torch.save(torch.load(os.path.join(checkpoint, str(step), STATE_FILE), map_location="cpu",
+                          weights_only=True)["model"], mgfn)
+    data = os.path.join(root, "data")
+    reports = {}
+    for dtype, bound in PARITY_BOUNDS.items():
+        out = os.path.join(root, f"parity_{dtype}.json")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            report = parity_check.main([
+                "--videos", videos, "--i3d-weights", weights, "--mgfn-weights", mgfn,
+                "--test-features", os.path.join(data, "test"),
+                "--gt", os.path.join(data, "ground_truth.json"), "--dtype", dtype,
+                "--max-frames", "32", "--device", "cuda", "--out", out])
+        seconds = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        reports[dtype] = report
+        auc = report["auc"]
+        lines = []
+        for name, rep in report["i3d"].items():
+            diffs = rep["max_abs_diff"]
+            score = report["mgfn_scores"][name]["max_abs_diff"]
+            pipe = rep["pipeline"]["max_abs_diff"]
+            if (rep["missing_keys"] or rep["n_clips"] != 2 or max(diffs.values()) >= bound
+                    or pipe >= 1e-3 or score >= 1e-4):
+                raise AssertionError(f"parity_check {dtype} {name}: {json.dumps(rep)}, MGFN "
+                                     f"scores {score}")
+            lines.append(f"{name}: " + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+                         + f", pipeline {pipe:.3e}, MGFN scores {score:.3e}")
+        if min(counts[k] for k in K123) < 1 or not all(
+                0.0 <= auc[side][key] <= 1.0 for side in ("port", "torch")
+                for key in ("rec_auc", "pr_auc")):
+            raise AssertionError(f"parity_check {dtype}: launches {counts}, auc {auc}")
+        print(f"phase 17 (b) parity_check --dtype {dtype} (max |diff| against the oracle): "
+              + "; ".join(lines) + f"; AUC port {auc['port']} torch {auc['torch']} (rec_auc diff "
+              f"{auc['rec_auc_diff']:.3e}); pipeline launches {counts}; {seconds:.1f} s",
+              flush=True)
+    path = sorted(os.listdir(videos))[0]
+    frames = parity_check.decode_frames(os.path.join(videos, path), 32)
+    clean = torch.load(weights, map_location="cpu", weights_only=True)
+    perturbed = {k: v.clone() for k, v in clean.items()}
+    key = "layer4.0.conv2.weight"
+    perturbed[key] += 0.1 * torch.randn(perturbed[key].shape,
+                                        generator=torch.Generator().manual_seed(2))
+    report, _ = parity_check.i3d_stage_parity(frames, perturbed, "float32", 2, "cuda",
+                                              port_state_dict=clean)
+    base = reports["float32"]["i3d"][path]["max_abs_diff"]["features"]
+    moved = report["max_abs_diff"]["features"]
+    if not moved > 10 * max(base, 1e-6):
+        raise AssertionError(f"a perturbed layer4 conv: features diff {moved} against {base}")
+    print(f"phase 17 (b) a perturbed layer4.0.conv2 on the oracle's side: features diff "
+          f"{moved:.3e} against {base:.3e} clean ({moved / max(base, 1e-12):.3g}x); "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+
+
+NORM_STEPS = 3  # float64 steps held from random norms
+NORM_RTOL = 1e-6  # relative loss gap allowed on each of them
+
+
+def check_dynamics(torch, root: str) -> None:
+    """Phase 17 (c): ``dynamics_ab`` at its defaults (full-width MGFN, 8 + 8
+    bags, 30 steps, lr 1e-3 and 3e-5, both profiles), both sides on the
+    card. Gate: the sides agree on finite-or-NaN at every point. Then both
+    sides again at full width, in float64, from the oracle's init with
+    random LayerNorm gains and biases, which untie the top-k picks: at each
+    (profile, lr) the first ``NORM_STEPS`` losses within ``NORM_RTOL``
+    relative. In float32 the sides' rounding alone parts Adam's first
+    steps by up to about as much as a wrong gradient term does; float64
+    leaves only a wrong step to show."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.models import build_model
+    from anomaly_detection_on_video_tpu_torch.scripts import dynamics_ab
+    from anomaly_detection_on_video_tpu_torch.scripts.parity_check import (
+        oracle_to_hf_state_dict, oracles)
+
+    start = time.perf_counter()
+    out = os.path.join(root, "dynamics_ab.json")
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        report = dynamics_ab.main(["--out", out, "--device", "cuda"])
+    for key, run in report["runs"].items():
+        port, ref = run["port"]["losses"], run["torch"]["losses"]
+        gap = max(abs(a - b) for a, b in zip(port, ref))
+        print(f"phase 17 (c) {key}: nan_step port {run['port']['nan_step']} torch "
+              f"{run['torch']['nan_step']}; last losses port {port[-1]:.6g} torch "
+              f"{ref[-1]:.6g}; first {port[0]:.6g} / {ref[0]:.6g}; largest per-step gap "
+              f"{gap:.3e}; agree {run['frameworks_agree']}", flush=True)
+    if not all(run["frameworks_agree"] for run in report["runs"].values()):
+        raise AssertionError(f"dynamics_ab: {report['verdict']}")
+    print(f"phase 17 (c) dynamics_ab: {report['verdict']}; {time.perf_counter() - start:.1f} s",
+          flush=True)
+
+    start = time.perf_counter()
+    torch_oracles = oracles()
+    torch.manual_seed(0)
+    oracle = torch_oracles.OracleMGFN()
+    torch_oracles.randomize_bn_stats(oracle, seed=1)
+    dynamics_ab.randomize_norms(oracle, seed=2)
+    init = {k: v.detach().clone() for k, v in oracle.state_dict().items()}
+    worst = 0.0
+    for profile in ("gauss", "i3dlike"):
+        batches = [tuple(a.astype(np.float64) for a in batch)
+                   for batch in dynamics_ab.make_batches(profile, 100, NORM_STEPS)]
+        for lr in dynamics_ab.LRS:
+            with contextlib.redirect_stderr(io.StringIO()):
+                ref = dynamics_ab.run_torch(lambda: torch_oracles.OracleMGFN().double(), init,
+                                            batches, lr, NORM_STEPS, "cuda")["losses"]
+                port = dynamics_ab.run_port(
+                    lambda: build_model("mgfn", dropout_rate=0.0)[1].double(),
+                    oracle_to_hf_state_dict(init), batches, lr, NORM_STEPS, "cuda")["losses"]
+            rel = [abs(a - b) / abs(b) for a, b in zip(port, ref)]
+            print(f"phase 17 (c) random norms, float64, {profile} lr {lr:g}: losses port "
+                  f"{[float(f'{v:.7g}') for v in port]} torch {[float(f'{v:.7g}') for v in ref]}; "
+                  f"largest relative gap {max(rel):.3e}", flush=True)
+            if len(port) != NORM_STEPS or len(ref) != NORM_STEPS or not max(rel) < NORM_RTOL:
+                raise AssertionError(f"random norms, {profile} lr {lr:g}: losses part "
+                                     f"(port {port}, torch {ref})")
+            worst = max(worst, max(rel))
+    print(f"phase 17 (c) random norms, float64: {NORM_STEPS} steps held at every (profile, lr), largest "
+          f"relative gap {worst:.3e} (bound {NORM_RTOL:g}); "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+
+
+def check_reference_tools(torch, root: str, checkpoint: str, weights: str) -> None:
+    """Phase 17: weights and features from a local Hugging Face cache,
+    ``parity_check`` and ``dynamics_ab`` on the card."""
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    check_hub(torch, root, weights)
+    check_parity(torch, root, weights, checkpoint)
+    torch.cuda.empty_cache()
+    check_dynamics(torch, root)
+    print(f"reference tools phase (17): {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4224,6 +4551,11 @@ def main() -> int:
         # 16. the user tools of scripts/, ported: demo, operating_point,
         # convert_checkpoint, convergence_bench, int8_e2e, tp_audit
         check_user_tools(torch, work, checkpoints["mgfn"], os.path.join(work, "i3res50.pt"))
+        torch.cuda.empty_cache()
+
+        # 17. the last of the JAX package: weights and features from a local
+        # HF cache, parity_check against the reference topologies, dynamics_ab
+        check_reference_tools(torch, work, checkpoints["mgfn"], os.path.join(work, "i3res50.pt"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
