@@ -16,15 +16,22 @@
 // not gathering from device memory:
 // - A CTA owns one (clip, frame) and a band of `band` output rows of all
 //   ten crops. The crops' tops take at most three values, so the input rows
-//   the band needs are the union of three runs of `band` rows: at most three
-//   contiguous byte segments, which the CTA stages into shared memory once
-//   with 16-byte cp.async copies from each segment's start rounded down to
-//   16 bytes (rows are W*3 bytes and need not be aligned). All ten crops,
-//   the five flips included, read their pixels from there. The plan takes
-//   the tallest band that fits a CTA's 227 KB, one CTA per SM (112 rows of
-//   256x341 frames stage 144): a shorter band stages the rows between the
-//   tops again for every band, and that cost more than several CTAs per SM
-//   gained by overlapping one CTA's staging with another's stores.
+//   the band needs are the union of three runs of `band` rows. Where the
+//   crops' column windows (flips included) cover the frame's width, as they
+//   do for every frame of the main path, each merged run is staged as whole
+//   rows: one contiguous byte segment, copied into shared memory with
+//   16-byte cp.async from its start rounded down to 16 bytes (rows are W*3
+//   bytes and need not be aligned). Where the crops leave columns between
+//   them unread (frames wider than about three crops), a run is staged only
+//   over the merged windows of its crops, at most five spans of S pixels
+//   in all (one per crop position), each row in a 16-byte-aligned slot
+//   copied from its own start rounded down to 16: so a frame of any width
+//   fits. All ten crops, the five flips included, read their pixels from
+//   there. The plan takes the tallest band that fits a CTA's 227 KB, one
+//   CTA per SM (112 rows of 256x341 frames stage 144): a shorter band stages
+//   the rows between the tops again for every band, and that cost more than
+//   several CTAs per SM gained by overlapping one CTA's staging with another's
+//   stores.
 // - A thread converts 8 output pixels (24 values) of one crop row per step:
 //   the 24 source bytes are contiguous in shared memory (for a flip, in
 //   reverse pixel order), read as 7 aligned words and funnel-shifted into 6,
@@ -42,8 +49,9 @@
 //   also needs a second staging buffer per warp, was no faster. When a crop
 //   row is not a whole number of 16-byte vectors (S % 8 != 0) the thread
 //   writes its values with scalar stores.
-// - The launch plan (band height, segments, shared offsets, which segment
-//   and row each crop starts at) comes from crop_norm_plan in
+// - The launch plan (band height, segments and their column spans, shared
+//   offsets and row pitches, which segment and row each crop and each flip
+//   starts at) comes from crop_norm_plan in
 //   ops/kernels/crop_norm.py, computed once per (H, W, S) on the host; the
 //   CPU tests evaluate the same plan. There is no integer division per
 //   element: one per CTA and one per 8-pixel step of all ten crops.
@@ -62,22 +70,37 @@ using adv::sm90::cp_async_wait;
 constexpr int THREADS = 256;  // crop_norm.py THREADS
 constexpr int GROUP = 8;  // output pixels per thread step (crop_norm.py GROUP)
 constexpr int VALS = GROUP * 3;
+constexpr int MAX_SEGMENTS = 5;  // crop_norm.py MAX_SEGMENTS
 
 // The host's launch plan, field for field as CropNormPlan.ints() lays it out.
 struct Plan {
   int band;          // output rows per CTA (the last band may be shorter)
   int n_bands;       // CTAs per (clip, frame)
-  int n_segments;    // staged row segments, 1-3
-  int seg_lo[3];     // segment s holds input rows y0 + seg_lo .. y0 + seg_hi
-  int seg_hi[3];     //   (clamped to H), y0 the band's first output row
-  int seg_offset[3]; // shared byte offset of the segment's 16-byte aligned copy
-  int crop_segment[5];  // crop position k reads segment crop_segment[k] ...
+  int n_segments;    // staged segments, 1-5
+  int seg_lo[MAX_SEGMENTS];      // segment s holds input rows y0 + seg_lo .. y0 + seg_hi
+  int seg_hi[MAX_SEGMENTS];      //   (clamped to H), y0 the band's first output row,
+  int seg_c0[MAX_SEGMENTS];      //   columns seg_c0 .. seg_c1
+  int seg_c1[MAX_SEGMENTS];
+  int seg_pitch[MAX_SEGMENTS];   // shared bytes a staged row takes (W * 3 for whole rows)
+  int seg_offset[MAX_SEGMENTS];  // shared byte offset of the segment
+  int crop_segment[5];  // crop position k reads segment crop_segment[k], its flip
+  int flip_segment[5];  //   flip_segment[k], ...
   int crop_row[5];      // ... from its row crop_row[k] on (top_k - seg_lo)
   int left[5];
   int stage_offset;  // shared byte offset of the warps' output staging
   int shared_bytes;
   int vector;        // 1: 16-byte stores (S % 8 == 0); 0: scalar stores
+  int whole_rows;    // 1: every segment is whole rows, copied as one run
 };
+
+// a[i] for a register array and a runtime index, without local memory
+template <int N>
+__device__ __forceinline__ int pick(const int (&a)[N], int i) {
+  int v = a[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) v = i == j ? a[j] : v;
+  return v;
+}
 
 __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -147,7 +170,7 @@ struct Vectors<float> {
   }
 };
 
-template <typename T, bool VECTOR>
+template <typename T, bool VECTOR, bool WHOLE>
 __global__ void __launch_bounds__(THREADS) crop_norm_kernel(
     const uint8_t* __restrict__ frames, T* __restrict__ out, int fpc, int height, int width,
     int size, const Plan plan, float mean, float inv_std) {
@@ -164,35 +187,74 @@ __global__ void __launch_bounds__(THREADS) crop_norm_kernel(
   const int row_bytes = width * 3;
   const uint8_t* src_plane = frames + static_cast<size_t>(plane) * height * row_bytes;
 
-  // stage the band's input rows: each segment from its start rounded down
-  // to 16 bytes, so the copy of row j of segment s starts at
-  // seg_offset[s] + mis[s] + j * row_bytes
-  int mis[3] = {0, 0, 0};
+  // stage the band's input. Whole rows: each segment from its start rounded
+  // down to 16 bytes, so the copy of row j of segment s starts at
+  // seg_offset[s] + mis[s] + j * row_bytes. Column spans: each row j from its
+  // own start rounded down to 16 into a slot of seg_pitch[s] bytes, where it
+  // starts at seg_offset[s] + j * seg_pitch[s] + (its address % 16).
+  int mis[MAX_SEGMENTS] = {0, 0, 0, 0, 0};
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
+  for (int s = 0; s < MAX_SEGMENTS; ++s) {
     if (s < plan.n_segments) {
       const int lo = y0 + plan.seg_lo[s];
       const int hi = min(y0 + plan.seg_hi[s], height);
-      const uint8_t* src = src_plane + static_cast<size_t>(lo) * row_bytes;
-      mis[s] = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
-      const uint8_t* aligned = src - mis[s];
-      const int chunks = (mis[s] + (hi - lo) * row_bytes + 15) >> 4;
+      const uint8_t* src = src_plane + static_cast<size_t>(lo) * row_bytes + 3 * plan.seg_c0[s];
       uint8_t* dst = smem + plan.seg_offset[s];
-      for (int i = tid; i < chunks; i += THREADS) cp_async16(dst + 16 * i, aligned + 16 * i, true);
+      mis[s] = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+      if (WHOLE) {
+        const uint8_t* aligned = src - mis[s];
+        const int chunks = (mis[s] + (hi - lo) * row_bytes + 15) >> 4;
+        for (int i = tid; i < chunks; i += THREADS)
+          cp_async16(dst + 16 * i, aligned + 16 * i, true);
+      } else {
+        const int span_bytes = 3 * (plan.seg_c1[s] - plan.seg_c0[s]);
+        const int pitch = plan.seg_pitch[s];
+        const int per_row = pitch >> 4;
+        const int chunks = (hi - lo) * per_row;
+        for (int i = tid; i < chunks; i += THREADS) {
+          const int j = i / per_row;
+          const int c = i - j * per_row;
+          const uint8_t* row = src + static_cast<size_t>(j) * row_bytes;
+          const int m = static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
+          if (16 * c < m + span_bytes) cp_async16(dst + j * pitch + 16 * c, row - m + 16 * c, true);
+        }
+      }
     }
   }
   cp_async_commit();
 
   // shared byte offset of crop position k's first pixel in output row 0:
-  // unflipped at column left_k, flipped windows start at column W - 8 - left_k
-  int unflipped[5], flipped[5];
+  // unflipped at column left_k, flipped windows start at column W - 8 - left_k.
+  // Column spans add, for output row r, r * pitch and the misalignment of
+  // that input row (mis of the crop's first row + r * row_bytes, mod 16).
+  int unflipped[5], flipped[5], pitch_u[5], pitch_f[5], mis_u[5], mis_f[5];
 #pragma unroll
   for (int k = 0; k < 5; ++k) {
-    const int s = plan.crop_segment[k];
-    const int m = s == 0 ? mis[0] : (s == 1 ? mis[1] : mis[2]);
-    const int row0 = plan.seg_offset[s] + m + plan.crop_row[k] * row_bytes;
-    unflipped[k] = row0 + 3 * plan.left[k];
-    flipped[k] = row0 + 3 * (width - GROUP - plan.left[k]);
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const int s = f ? plan.flip_segment[k] : plan.crop_segment[k];
+      const int col = (f ? width - GROUP - plan.left[k] : plan.left[k]) - plan.seg_c0[s];
+      const int m = pick(mis, s);
+      int base, pitch, row_mis;
+      if (WHOLE) {
+        base = plan.seg_offset[s] + m + plan.crop_row[k] * row_bytes + 3 * col;
+        pitch = row_bytes;
+        row_mis = 0;
+      } else {
+        pitch = plan.seg_pitch[s];
+        base = plan.seg_offset[s] + plan.crop_row[k] * pitch + 3 * col;
+        row_mis = (m + plan.crop_row[k] * row_bytes) & 15;
+      }
+      if (f) {
+        flipped[k] = base;
+        pitch_f[k] = pitch;
+        mis_f[k] = row_mis;
+      } else {
+        unflipped[k] = base;
+        pitch_u[k] = pitch;
+        mis_u[k] = row_mis;
+      }
+    }
   }
   const int steps_per_row = (size + GROUP - 1) / GROUP;
   const int n_steps = rows * steps_per_row;
@@ -217,10 +279,12 @@ __global__ void __launch_bounds__(THREADS) crop_norm_kernel(
       uint32_t b[6];
       float v[VALS];
       if (crop < 5) {
-        load24(smem, unflipped[k] + row_off + VALS * g, b);
+        const int row = WHOLE ? row_off : r * pitch_u[k] + ((mis_u[k] + row_off) & 15);
+        load24(smem, unflipped[k] + row + VALS * g, b);
         convert<false>(b, mean, inv_std, v);
       } else {
-        load24(smem, flipped[k] + row_off - VALS * g, b);
+        const int row = WHOLE ? row_off : r * pitch_f[k] + ((mis_f[k] + row_off) & 15);
+        load24(smem, flipped[k] + row - VALS * g, b);
         convert<true>(b, mean, inv_std, v);
       }
       T* dst = out_band + crop * crop_stride;
@@ -254,10 +318,10 @@ __global__ void __launch_bounds__(THREADS) crop_norm_kernel(
   }
 }
 
-template <typename T, bool VECTOR>
+template <typename T, bool VECTOR, bool WHOLE>
 int launch(const void* frames, void* out, int gc, int fpc, int height, int width, int size,
            const Plan& plan, float mean, float inv_std, cudaStream_t stream) {
-  auto kernel = crop_norm_kernel<T, VECTOR>;
+  auto kernel = crop_norm_kernel<T, VECTOR, WHOLE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.shared_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -268,24 +332,33 @@ int launch(const void* frames, void* out, int gc, int fpc, int height, int width
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_for(const void* frames, void* out, int gc, int fpc, int height, int width, int size,
+               const Plan& plan, float mean, float inv_std, cudaStream_t s) {
+  if (plan.whole_rows)
+    return plan.vector
+               ? launch<T, true, true>(frames, out, gc, fpc, height, width, size, plan, mean,
+                                       inv_std, s)
+               : launch<T, false, true>(frames, out, gc, fpc, height, width, size, plan, mean,
+                                        inv_std, s);
+  return plan.vector ? launch<T, true, false>(frames, out, gc, fpc, height, width, size, plan,
+                                              mean, inv_std, s)
+                     : launch<T, false, false>(frames, out, gc, fpc, height, width, size, plan,
+                                               mean, inv_std, s);
+}
+
 }  // namespace
 
 // plan: the CropNormPlan.ints() of crop_norm_plan(height, width, size, dtype).
 extern "C" int adv_crop_norm(const void* frames, void* out, int out_bf16, int gc, int fpc,
                              int height, int width, int size, const int* plan_ints, float mean,
                              float inv_std, void* stream) {
-  static_assert(sizeof(Plan) == 30 * sizeof(int), "Plan must match CropNormPlan.ints()");
+  static_assert(sizeof(Plan) == 57 * sizeof(int), "Plan must match CropNormPlan.ints()");
   Plan plan;
   memcpy(&plan, plan_ints, sizeof(Plan));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_bf16) {
-    return plan.vector ? launch<__nv_bfloat16, true>(frames, out, gc, fpc, height, width, size,
-                                                     plan, mean, inv_std, s)
-                       : launch<__nv_bfloat16, false>(frames, out, gc, fpc, height, width, size,
-                                                      plan, mean, inv_std, s);
-  }
-  return plan.vector ? launch<float, true>(frames, out, gc, fpc, height, width, size, plan, mean,
-                                           inv_std, s)
-                     : launch<float, false>(frames, out, gc, fpc, height, width, size, plan,
-                                            mean, inv_std, s);
+  if (out_bf16)
+    return launch_for<__nv_bfloat16>(frames, out, gc, fpc, height, width, size, plan, mean,
+                                     inv_std, s);
+  return launch_for<float>(frames, out, gc, fpc, height, width, size, plan, mean, inv_std, s);
 }

@@ -8,7 +8,7 @@ endpoint, an exported scorer)::
         (--checkpoint <run dir> [--checkpoint-step latest|best|N]
          | --torch-weights <.pt> [--official]) \\
         [--model mgfn|rtfm|sultani] [--model-config k=v ...] \\
-        [--threshold t --min-event-frames n] [--features-dir <cache>] \\
+        [--threshold t --min-event-frames n] [--figure] [--features-dir <cache>] \\
         [--frames-per-clip n] [--group-mode adaptive|fixed] [--warmup clips] \\
         [--i3d-model tushar-n-baseline|i3d_8x8_r50] \\
         [--i3d-weights i3res50.pt|i3d.msgpack|I3D_8x8_R50.pyth] \\
@@ -83,7 +83,12 @@ kernels into DIR and loads them from there (``utils/compile_cache.py``),
 so a restarted server does not run nvcc again. ``--data-parallel``
 splits the clip axis of extraction over every visible card
 (``FeatureExtractor(devices=...)``; one card: no change), scores equal to
-one card's. Not ported: ``--figure``.
+one card's. ``--figure`` writes ``<stem>_scores.png`` beside each score
+JSON (the frame scores, and ``--threshold``'s line), after the JSON: it
+needs matplotlib, and where that does not import the scores are written
+and the video fails as the JAX CLI's does (one-shot: the error ends the
+run; ``--watch``: an error counted, no ``.error.json``; ``--serve``: a
+500 answer).
 """
 
 from __future__ import annotations
@@ -346,12 +351,15 @@ def process_video(
     min_event_frames: int = 1,
     features_dir: Optional[str] = None,
     flow_extractor: Optional[FeatureExtractor] = None,
+    figure: bool = False,
 ) -> dict:
     """Extract (or load from ``features_dir``, writing it on a miss, see
     ``load_or_extract``), score, and write ``<stem>_scores.json``; returns
     its content. The stream is ``extractor``'s, or ``both`` with
     ``flow_extractor``. With ``threshold`` the JSON carries the event
-    windows."""
+    windows. With ``figure``, ``<stem>_scores.png`` (the frame scores, and
+    the threshold's line) is drawn once the JSON is in place, so a figure
+    that fails (matplotlib missing) leaves the scores written."""
     start = time.time()
     stem = os.path.splitext(os.path.basename(path))[0]
     features = load_or_extract(path, extractor, flow_extractor, features_dir)
@@ -377,6 +385,23 @@ def process_video(
         json.dump(out, f)
     os.replace(tmp_path, out_path)
     print(f"{stem}: {out['n_clips']} clips, max score {clip_scores.max():.4f} -> {out_path}")
+    if figure:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots(figsize=(12, 3))
+        ax.plot(frame_scores)
+        if threshold is not None:
+            ax.axhline(threshold, ls="--", lw=1, color="crimson")
+        ax.set_ylim(0, 1.02)
+        ax.set_xlabel("frame")
+        ax.set_ylabel("anomaly score")
+        ax.set_title(stem)
+        fig.tight_layout()
+        fig.savefig(os.path.join(outdir, f"{stem}_scores.png"), dpi=80)
+        plt.close(fig)
     return out
 
 
@@ -717,6 +742,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "the score JSON")
     parser.add_argument("--min-event-frames", type=int, default=1,
                         help="drop events shorter than this many frames (only with --threshold)")
+    parser.add_argument("--figure", action="store_true",
+                        help="write a <stem>_scores.png overlay per video")
     parser.add_argument("--warmup", type=int, default=0, metavar="CLIPS",
                         help="before the first video, run the I3D forward once and the scorer "
                              "on every eval bucket up to CLIPS clips")
@@ -914,7 +941,8 @@ def main(argv: Optional[List[str]] = None,
 
     def process(path: str) -> dict:
         return process_video(path, extractor, scorer, args.outdir, model_name, args.threshold,
-                             args.min_event_frames, args.features_dir, flow_extractor)
+                             args.min_event_frames, args.features_dir, flow_extractor,
+                             args.figure)
 
     if args.serve is not None:
         serve_http(args, process, on_ready)

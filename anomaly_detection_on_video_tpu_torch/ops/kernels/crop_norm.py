@@ -7,13 +7,14 @@ ops/pallas/crop_norm.py:49). ``(gc, fpc, H, W, 3)`` uint8 ->
 On the H100 it is bound by memory: each output value is written once (4 or
 2 bytes) from one uint8 read. The CUDA kernel (``csrc/crop_norm.cu``) gives
 each CTA one (clip, frame) and a band of output rows of all ten crops. It
-stages the input rows the band needs (at most three segments, one per
-distinct crop top) into shared memory once, converts eight output pixels
-per thread step, the flips by reading the staged row in reverse, and writes
-each warp's 16-byte vectors as whole contiguous runs. ``crop_norm_plan``
-lays the launch out on the host, once per frame geometry; the CPU tests
-evaluate the same plan. Its float32 output is bit-equal to the plain
-version's, and its bfloat16 output is that value rounded to nearest even.
+stages the input the band needs (at most five segments: runs of rows, each
+over the span of columns its crops read) into shared memory once, converts
+eight output pixels per thread step, the flips by reading the staged row in
+reverse, and writes each warp's 16-byte vectors as whole contiguous runs.
+``crop_norm_plan`` lays the launch out on the host, once per frame
+geometry; the CPU tests evaluate the same plan. Its float32 output is
+bit-equal to the plain version's, and its bfloat16 output is that value
+rounded to nearest even.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ GROUP = 8  # output pixels a thread converts per step: 24 values, read as 7 word
 PAD = 32  # shared bytes before and after the staged rows, for the 7-word windows
 MAX_SHARED = 232_448  # dynamic shared memory a CTA may use on the H100 (227 KB)
 MAX_CTAS = 2 ** 31 - 1  # grid.x limit of the launch: gc * fpc * n_bands CTAs
+MAX_SEGMENTS = 5  # staged segments: one per crop position at most
 
 
 class CropNormPlan(NamedTuple):
@@ -39,35 +41,46 @@ class CropNormPlan(NamedTuple):
 
     A CTA owns output rows ``y0 .. y0 + band`` of one (clip, frame), for all
     ten crops. Segment ``s`` holds input rows ``y0 + segments[s][0] ..
-    y0 + segments[s][1]`` (clamped to H), copied from its first byte
-    rounded down to 16 to ``seg_offset[s]`` in shared memory, so its row j
-    starts at ``seg_offset[s] + (address % 16) + j * W * 3``. Crop position
-    k (and its flip k + 5) reads segment ``crop_segment[k]`` from row
+    y0 + segments[s][1]`` (clamped to H), columns ``columns[s][0] ..
+    columns[s][1]``, at ``seg_offset[s]`` in shared memory. A segment of
+    whole rows (every segment of a frame whose crop windows cover its width)
+    is copied as one run from its first byte rounded down to 16, so its row
+    j starts at ``seg_offset[s] + (address % 16) + j * W * 3``; otherwise
+    each row is copied from its own first byte rounded down to 16 into a
+    slot of ``pitch[s]`` bytes, and starts at ``seg_offset[s] + j *
+    pitch[s] + (its address % 16)``. Crop position k reads segment
+    ``crop_segment[k]``, its flip segment ``flip_segment[k]``, from row
     ``crop_row[k]`` on.
     """
 
     band: int
     n_bands: int
     tops: Tuple[int, ...]  # the distinct crop tops
-    segments: Tuple[Tuple[int, int], ...]
+    segments: Tuple[Tuple[int, int], ...]  # rows, relative to the band's first
+    columns: Tuple[Tuple[int, int], ...]
+    pitch: Tuple[int, ...]  # shared bytes a staged row takes
     seg_offset: Tuple[int, ...]
     crop_segment: Tuple[int, ...]
+    flip_segment: Tuple[int, ...]
     crop_row: Tuple[int, ...]
     lefts: Tuple[int, ...]
     stage_offset: int  # the warps' output staging (vector mode)
     shared_bytes: int
     vector: bool  # 16-byte stores: every crop row is whole 16-byte vectors
+    whole_rows: bool  # every segment is whole rows, staged as one run
 
     def ints(self) -> list:
-        """The plan as the kernel's ``struct Plan`` lays it out (30 ints)."""
-        def pad3(xs):
+        """The plan as the kernel's ``struct Plan`` lays it out (57 ints)."""
+        def pad(xs):
             xs = list(xs)
-            return xs + [0] * (3 - len(xs))
+            return xs + [0] * (MAX_SEGMENTS - len(xs))
 
         return [self.band, self.n_bands, len(self.segments),
-                *pad3(lo for lo, _ in self.segments), *pad3(hi for _, hi in self.segments),
-                *pad3(self.seg_offset), *self.crop_segment, *self.crop_row, *self.lefts,
-                self.stage_offset, self.shared_bytes, int(self.vector)]
+                *pad(lo for lo, _ in self.segments), *pad(hi for _, hi in self.segments),
+                *pad(lo for lo, _ in self.columns), *pad(hi for _, hi in self.columns),
+                *pad(self.pitch), *pad(self.seg_offset), *self.crop_segment,
+                *self.flip_segment, *self.crop_row, *self.lefts, self.stage_offset,
+                self.shared_bytes, int(self.vector), int(self.whole_rows)]
 
 
 def _segment_capacity(rows: int, row_bytes: int) -> int:
@@ -76,35 +89,68 @@ def _segment_capacity(rows: int, row_bytes: int) -> int:
     return -(-(15 + rows * row_bytes) // 16) * 16
 
 
+def _merge(runs):
+    """Sorted runs ``(lo, hi)`` with those that touch or overlap merged."""
+    merged = []
+    for lo, hi in sorted(runs):
+        if merged and lo <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], hi))
+        else:
+            merged.append((lo, hi))
+    return merged
+
+
+def _windows(positions, width: int, size: int, tops) -> list:
+    """The merged column windows that the crops with a top in ``tops`` read,
+    their flips included (a flip at ``left`` reads ``W - left - S ..
+    W - left``)."""
+    return _merge(w for top, left in positions if top in tops
+                  for w in ((left, left + size), (width - left - size, width - left)))
+
+
 def _layout(positions, width: int, size: int, band: int, out_bytes: int) -> CropNormPlan:
     tops = sorted({top for top, _ in positions})
-    segments = []
-    for top in tops:  # merge the runs [top, top + band) that touch
-        if segments and top <= segments[-1][1]:
-            segments[-1] = (segments[-1][0], top + band)
-        else:
-            segments.append((top, top + band))
-    offsets, at = [], PAD
-    for lo, hi in segments:
-        offsets.append(at)
-        at += _segment_capacity(hi - lo, width * 3)
+    row_bytes = width * 3
+    # a frame whose crop windows together cover its width stages whole rows;
+    # one whose crops leave gaps stages each run of rows over its crops' columns only
+    whole = _windows(positions, width, size, tops) == [(0, width)]
+    segments, columns, pitch, offsets, at = [], [], [], [], PAD
+    for lo, hi in _merge((top, top + band) for top in tops):
+        spans = [(0, width)] if whole else _windows(
+            positions, width, size, [t for t in tops if lo <= t < hi])
+        for c0, c1 in spans:
+            segments.append((lo, hi))
+            columns.append((c0, c1))
+            offsets.append(at)
+            if whole:
+                pitch.append(row_bytes)
+                at += _segment_capacity(hi - lo, row_bytes)
+            else:  # each row in a 16-byte-aligned slot, up to 15 bytes before its first
+                pitch.append(_segment_capacity(1, (c1 - c0) * 3))
+                at += (hi - lo) * pitch[-1]
     stage_offset = at + PAD
     vector = size % GROUP == 0
     stage = THREADS * GROUP * 3 * out_bytes if vector else 0  # each lane's 24 values
-    crop_segment = [next(s for s, (lo, hi) in enumerate(segments) if lo <= top < hi)
-                    for top, _ in positions]
+
+    def segment_of(top, c0, c1):
+        return next(s for s, ((lo, hi), (a, b)) in enumerate(zip(segments, columns))
+                    if lo <= top < hi and a <= c0 and c1 <= b)
+
+    crop_segment = [segment_of(top, left, left + size) for top, left in positions]
+    flip_segment = [segment_of(top, width - left - size, width - left)
+                    for top, left in positions]
     crop_row = [top - segments[s][0] for (top, _), s in zip(positions, crop_segment)]
-    return CropNormPlan(band, -(-size // band), tuple(tops), tuple(segments), tuple(offsets),
-                        tuple(crop_segment), tuple(crop_row),
-                        tuple(left for _, left in positions), stage_offset,
-                        stage_offset + stage, vector)
+    return CropNormPlan(band, -(-size // band), tuple(tops), tuple(segments), tuple(columns),
+                        tuple(pitch), tuple(offsets), tuple(crop_segment), tuple(flip_segment),
+                        tuple(crop_row), tuple(left for _, left in positions), stage_offset,
+                        stage_offset + stage, vector, whole)
 
 
 @functools.lru_cache(maxsize=64)
 def crop_norm_plan(height: int, width: int, size: int, dtype: torch.dtype = torch.bfloat16,
                    shared_budget: int = MAX_SHARED) -> CropNormPlan:
     """The launch plan of K1 for ``(H, W)`` frames, ``size`` crops, and
-    ``dtype`` output: the tallest band whose staged rows fit
+    ``dtype`` output: the tallest band whose staged input fits
     ``shared_budget`` bytes, then the bands evened out over the ``size``
     rows.
 
@@ -112,8 +158,9 @@ def crop_norm_plan(height: int, width: int, size: int, dtype: torch.dtype = torc
     SM: a taller band stages fewer input rows twice (a band of b rows of
     256x341 frames stages b + 32), and on the H100 that gains more than
     several CTAs per SM overlapping their staging (``chip_smoke.py`` times
-    the bulk shape across budgets). Frames wider than about 24,000 pixels,
-    whose three input rows do not fit, raise."""
+    the bulk shape across budgets). A frame of any width fits: where its
+    crops leave columns between them unread, a staged row holds at most
+    five spans of ``size`` pixels (one per crop position)."""
     if min(height, width) < size:
         raise ValueError(f"frames {height}x{width} are smaller than the {size} crop")
     positions = ten_crop_positions(height, width, size)
@@ -121,8 +168,8 @@ def crop_norm_plan(height: int, width: int, size: int, dtype: torch.dtype = torc
     band = next((b for b in range(size, 0, -1) if _layout(
         positions, width, size, b, out_bytes).shared_bytes <= shared_budget), None)
     if band is None:
-        raise ValueError(f"frames {height}x{width}: three input rows do not fit the "
-                         f"{shared_budget} bytes of shared memory of a CTA")
+        raise ValueError(f"a {size} crop: one band row of frames {height}x{width} does not fit "
+                         f"{shared_budget} bytes of shared memory")
     band = -(-size // -(-size // band))  # the same number of bands, evened out
     return _layout(positions, width, size, band, out_bytes)
 
@@ -139,7 +186,8 @@ def ten_crop_standardize_plain(
 
 @functools.lru_cache(maxsize=64)
 def _plan_array(height: int, width: int, size: int, dtype: torch.dtype):
-    return (ctypes.c_int * 30)(*crop_norm_plan(height, width, size, dtype).ints())
+    ints = crop_norm_plan(height, width, size, dtype).ints()
+    return (ctypes.c_int * len(ints))(*ints)
 
 
 def ten_crop_standardize(

@@ -26,7 +26,9 @@ module with the sweep's ``device=``:
     python -m anomaly_detection_on_video_tpu_torch.run -m runner=mgfn seed=1,2,3 \
         --multirun-dir sweeps/seed
 
-Not ported: W&B logging and eval figures.
+``trainer.figure_dir: DIR`` writes an eval figure per evaluation
+(``eval_epoch{epoch:04d}.png``, rank 0 only; needs matplotlib, else a
+warning). Not ported: W&B logging.
 """
 
 from __future__ import annotations
@@ -375,7 +377,7 @@ def _train(cfg: Dict[str, Any], device):
                 shuffle=bool(data_cfg.get("shuffle", False)),
                 eval_every=int(trainer_cfg.get("eval_every", 1)),
                 frames_per_clip=frames_per_clip,
-                figure_dir=trainer_cfg.get("figure_dir"),
+                figure_dir=trainer_cfg.get("figure_dir") if is_primary else None,
                 handle_signals=(signals,) if isinstance(signals, str) else tuple(signals),
             )
         except DataConfigError as exc:

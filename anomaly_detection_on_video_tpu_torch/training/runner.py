@@ -13,8 +13,8 @@
 - ``make_eval_step`` / ``eval_bucket`` / ``evaluate``: padded-bucket
   scoring and frame-level ROC/PR AUC over a test set (``EvalResult``), the
   videos of each group split over a mesh's data axis.
-- ``VideoAnomalyDetectionRunner``: the epoch loop with evaluation,
-  checkpoints, logs, ``max_steps``, resume and a graceful stop on signals
+- ``VideoAnomalyDetectionRunner``: the epoch loop with evaluation (and
+  its figures, ``EvalResult.save_figure``), checkpoints, logs, ``max_steps``, resume and a graceful stop on signals
   (agreed by every rank of a mesh), its numpy batches assembled on a
   prefetch thread (``data.num_workers >= 1``).
 """
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
@@ -33,7 +34,7 @@ from torch import nn
 from ..data.features import eval_batches, is_normal, train_batches, video_class
 from ..data.prefetch import prefetch
 from ..models import seeded_init_
-from ..ops.metrics import false_alarm_rate, frame_level_scores, pr_auc, roc_auc
+from ..ops.metrics import false_alarm_rate, frame_level_scores, pr_auc, roc_auc, roc_curve
 from ..parallel import Mesh, ShardedParameters, batch_sharding
 from ..utils.device import DeviceLike, full_f32, resolve_device
 from .optim import adam_with_l2
@@ -200,7 +201,8 @@ def make_train_step(precision: str = "32-true", microbatched: bool = False,
                 for x, n_labels, a_labels in micro:
                     loss = loss_of(state, x, n_labels, a_labels)
                     loss.backward()
-                    loss = loss.detach().float()
+                    # float32, as the JAX step returns it; a float64 model's stays float64
+                    loss = loss.detach().to(torch.promote_types(torch.float32, loss.dtype))
                     loss_sum = loss if loss_sum is None else loss_sum + loss
                     k += 1
                 if k > 1:
@@ -334,6 +336,30 @@ class EvalResult:
                                       np.concatenate(abnormal_scores))
                              if abnormal_scores else None),
         }
+
+    def save_figure(self, path: str) -> None:
+        """The frame scores over the ground truth beside the ROC curve (the
+        reference's W&B chart, the JAX ``EvalResult.save_figure``), saved as
+        a PNG. matplotlib is imported here, so the rest of the port never
+        needs it."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig = plt.figure(figsize=(16, 4))
+        fig.set_facecolor("white")
+        ax1 = fig.add_subplot(1, 2, 1)
+        ax2 = fig.add_subplot(1, 2, 2)
+        ax1.plot(self.preds)
+        ax1.plot(self.labels, alpha=0.5)
+        ax1.set_title("frame scores vs ground truth")
+        fpr, tpr, _ = roc_curve(self.labels, self.preds)
+        ax2.plot(fpr, tpr)
+        ax2.set_title(f"ROC (AUC={self.rec_auc:.4f})")
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        fig.savefig(path, dpi=80, bbox_inches="tight")
+        plt.close(fig)
 
 
 def evaluate(state: TrainState, dataset, frames_per_clip: int = 16, eval_step=None,
@@ -556,11 +582,11 @@ class VideoAnomalyDetectionRunner:
         request a graceful stop: the current step finishes, a checkpoint of
         the step reached is saved (without a metric, kept as the latest)
         and fit returns, so a preempted job resumes from that step.
-        ``figure_dir`` is accepted for the JAX runner's signature; eval
-        figures are not ported and none is written.
+        With ``figure_dir`` each evaluation also writes
+        ``eval_epoch{epoch:04d}.png`` there (``EvalResult.save_figure``) and
+        hands it to every logger that has ``log_image``; a figure that fails
+        prints a warning and leaves the metrics and checkpoints as they are.
         """
-        if figure_dir:
-            print(f"warning: eval figures are not ported; nothing is written to {figure_dir}")
         if isinstance(handle_signals, str):  # a CLI scalar override
             handle_signals = (handle_signals,)
         # on a mesh with signals handled, every rank agrees on the stop each step
@@ -585,7 +611,7 @@ class VideoAnomalyDetectionRunner:
         try:
             return self._fit_loop(train_datasets["normal"], train_datasets["abnormal"],
                                   valid_dataset, max_epochs, batch_size, shuffle, eval_every,
-                                  frames_per_clip, stop_signal, max_steps,
+                                  frames_per_clip, figure_dir, stop_signal, max_steps,
                                   log_every_n_steps, checkpoint_every_n_epochs)
         finally:
             if restore_handlers:
@@ -595,7 +621,7 @@ class VideoAnomalyDetectionRunner:
                     signal.signal(signum, handler)
 
     def _fit_loop(self, normal, abnormal, valid_dataset, max_epochs, batch_size, shuffle,
-                  eval_every, frames_per_clip, stop_signal, max_steps,
+                  eval_every, frames_per_clip, figure_dir, stop_signal, max_steps,
                   log_every_n_steps, checkpoint_every_n_epochs) -> Optional[EvalResult]:
         last_eval: Optional[EvalResult] = None
         # a resumed run continues the step count and, derived from it, the
@@ -670,6 +696,15 @@ class VideoAnomalyDetectionRunner:
                 metrics["valid/rec_auc"] = last_eval.rec_auc
                 metrics["valid/pr_auc"] = last_eval.pr_auc
                 metrics["valid/far"] = last_eval.false_alarm_rate()
+                if figure_dir:
+                    try:
+                        fig_path = os.path.join(figure_dir, f"eval_epoch{epoch:04d}.png")
+                        last_eval.save_figure(fig_path)
+                        for logger in self.loggers:
+                            if hasattr(logger, "log_image"):
+                                logger.log_image("valid/overlay", fig_path, step)
+                    except Exception as exc:  # a figure never costs the epoch's metrics
+                        print(f"warning: eval figure failed: {exc}")
             self._log(metrics, step)
             save_this_epoch = ((epoch + 1) % max(1, checkpoint_every_n_epochs) == 0
                                or hit_max or epoch == max_epochs - 1)

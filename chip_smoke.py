@@ -13,10 +13,13 @@ Phases, each of which raises on failure (exit code != 0):
    single PyTorch library call with CUDA events:
    K1 ten-crop + standardize bit-equal in float32 and bfloat16 at
    (24, 16, 256, 341, 3), at gc = 1 for 341x256, 256x455, 224x224 and
-   257x301 frames, and at an odd crop size (its scalar-store path), with
-   its launch plan (band height, shared bytes) printed; K1 timed at the
-   bulk shape in both types beside its bound and achieved TB/s, and in
-   bfloat16 across shared-memory budgets of its plan;
+   257x301 frames, at an odd crop size (its scalar-store path), and at
+   (1, 2, 256, 24576, 3), frames whose crops leave columns unread and
+   whose three input rows pass a CTA's shared memory (segments of column
+   spans), with its launch plan (band height, shared bytes) printed; K1
+   timed at the bulk shape in both types beside its bound and achieved
+   TB/s, at the 24576-wide shape beside its bound, and in bfloat16 across
+   shared-memory budgets of its plan;
    K2 stem and K3 for the three stage-1 blocks at B = 40,
    float32 with TF32 off to atol = rtol = 1e-4, bfloat16 to cosine >= 0.9999
    against the float32 plain version; K2 and K3 again, checked and timed, at
@@ -277,7 +280,22 @@ Phases, each of which raises on failure (exit code != 0):
    difference over 10x; (c) ``dynamics_ab`` at its defaults: the port's
    step and the oracle's agree on finite-or-NaN at every (profile, lr);
    from random LayerNorms at full width in float64 their first 3 losses
-   agree within 1e-6 relative.
+   agree within 1e-10 relative (the step returns a float64 model's loss
+   unrounded);
+18. eval figures and ``infer --figure``: (a) the 4-clip video saved as
+   MJPG, scored by ``python -m ...infer --threshold 0.5`` with phase 8's
+   MGFN and phase 10's weights as two processes at once, with and
+   without ``--figure`` (K1 / K2 / K3 1 / 1 / 3 in each, from
+   ``ANOMALY_TORCH_LAUNCH_LOG``; the score JSONs equal but
+   ``latency_s``), and ``--watch --figure`` in this process (launch
+   counts reset before and read after): with matplotlib the PNGs hold the
+   frame scores and the threshold's line; without it (the card's machine)
+   the one-shot process exits non-zero with the ImportError naming
+   matplotlib and its JSON written, as the JAX CLI does, and the watch
+   loop counts one error and writes no ``.error.json``; (b) a 2-epoch
+   ``run runner=mgfn`` with ``trainer.figure_dir`` against the same run
+   without it under deterministic cuDNN: the figures or two warnings,
+   equal metrics records, bit-equal checkpoints.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -468,12 +486,29 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def crop_read_bytes(gc: int, fpc: int, height: int, width: int, size: int) -> int:
+    """The input bytes the ten crops read: the pixels inside any crop or
+    flipped crop, 3 bytes each, of every (clip, frame)."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.ops.gtransforms import ten_crop_positions
+
+    read = np.zeros((height, width), bool)
+    for top, left in ten_crop_positions(height, width, size):
+        for lo in (left, width - left - size):
+            read[top: top + size, lo: lo + size] = True
+    return int(read.sum()) * 3 * gc * fpc
+
+
 def check_crop_norm(torch, rng, bulk):
     """K1 bit-equal to its plain version in float32 and bfloat16 at the
     bulk-extraction group shape and at gc = 1 for portrait, wide, square and
-    odd frames (and at an odd crop size, its scalar-store path); times at
-    the bulk shape in both types beside their bounds, and bfloat16 across
-    shared-memory budgets of the launch plan."""
+    odd frames (and at an odd crop size, its scalar-store path), and at
+    (1, 2, 256, 24576, 3), frames whose crops leave columns unread and
+    whose three input rows do not fit a CTA: segments of column spans;
+    times at the bulk shape in both types beside their bounds, the
+    24576-wide frames likewise (bound: the bytes the crops read), and
+    bfloat16 across shared-memory budgets of the launch plan."""
     import numpy as np
 
     from anomaly_detection_on_video_tpu_torch.ops.gtransforms import MEAN, STD
@@ -487,7 +522,7 @@ def check_crop_norm(torch, rng, bulk):
         (torch.from_numpy(rng.randint(0, 256, shape, dtype=np.uint8)).cuda(), size)
         for shape, size in (((1, 16, 341, 256, 3), 224), ((1, 16, 256, 455, 3), 224),
                             ((1, 16, 224, 224, 3), 224), ((1, 16, 257, 301, 3), 224),
-                            ((2, 3, 41, 50, 3), 36))]
+                            ((2, 3, 41, 50, 3), 36), ((1, 2, 256, 24576, 3), 224))]
     max_err = 0.0
     for frames, size in cases:
         for dtype in (f32, bf16):
@@ -496,9 +531,25 @@ def check_crop_norm(torch, rng, bulk):
                                                ten_crop_standardize_plain(frames, size, dtype)))
         plan = crop_norm_plan(frames.shape[2], frames.shape[3], size, bf16)
         print(f"K1 crop_norm {tuple(frames.shape)} S={size}: bit-equal f32/bf16; bf16 plan: band "
-              f"{plan.band} rows x {plan.n_bands}, {len(plan.segments)} staged segment(s), "
-              f"{plan.shared_bytes} shared bytes, {'16-byte' if plan.vector else 'scalar'} "
+              f"{plan.band} rows x {plan.n_bands}, {len(plan.segments)} staged segment(s) "
+              f"({'whole rows' if plan.whole_rows else 'column spans ' + str(list(plan.columns))}"
+              f"), {plan.shared_bytes} shared bytes, {'16-byte' if plan.vector else 'scalar'} "
               f"stores", flush=True)
+    wide = cases[-1][0]
+    for dtype in (bf16, f32):
+        out_elems = wide.shape[0] * 10 * wide.shape[1] * 224 * 224 * 3
+        moved = crop_read_bytes(*wide.shape[:4], 224) + out_elems * torch.empty(
+            (), dtype=dtype).element_size()
+        ms = cuda_ms(lambda: ten_crop_standardize(wide, 224, dtype), 20)
+        plain_ms = cuda_ms(lambda: ten_crop_standardize_plain(wide, 224, dtype), 5)
+        bound_ms, bound_by = bound(moved, 2 * out_elems, "float32")
+        plan = crop_norm_plan(*wide.shape[2:4], 224, dtype)
+        print(f"K1 crop_norm {tuple(wide.shape)} {dtype}: {ms:.4f} ms kernel, {plain_ms:.4f} ms "
+              f"plain, bound {bound_ms:.4f} ms ({bound_by}; {moved / 1e6:.3f} MB: the crops' "
+              f"pixels read, the output written); plan: band {plan.band} x {plan.n_bands}, "
+              f"segments {list(plan.segments)} over columns {list(plan.columns)}, pitch "
+              f"{list(plan.pitch)}, {plan.shared_bytes} shared bytes", flush=True)
+    del cases, wide
     gc, fpc, height, width, _ = bulk.shape
     out_elems = gc * 10 * fpc * 224 * 224 * 3
     entry = {}
@@ -523,7 +574,7 @@ def check_crop_norm(torch, rng, bulk):
     sweep = []
     for budget in (24_576, 40_960, 65_536, 98_304, 131_072, 232_448):
         plan = crop_norm_plan(height, width, 224, bf16, budget)
-        ints = (ctypes.c_int * 30)(*plan.ints())
+        ints = (ctypes.c_int * len(plan.ints()))(*plan.ints())
         ms = cuda_ms(lambda: lib.call("adv_crop_norm", bulk.data_ptr(), out.data_ptr(), 1, gc, fpc,
                                       height, width, 224, ints, MEAN, 1.0 / STD,
                                       current_stream(bulk)), 10)
@@ -4249,7 +4300,7 @@ def check_parity(torch, root: str, weights: str, checkpoint: str) -> None:
 
 
 NORM_STEPS = 3  # float64 steps held from random norms
-NORM_RTOL = 1e-6  # relative loss gap allowed on each of them
+NORM_RTOL = 1e-10  # relative loss gap allowed on each of them (float64 losses, unrounded)
 
 
 def check_dynamics(torch, root: str) -> None:
@@ -4326,6 +4377,211 @@ def check_reference_tools(torch, root: str, checkpoint: str, weights: str) -> No
     torch.cuda.empty_cache()
     check_dynamics(torch, root)
     print(f"reference tools phase (17): {time.perf_counter() - start:.1f} s", flush=True)
+
+
+# ------------------------------------------ phase 18: eval figures, --figure
+
+FIGURE_STEM = "Fig001_x264"
+FIGURE_THRESHOLD = 0.5
+# the body of phase 18 (a)'s --figure process: ``python -m ...infer`` as it
+# is, where matplotlib imports also writing each saved figure's line data
+# beside its PNG (``<png>.lines.json``)
+FIGURE_CHILD = (
+    "import importlib.util, json, runpy, sys\n"
+    "if importlib.util.find_spec('matplotlib'):\n"
+    "    from matplotlib.figure import Figure\n"
+    "    save = Figure.savefig\n"
+    "    def record(self, fname, *args, **kwargs):\n"
+    "        with open(str(fname) + '.lines.json', 'w') as f:\n"
+    "            json.dump([[list(map(float, line.get_ydata())) for line in ax.get_lines()]\n"
+    "                       for ax in self.axes], f)\n"
+    "        return save(self, fname, *args, **kwargs)\n"
+    "    Figure.savefig = record\n"
+    "runpy.run_module('anomaly_detection_on_video_tpu_torch.infer', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+
+
+def has_matplotlib() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def start_infer(root: str, tag: str, argv: list, figure: bool) -> tuple:
+    """``infer argv`` as a process of its own (``FIGURE_CHILD`` with
+    ``--figure``), its launches logged to ``<root>/<tag>_launches.jsonl``.
+    Returns (the process, its log path, its stderr file)."""
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    log = os.path.join(root, f"{tag}_launches.jsonl")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", **{kernels.LAUNCH_LOG_ENV: log})
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = ([sys.executable, "-c", FIGURE_CHILD, *argv, "--figure"] if figure
+           else [sys.executable, "-m", "anomaly_detection_on_video_tpu_torch.infer", *argv])
+    err = open(os.path.join(root, f"{tag}.log"), "w+")
+    return subprocess.Popen(cmd, cwd=here, env=env, stdout=err, stderr=subprocess.STDOUT,
+                            text=True), log, err
+
+
+def finish_infer(proc, log: str, err) -> tuple:
+    """(exit code, output, summed launches) of a ``start_infer`` process."""
+    try:
+        code = proc.wait(600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    err.seek(0)
+    output = err.read()
+    err.close()
+    launches = {}
+    with open(log) as f:
+        for line in f:
+            for name, count in json.loads(line)["launches"].items():
+                launches[name] = launches.get(name, 0) + count
+    return code, output, launches
+
+
+def check_infer_figure(torch, root: str, checkpoint: str, weights: str, video) -> None:
+    """Phase 18 (a): ``infer --threshold 0.5`` over the 4-clip video saved
+    as MJPG (OpenCV decode), phase 8's MGFN and phase 10's i3res50 weights,
+    bf16 ten crops, as a process with ``--figure`` and one without, at once
+    on the card; meanwhile ``--watch --figure`` in this process. Gates:
+    each process launches K1 / K2 / K3 1 / 1 / 3 (one group); the score
+    JSONs equal key for key but ``latency_s``; with matplotlib the
+    ``--figure`` process exits 0 and ``<stem>_scores.png`` holds the frame
+    scores and the threshold's line; without it (the card's machine) it
+    exits non-zero with the ImportError naming matplotlib, as the JAX CLI
+    does, its JSON on disk and no PNG; ``--watch --figure`` keeps the JSON,
+    counts the figure's error (none with matplotlib) and writes no
+    ``.error.json``, launching K1 / K2 / K3 1 / 1 / 3 between a reset and a
+    read of the counts."""
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch import infer
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    start = time.perf_counter()
+    work = os.path.join(root, "figure")
+    vids = os.path.join(work, "videos")
+    os.makedirs(vids)
+    write_mjpg(os.path.join(vids, f"{FIGURE_STEM}.avi"), video)
+    common = ["--videos", vids, "--checkpoint", checkpoint, "--i3d-weights", weights,
+              "--threshold", str(FIGURE_THRESHOLD)]
+    out = {tag: os.path.join(work, tag) for tag in ("plain", "figure", "watch")}
+    runs = {tag: start_infer(work, tag, common + ["--outdir", out[tag]], tag == "figure")
+            for tag in ("plain", "figure")}
+
+    kernels.reset_launch_counts()
+    code = infer.main(common + ["--outdir", out["watch"], "--figure", "--watch",
+                                "--poll-interval", "0.2", "--idle-exit", "2"])
+    watch_launches = kernels.launch_counts()
+    results = {tag: finish_infer(*run) for tag, run in runs.items()}
+
+    want = {"ten_crop_standardize": 1, "stem_conv_pool": 1, "bottleneck_block": 3}
+    for tag, launches in [(tag, r[2]) for tag, r in results.items()] + [("watch", watch_launches)]:
+        if any(launches.get(k, 0) != n for k, n in want.items()):
+            raise AssertionError(f"phase 18 (a) {tag}: launches {launches}, expected {want}")
+    plain_code, plain_out, _ = results["plain"]
+    fig_code, fig_out, _ = results["figure"]
+    if plain_code != 0:
+        raise AssertionError(f"infer without --figure exited {plain_code}: {plain_out[-3000:]}")
+    name = f"{FIGURE_STEM}_scores"
+    ref = json.load(open(os.path.join(out["plain"], f"{name}.json")))
+    json_path = os.path.join(out["figure"], f"{name}.json")
+    if not os.path.exists(json_path):
+        raise AssertionError(f"infer --figure wrote no score JSON: {fig_out[-3000:]}")
+    got = json.load(open(json_path))
+    if {k: v for k, v in got.items() if k != "latency_s"} != {
+            k: v for k, v in ref.items() if k != "latency_s"}:
+        raise AssertionError(f"--figure's score JSON differs from the plain run's: {got} / {ref}")
+    png = os.path.join(out["figure"], f"{name}.png")
+    mpl = has_matplotlib()
+    if mpl:
+        lines = json.load(open(png + ".lines.json"))[0]
+        if fig_code != 0 or not os.path.exists(png) or len(lines) != 2 or lines[1] != [
+                FIGURE_THRESHOLD] * 2 or np.abs(np.subtract(lines[0], got["frame_scores"])).max() > 5e-7:
+            raise AssertionError(f"infer --figure: exit {fig_code}, lines {lines}: "
+                                 f"{fig_out[-3000:]}")
+        outcome = f"exit 0, {name}.png with the {len(lines[0])} frame scores and the threshold"
+    else:
+        # ModuleNotFoundError is the ImportError of a module that is not installed
+        error = next((line.strip() for line in reversed(fig_out.splitlines())
+                      if re.match(r"(ModuleNotFound|Import)Error: .*matplotlib", line)), None)
+        if fig_code == 0 or error is None or os.path.exists(png):
+            raise AssertionError(f"infer --figure without matplotlib: exit {fig_code}: "
+                                 f"{fig_out[-3000:]}")
+        outcome = f"exit {fig_code}, '{error}', the JSON written, no PNG"
+    watch_files = sorted(os.listdir(out["watch"]))
+    stats = json.load(open(os.path.join(out["watch"], "_serving_stats.json")))
+    errors = 0 if mpl else 1
+    if code != 0 or f"{name}.json" not in watch_files or f"{name}.error.json" in watch_files or (
+            stats["errors"] != errors or (f"{name}.png" in watch_files) != mpl):
+        raise AssertionError(f"--watch --figure: exit {code}, files {watch_files}, stats {stats}")
+    print(f"phase 18 (a) infer --figure --threshold {FIGURE_THRESHOLD} over a 64-frame MJPG video "
+          f"(matplotlib {'present' if mpl else 'absent'}): {outcome}; its score JSON equal to "
+          f"the run without --figure but latency_s ({got['n_clips']} clips, {len(got['events'])} "
+          f"events); K1 / K2 / K3 1 / 1 / 3 in each process and in --watch --figure, which kept "
+          f"the JSON, counted {stats['errors']} error(s) and wrote no .error.json "
+          f"(files {watch_files}); {time.perf_counter() - start:.1f} s", flush=True)
+
+
+def check_fit_figures(torch, root: str) -> None:
+    """Phase 18 (b): a 2-epoch full-width MGFN ``run`` on the card with
+    ``trainer.figure_dir`` and eval_every 1, and the same run without it,
+    both under cuDNN's deterministic algorithms. Gates: two figures
+    (``eval_epoch0000.png``, ``eval_epoch0001.png``) with matplotlib, or
+    two ``warning: eval figure failed`` lines without it; the metrics
+    records equal but their clock readings (``time``, ``epoch_time_s``),
+    the same checkpoint steps, and the saved models bit-equal."""
+    start = time.perf_counter()
+    figs = os.path.join(root, "fit_figures")
+    runs, printed = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag, extra in (("fig", {"trainer.figure_dir": figs}), ("nofig", {})):
+            overrides = dict(training_overrides(root, "mgfn", f"figures_{tag}"),
+                             **{"trainer.max_epochs": 2, "trainer.max_steps": -1,
+                                "trainer.eval_every": 1}, **extra)
+            printed[tag] = run_training(overrides, "mgfn")
+            with open(overrides["trainer.log_path"]) as f:
+                records = [{k: v for k, v in json.loads(line).items()
+                            if k not in ("time", "epoch_time_s")} for line in f]
+            ckpt = overrides["trainer.checkpoint.dirpath"]
+            steps = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
+            runs[tag] = (records, steps, [torch.load(os.path.join(ckpt, str(s), "state.pt"),
+                                                     map_location="cpu")["model"] for s in steps])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    warnings = [line for line in printed["fig"].splitlines()
+                if line.startswith("warning: eval figure failed")]
+    files = sorted(os.listdir(figs)) if os.path.isdir(figs) else []
+    if has_matplotlib():
+        ok = files == ["eval_epoch0000.png", "eval_epoch0001.png"] and not warnings
+    else:
+        ok = not files and len(warnings) == 2 and "matplotlib" in warnings[0]
+    (records, steps, models), (records0, steps0, models0) = runs["fig"], runs["nofig"]
+    evals = [r for r in records if "valid/rec_auc" in r]
+    same_models = all(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+                      for a, b in zip(models, models0))
+    if not ok or records != records0 or steps != steps0 or not same_models or len(evals) != 2:
+        raise AssertionError(f"fit with figure_dir: files {files}, warnings {warnings}, "
+                             f"records equal {records == records0}, steps {steps} / {steps0}, "
+                             f"models equal {same_models}")
+    print(f"phase 18 (b) run runner=mgfn, 2 epochs with trainer.figure_dir: "
+          f"{files if files else warnings[0]!r} ({len(files) or len(warnings)}x); metrics "
+          f"records ({len(records)}, evals at steps {[r['step'] for r in evals]}) equal to the "
+          f"run without it, checkpoints at steps {steps} bit-equal; "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+
+
+def check_figures(torch, root: str, checkpoint: str, weights: str, video) -> None:
+    """Phase 18: ``infer --figure`` and ``fit``'s eval figures on the card."""
+    start = time.perf_counter()
+    check_infer_figure(torch, root, checkpoint, weights, video)
+    check_fit_figures(torch, root)
+    print(f"figures phase (18): {time.perf_counter() - start:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -4556,6 +4812,11 @@ def main() -> int:
         # 17. the last of the JAX package: weights and features from a local
         # HF cache, parity_check against the reference topologies, dynamics_ab
         check_reference_tools(torch, work, checkpoints["mgfn"], os.path.join(work, "i3res50.pt"))
+        torch.cuda.empty_cache()
+
+        # 18. eval figures and infer --figure: the slice's path (K1-K3 in
+        # the CLI's processes), then fit with figure_dir
+        check_figures(torch, work, checkpoints["mgfn"], os.path.join(work, "i3res50.pt"), video)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

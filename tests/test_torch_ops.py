@@ -23,6 +23,7 @@ from anomaly_detection_on_video_tpu_torch.ops.kernels import (
 )
 from anomaly_detection_on_video_tpu_torch.ops.kernels.crop_norm import (
     GROUP,
+    MAX_SEGMENTS,
     MAX_SHARED,
     PAD,
     crop_norm_plan,
@@ -116,11 +117,13 @@ def test_crop_norm_wrapper_on_cpu_takes_plain_and_checks_inputs(rng):
 def emulate_crop_norm_kernel(frames: np.ndarray, size: int, dtype: torch.dtype, plan,
                              address: int) -> torch.Tensor:
     """K1's CUDA kernel under ``plan``, step for step, in numpy: each CTA's
-    row segments staged in 16-byte pieces from their start rounded down to
-    16 (the frames placed at byte ``address`` of a flat memory), each thread
-    step's 7-word window funnel-shifted to 24 bytes (a flip's read in
-    reverse pixel order), and each warp's 32 steps written as one contiguous
-    run, or pixel by pixel when the rows are not whole 16-byte vectors."""
+    segments staged in 16-byte pieces (whole rows from the segment's start
+    rounded down to 16; column spans row by row, each from its own start
+    rounded down to 16 into a slot of the segment's pitch), the frames
+    placed at byte ``address`` of a flat memory, each thread step's 7-word
+    window funnel-shifted to 24 bytes (a flip's read in reverse pixel order),
+    and each warp's 32 steps written as one contiguous run, or pixel by pixel
+    when the rows are not whole 16-byte vectors."""
     gc, fpc, height, width, _ = frames.shape
     row_bytes = width * 3
     memory = np.zeros(address + frames.size + 16, np.uint8)
@@ -136,15 +139,24 @@ def emulate_crop_norm_kernel(frames: np.ndarray, size: int, dtype: torch.dtype, 
         rows = min(plan.band, size - y0)
         smem = np.zeros(plan.shared_bytes, np.uint8)
         mis = []
-        for s, (lo, hi) in enumerate(plan.segments):
+        for s, ((lo, hi), (c0, c1)) in enumerate(zip(plan.segments, plan.columns)):
             lo, hi = y0 + lo, min(y0 + hi, height)
-            src = address + (plane * height + lo) * row_bytes
+            src = address + (plane * height + lo) * row_bytes + 3 * c0
             mis.append(src % 16)
-            chunks = (mis[s] + (hi - lo) * row_bytes + 15) >> 4
             end = plan.seg_offset[s + 1] if s + 1 < len(plan.segments) else plan.stage_offset - PAD
-            assert plan.seg_offset[s] + 16 * chunks <= end  # the copy fits its capacity
-            smem[plan.seg_offset[s]: plan.seg_offset[s] + 16 * chunks] = \
-                memory[src - mis[s]: src - mis[s] + 16 * chunks]
+            if plan.whole_rows:
+                chunks = (mis[s] + (hi - lo) * row_bytes + 15) >> 4
+                assert plan.seg_offset[s] + 16 * chunks <= end  # the copy fits its capacity
+                smem[plan.seg_offset[s]: plan.seg_offset[s] + 16 * chunks] = \
+                    memory[src - mis[s]: src - mis[s] + 16 * chunks]
+                continue
+            for j in range(hi - lo):
+                row = src + j * row_bytes
+                m = row % 16
+                chunks = (m + 3 * (c1 - c0) + 15) >> 4
+                dst = plan.seg_offset[s] + j * plan.pitch[s]
+                assert 16 * chunks <= plan.pitch[s] and dst + 16 * chunks <= end
+                smem[dst: dst + 16 * chunks] = memory[row - m: row - m + 16 * chunks]
         n_steps = rows * steps_per_row
         out_band = ((clip * 10) * fpc + frame) * size * size * 3 + y0 * size * 3
         for q0 in range(0, n_steps, 32):  # one warp's steps
@@ -152,12 +164,15 @@ def emulate_crop_norm_kernel(frames: np.ndarray, size: int, dtype: torch.dtype, 
             r, g = q // steps_per_row, q % steps_per_row
             for crop in range(10):
                 k = crop % 5
-                s = plan.crop_segment[k]
-                row0 = plan.seg_offset[s] + mis[s] + plan.crop_row[k] * row_bytes
-                if crop < 5:
-                    a = row0 + 3 * plan.lefts[k] + r * row_bytes + vals * g
+                s = plan.crop_segment[k] if crop < 5 else plan.flip_segment[k]
+                col = (plan.lefts[k] if crop < 5 else width - GROUP - plan.lefts[k]) \
+                    - plan.columns[s][0]
+                if plan.whole_rows:
+                    row = mis[s] + (plan.crop_row[k] + r) * row_bytes
                 else:
-                    a = row0 + 3 * (width - GROUP - plan.lefts[k]) + r * row_bytes - vals * g
+                    row = (plan.crop_row[k] + r) * plan.pitch[s] \
+                        + (mis[s] + (plan.crop_row[k] + r) * row_bytes) % 16
+                a = plan.seg_offset[s] + row + 3 * col + (vals if crop < 5 else -vals) * g
                 words = (a & ~3)[:, None] + np.arange(28)
                 assert words.min() >= 0 and words.max() < plan.stage_offset
                 window = smem[words][np.arange(32)[:, None], (a & 3)[:, None] + np.arange(vals)]
@@ -182,21 +197,60 @@ def emulate_crop_norm_kernel(frames: np.ndarray, size: int, dtype: torch.dtype, 
 
 
 @pytest.mark.parametrize("hw,size", [((256, 341), 224), ((341, 256), 224), ((256, 455), 224),
-                                     ((224, 224), 224), ((257, 301), 224), ((41, 50), 36)])
+                                     ((224, 224), 224), ((257, 301), 224), ((41, 50), 36),
+                                     ((256, 8000), 224), ((256, 24576), 224)])
 def test_crop_norm_plan_reproduces_plain(rng, hw, size):
     """K1's launch plan and work decomposition, evaluated as the kernel
     evaluates them from misaligned frames, give the plain version's bits:
-    under the default plan (one row segment for these frames) and under a
-    64 KB shared budget (shorter bands, up to three segments)."""
+    under the default plan (one segment of whole rows for the main path's
+    frames) and under a 64 KB shared budget (shorter bands, up to three
+    segments). Frames wider than three crops (8000 and 24576 pixels, whose
+    three input rows pass the 64 KB and the 227 KB budget) stage only the
+    columns their crops read: at most five segments, none wider than a crop
+    and its flip."""
     frames = rng.randint(0, 256, (1, 2, *hw, 3), np.uint8)
     for dtype in (torch.float32, torch.bfloat16):
         ref = ten_crop_standardize_plain(torch.from_numpy(frames), size, dtype)
         for budget in (MAX_SHARED, 64 * 1024):
             plan = crop_norm_plan(*hw, size, dtype, budget)
-            assert len(plan.ints()) == 30 and 1 <= len(plan.segments) <= 3
+            assert len(plan.ints()) == 57 and 1 <= len(plan.segments) <= MAX_SEGMENTS
             assert plan.shared_bytes <= budget and plan.vector == (size % 8 == 0)
             assert (plan.n_bands - 1) * plan.band < size <= plan.n_bands * plan.band
+            assert plan.whole_rows == (hw[1] < 3 * size)
+            if not plan.whole_rows:
+                assert all(c1 - c0 <= size + 1 for c0, c1 in plan.columns)
             assert torch.equal(emulate_crop_norm_kernel(frames, size, dtype, plan, address=7), ref)
+
+
+# (band, n_bands, segments, shared_bytes) of each main-path frame's plan in
+# float32 and bfloat16 under the default and a 64 KB budget, as they were
+# before segments could be column spans: whole rows keep them
+MAIN_PATH_PLANS = {
+    ((256, 341), 224): ((112, 2, ((0, 144),), 171968), (13, 18, ((0, 13), (16, 29), (32, 45)), 64624),
+                        (112, 2, ((0, 144),), 159680), (19, 12, ((0, 51),), 64544)),
+    ((341, 256), 224): ((112, 2, ((0, 229),), 200528),
+                        (16, 14, ((0, 16), (58, 74), (117, 133)), 61552),
+                        (112, 2, ((0, 229),), 188240),
+                        (23, 10, ((0, 23), (58, 81), (117, 140)), 65392)),
+    ((256, 455), 224): ((112, 2, ((0, 144),), 221216), (9, 25, ((0, 9), (16, 25), (32, 41)), 61552),
+                        (112, 2, ((0, 144),), 208928),
+                        (12, 19, ((0, 12), (16, 28), (32, 44)), 61552)),
+    ((224, 224), 224): ((224, 1, ((0, 224),), 175184), (56, 4, ((0, 56),), 62288),
+                        (224, 1, ((0, 224),), 162896), (75, 3, ((0, 75),), 62768)),
+    ((257, 301), 224): ((112, 2, ((0, 145),), 155600), (15, 15, ((0, 15), (16, 31), (33, 48)), 65344),
+                        (112, 2, ((0, 145),), 143312), (25, 9, ((0, 58),), 64752)),
+    ((41, 50), 36): ((36, 1, ((0, 41),), 6240),) * 4,
+}
+
+
+@pytest.mark.parametrize("hw,size", list(MAIN_PATH_PLANS))
+def test_crop_norm_plan_unchanged_for_main_path_frames(hw, size):
+    got = [crop_norm_plan(*hw, size, dtype, budget)
+           for dtype in (torch.float32, torch.bfloat16) for budget in (MAX_SHARED, 64 * 1024)]
+    assert all(plan.whole_rows and plan.columns == ((0, hw[1]),) * len(plan.segments)
+               for plan in got)
+    assert [(p.band, p.n_bands, p.segments, p.shared_bytes) for p in got] == \
+        list(MAIN_PATH_PLANS[(hw, size)])
 
 
 def test_metrics_equal(rng):

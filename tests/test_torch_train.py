@@ -217,7 +217,7 @@ def _run_port_steps(port, batches, n_steps, grad_clip=None, microbatched=False):
     for i in range(n_steps):
         video, nlabels, alabels = batches[i % len(batches)]
         loss = step_fn(state, _f64(video), _f64(nlabels), _f64(alabels))
-        assert loss.dtype == torch.float32
+        assert loss.dtype == torch.float64  # a float64 model's loss is not rounded to float32
         losses.append(float(loss))
     assert state.step == n_steps
     return losses
@@ -277,6 +277,27 @@ def test_bf16_mixed_step_matches_jax_and_keeps_float32_masters():
                 assert moment.dtype == torch.float32
     with pytest.raises(ValueError, match="precision"):
         make_train_step(precision="16-mixed")
+
+
+@pytest.mark.parametrize("precision,model_dtype,microbatched,want", [
+    ("32-true", torch.float32, False, torch.float32),
+    ("bf16-mixed", torch.float32, False, torch.float32),
+    ("32-true", torch.float64, False, torch.float64),
+    ("32-true", torch.float64, True, torch.float64),
+    ("bf16-mixed", torch.float32, True, torch.float32),
+])
+def test_step_loss_dtype(precision, model_dtype, microbatched, want):
+    """The step's loss is float32, as the JAX step returns it, for float32
+    and bf16-mixed runs; a float64 model's loss stays float64, so float64
+    comparisons read no float32 rounding."""
+    port = MGFN(MGFNConfig(**DYN)).to(model_dtype).train()
+    video, nlabels, alabels = _batch(60)
+    if microbatched:
+        video, nlabels, alabels = (np.stack([a, a]) for a in (video, nlabels, alabels))
+    state = TrainState(port, AdamWithL2(port.parameters()))
+    loss = make_train_step(precision=precision, microbatched=microbatched)(
+        state, *(torch.from_numpy(a).to(model_dtype) for a in (video, nlabels, alabels)))
+    assert loss.dtype == want and loss.dim() == 0 and np.isfinite(float(loss))
 
 
 def test_selection_dropout_stays_in_valid_clips_and_follows_its_generator():
