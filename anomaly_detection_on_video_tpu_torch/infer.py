@@ -27,14 +27,13 @@ contiguous frame runs scoring above it). ``--videos`` is a video file, a
 glob, or a directory searched recursively (the UCF-Crime class
 subfolders).
 
-The scorer: ``--checkpoint`` is a directory written by the port's ``run``
-(``<step>/state.pt`` and ``hparams.json``), whose persisted model family
-and config are rebuilt unless ``--model`` is given, with ``--model-config``
-keys applied on top. The JAX package's orbax checkpoints are not read:
-export their weights with its ``utils/convert.py``
-``export_{mgfn,rtfm,sultani}_state_dict`` and pass them as
-``--torch-weights``, a state dict in the reference's layout (MGFN: the HF
-names, ``--official`` for the official release's; RTFM: the official
+The scorer: ``--checkpoint`` is a run directory, written by the port's
+``run`` (``<step>/state.pt``) or by the JAX package's ``run.py`` on a TPU
+(orbax steps, read by ``training/orbax.py`` with no JAX), with its
+``hparams.json``, whose persisted model family and config are rebuilt
+unless ``--model`` is given, with ``--model-config`` keys applied on top.
+``--torch-weights`` is a state dict in the reference's layout (MGFN: the
+HF names, ``--official`` for the official release's; RTFM: the official
 release's, BatchNorms after a conv folded; Sultani: ``fc1``-``fc3``).
 ``--i3d-model`` picks the backbone (``tushar-n-baseline``, the default, or
 ``i3d_8x8_r50``); ``--i3d-weights`` is its weight file, read as the JAX
@@ -123,7 +122,7 @@ from .data.video import find_videos, warn_duplicate_stems
 from .models import build_model
 from .models.i3d import MODEL_ZOO
 from .ops.metrics import anomaly_events, frame_level_scores
-from .training.checkpoints import STATE_FILE, TopKCheckpointer
+from .training.checkpoints import TopKCheckpointer
 from .training.optim import adam_with_l2
 from .training.runner import TrainState, buckets_up_to, eval_bucket, make_eval_step
 from .utils.aot import (
@@ -261,16 +260,8 @@ def build_scorer(args: argparse.Namespace) -> Tuple[nn.Module, str]:
     elif checkpoint:
         ckpt = TopKCheckpointer(checkpoint)
         if ckpt.latest_step() is None:
-            if any(name.isdigit() and not os.path.exists(os.path.join(checkpoint, name, STATE_FILE))
-                   for name in os.listdir(checkpoint)):
-                raise SystemExit(
-                    f"--checkpoint {checkpoint!r}: its step directories hold no {STATE_FILE}; "
-                    "it looks like a JAX (orbax) checkpoint, and the port reads only the "
-                    "checkpoints its own run writes. Export the weights with the JAX package's "
-                    "utils/convert.py export_{mgfn,rtfm,sultani}_state_dict, torch.save them, "
-                    "and pass --torch-weights")
             raise SystemExit(f"--checkpoint {checkpoint!r}: directory contains no checkpoints "
-                             "(expected a directory written by the port's run)")
+                             "(expected a directory written by the port's run or by run.py)")
         # only step selection errors map to the flag; a restore failure (a
         # --model-config override reshaping the model) raises as its own ValueError
         try:

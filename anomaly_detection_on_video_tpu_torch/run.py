@@ -17,7 +17,10 @@ mesh (``build_mesh``). The process group is ``nccl`` on the card and
 single-device step; only rank 0 logs and writes checkpoints.
 ``main`` composes the config and calls ``train(cfg, device)``,
 which takes a composed dict and needs no PyYAML. ``trainer.eval_only``
-prints one JSON line of metrics. ``trainer.compile_cache: DIR`` builds the
+prints one JSON line of metrics. ``trainer.resume`` and ``eval_only`` also
+read a run directory of the root ``run.py`` (orbax steps, read by
+``training/orbax.py``: weights, Adam moments, step); the run's own saves
+go beside them in the port's format. ``trainer.compile_cache: DIR`` builds the
 CUDA kernels into DIR and loads them from there
 (``utils/compile_cache.py``). ``-m`` sweeps comma-separated override values
 as the root ``run.py`` does, one job after another, each a process of this

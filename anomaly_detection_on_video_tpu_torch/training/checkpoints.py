@@ -4,12 +4,21 @@
 A save writes ``<dir>/<step>/state.pt`` (model state dict, optimizer state
 dict, step) and, when the save carries a metric, ``<dir>/<step>/
 metrics.json``; a step directory is complete once renamed into place.
-Retention is the JAX checkpointer's orbax policy: the latest step, plus
-the ``top_k`` steps with the highest metric (every step while there are at
-most ``top_k``); a metric-less save (preemption, an epoch without eval) is
-kept only while it is the latest. ``hparams.json`` holds the run's
-hyperparameters with the JAX checkpointer's keys. The JAX package's orbax
-checkpoints do not load here.
+``hparams.json`` holds the run's hyperparameters with the JAX
+checkpointer's keys.
+
+A directory may also hold the JAX package's orbax steps (a run trained on
+a TPU, resumed or served here): ``all_steps``, ``metrics``,
+``resolve_step`` and retention see both kinds alike (an orbax step's
+metric is its ``metrics/metrics``), and ``restore`` reads an orbax step
+through ``training/orbax.py`` and ``utils/convert.train_state_from_orbax``
+(weights, Adam moments, step). Saves always write the port's format.
+Retention is the JAX checkpointer's orbax policy over every step, whatever
+its format: the latest step, plus the ``top_k`` steps with the highest
+metric (every step while there are at most ``top_k``); a metric-less save
+(preemption, an epoch without eval) is kept only while it is the latest.
+A step is replaced only when that same step is saved again (a run resumed
+from an earlier step), as the JAX ``save`` replaces it.
 
 In a multi-process run every rank opens the directory and reads it; only
 rank 0 (``parallel.process_index``) writes, and every rank calls ``save``,
@@ -26,7 +35,10 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ..models import MODEL_REGISTRY
 from ..parallel import process_index
+from ..utils.convert import train_state_from_orbax
+from .orbax import is_orbax_step, read_orbax_metrics, read_orbax_step
 
 METADATA_FILE = "hparams.json"
 STATE_FILE = "state.pt"
@@ -39,16 +51,28 @@ class TopKCheckpointer:
         os.makedirs(self.directory, exist_ok=True)
         self.top_k = top_k
 
+    def _path(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def is_orbax(self, step: int) -> bool:
+        """Whether saved ``step`` is a JAX (orbax) step."""
+        return not os.path.exists(os.path.join(self._path(step), STATE_FILE)) and is_orbax_step(
+            self._path(step))
+
     def all_steps(self) -> List[int]:
+        """The saved steps, the port's and orbax's alike."""
         return sorted(int(name) for name in os.listdir(self.directory)
-                      if name.isdigit() and os.path.exists(
-                          os.path.join(self.directory, name, STATE_FILE)))
+                      if name.isdigit() and (
+                          os.path.exists(os.path.join(self.directory, name, STATE_FILE))
+                          or is_orbax_step(os.path.join(self.directory, name))))
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
     def metrics(self, step: int) -> Optional[Dict[str, float]]:
+        if self.is_orbax(step):
+            return read_orbax_metrics(self._path(step))
         path = os.path.join(self.directory, str(step), METRICS_FILE)
         if not os.path.exists(path):
             return None
@@ -56,9 +80,10 @@ class TopKCheckpointer:
             return json.load(f)
 
     def save(self, step: int, state: Any, metric: Optional[float] = None) -> Optional[str]:
-        """Save ``state`` (a ``TrainState``) as ``step``; returns the step
-        directory (None on ranks other than 0, which write nothing). A step
-        already on disk (a run resumed from an earlier step) is replaced.
+        """Save ``state`` (a ``TrainState``) as ``step`` in the port's
+        format; returns the step directory (None on ranks other than 0,
+        which write nothing). A step already on disk, of either format (a
+        run resumed from an earlier step), is replaced.
         Every rank of a DP x TP run must call it: the state's slices are
         gathered."""
         model_sd, optimizer_sd = state.state_dicts()
@@ -79,10 +104,10 @@ class TopKCheckpointer:
         return path
 
     def _prune(self) -> None:
-        """Delete what the retention policy does not keep: orbax's
-        ``LatestN(1)`` or ``BestN(n=top_k, keep_checkpoints_without_metrics=
-        False)``, whose ascending stable sort keeps the newer of equal
-        metrics."""
+        """Delete what the retention policy does not keep, over the steps
+        of both formats: orbax's ``LatestN(1)`` or ``BestN(n=top_k,
+        keep_checkpoints_without_metrics=False)``, whose ascending stable
+        sort keeps the newer of equal metrics."""
         steps = self.all_steps()
         if len(steps) <= self.top_k:
             return
@@ -123,22 +148,48 @@ class TopKCheckpointer:
     def restore(self, state: Any, step: Any = "latest") -> Any:
         """Load a saved step (a ``resolve_step`` selector) into ``state``'s
         model and optimizer and set its step; ``state`` unchanged when the
-        directory holds no checkpoint."""
+        directory holds no checkpoint. An orbax step loads its params,
+        batch_stats, Adam moments and step (the family is the model's
+        class)."""
         step = self.resolve_step(step)
         if step is None:
             return state
+        if self.is_orbax(step):
+            return self._restore_orbax(state, step)
         device = next(state.model.parameters()).device
         payload = torch.load(os.path.join(self.directory, str(step), STATE_FILE),
                              map_location=device, weights_only=True)
         try:
             state.load_state_dicts(payload["model"], payload["optimizer"])
         except (RuntimeError, ValueError, KeyError) as exc:
-            raise ValueError(
-                f"could not restore checkpoint step {step} from {self.directory}: the saved "
-                f"state does not match the model or optimizer, typically because the model "
-                f"config differs from the run that wrote it (see {METADATA_FILE})") from exc
+            raise self._mismatch(step) from exc
         state.step = int(payload["step"])
         return state
+
+    def _mismatch(self, step: int) -> ValueError:
+        return ValueError(
+            f"could not restore checkpoint step {step} from {self.directory}: the saved "
+            f"state does not match the model or optimizer, typically because the model "
+            f"config differs from the run that wrote it (see {METADATA_FILE})")
+
+    def _restore_orbax(self, state: Any, step: int) -> Any:
+        try:
+            tree = read_orbax_step(self._path(step))
+        except (OSError, ValueError, KeyError) as exc:
+            raise ValueError(
+                f"could not read orbax checkpoint step {step} from {self.directory}: {exc}. "
+                "Export its weights with the JAX package's utils/convert.py "
+                "export_{mgfn,rtfm,sultani}_state_dict and pass them as --torch-weights"
+            ) from exc
+        name = next((n for n, (_, cls) in MODEL_REGISTRY.items() if isinstance(state.model, cls)),
+                    None)
+        if name is None:
+            raise ValueError(f"orbax step {step}: {type(state.model).__name__} is not a scorer "
+                             f"of {sorted(MODEL_REGISTRY)}")
+        try:
+            return train_state_from_orbax(tree, name, state)
+        except (RuntimeError, ValueError, KeyError, TypeError) as exc:
+            raise self._mismatch(step) from exc
 
     def write_metadata(self, metadata: Dict[str, Any]) -> Optional[str]:
         """Atomically write the run's hyperparameters to hparams.json (rank

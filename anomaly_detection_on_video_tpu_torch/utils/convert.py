@@ -611,3 +611,77 @@ def rtfm_state_dict_from_official(state_dict: Mapping[str, Any]) -> Dict[str, to
         for kind in ("weight", "bias"):
             sd[f"{module}.{kind}"] = _t(_array(state_dict[f"{module}.{kind}"]))
     return sd
+
+
+# --------------------------------------------- orbax train states -> the port
+
+SCORERS_FROM_FLAX = {"mgfn": mgfn_state_dict_from_flax, "rtfm": rtfm_state_dict_from_flax,
+                     "sultani": sultani_state_dict_from_flax}
+
+
+def adam_state_dict_from_optax(opt_state: Any, batch_stats: Mapping, model_name: str,
+                               model: nn.Module, param_groups: list) -> Dict[str, Any]:
+    """The JAX package's ``adam_with_l2`` state (an optax chain of three
+    slots: clip or identity, add_decayed_weights or identity, adam; slot
+    2's ``ScaleByAdamState`` holds ``count``, ``mu`` and ``nu``) as
+    ``AdamWithL2.state_dict()`` for ``model``'s parameters, in the order
+    the optimizer was given them (``model.parameters()``), with
+    ``param_groups`` (the live optimizer's).
+
+    ``mu`` and ``nu`` are trees shaped like the params, so the family's
+    ``*_state_dict_from_flax`` relayouts them one to one (pure transposes
+    and reshapes; a BatchNorm's ``scale`` / ``bias`` moments become
+    ``weight`` / ``bias``). ``count`` becomes each parameter's ``step``:
+    optax corrects the bias with ``count + 1`` and torch increments
+    ``step`` before it corrects, so the next update agrees."""
+    adam = opt_state[2][0]
+    if not isinstance(adam, Mapping) or not {"count", "mu", "nu"} <= set(adam):
+        raise ValueError("the optimizer state's slot 2 is not an optax ScaleByAdamState "
+                         "(count, mu, nu); only adam_with_l2 states are converted")
+    convert = SCORERS_FROM_FLAX[model_name]
+    mu = convert({"params": adam["mu"], "batch_stats": batch_stats})
+    nu = convert({"params": adam["nu"], "batch_stats": batch_stats})
+    step = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
+    state = {}
+    for i, (name, _) in enumerate(model.named_parameters()):
+        if name not in mu or name not in nu:
+            raise ValueError(f"the optimizer state has no moments for parameter {name!r}")
+        state[i] = {"step": step.clone(), "exp_avg": mu[name], "exp_avg_sq": nu[name]}
+    return {"state": state, "param_groups": param_groups}
+
+
+def _float32_leaves(tree: Any) -> Any:
+    """``tree`` with its bfloat16 leaves (torch tensors: numpy has no
+    bfloat16) as float32 numpy arrays, exactly, as orbax restores a
+    bfloat16 array into a float32 template."""
+    if isinstance(tree, Mapping):
+        return {k: _float32_leaves(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_float32_leaves(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return tree
+
+
+def train_state_from_orbax(tree: Mapping[str, Any], model_name: str, state: Any) -> Any:
+    """Load a JAX train state read from an orbax step
+    (``training/orbax.read_orbax_step``: params, batch_stats, opt_state,
+    step) into the port's ``TrainState`` ``state`` of family
+    ``model_name``: the weights through ``*_state_dict_from_flax``, the
+    Adam moments through ``adam_state_dict_from_optax``, and the step.
+    A tree that does not fit the model raises (RuntimeError, ValueError
+    or KeyError). bfloat16 leaves load as float32, as orbax restores them
+    into the JAX runner's float32 template."""
+    if model_name not in SCORERS_FROM_FLAX:
+        raise ValueError(f"unknown model {model_name!r}; orbax steps convert for "
+                         f"{sorted(SCORERS_FROM_FLAX)}")
+    tree = _float32_leaves(tree)
+    batch_stats = tree.get("batch_stats") or {}
+    model_sd = SCORERS_FROM_FLAX[model_name]({"params": tree["params"],
+                                              "batch_stats": batch_stats})
+    optimizer_sd = adam_state_dict_from_optax(
+        tree["opt_state"], batch_stats, model_name, state.model,
+        state.optimizer.state_dict()["param_groups"])
+    state.load_state_dicts(model_sd, optimizer_sd)
+    state.step = int(np.asarray(tree["step"]))
+    return state

@@ -16,6 +16,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+import warnings
 from collections import defaultdict
 from typing import Any, Dict, Iterator
 
@@ -25,6 +26,12 @@ from typing import Any, Dict, Iterator
 # and a kernel's start, mapped to the host clock, can read milliseconds
 # before its own launch (chip_smoke.py --trace-probe measures it)
 WINDOW_PAD_S = 0.05
+# tiny kernels run at the head of the recorded window on the card, there to
+# be lost in place of the block's: a profiler session of torch 2.11 on an
+# H100 can lose the first N kernel records it sees, N growing by about one
+# per 15 s of the process's age and now and then falling back to 0
+SACRIFICE_KERNELS = 1024
+SACRIFICE_KERNEL_NAME = "spin_kernel"  # ``torch.cuda._sleep``'s
 
 
 @contextlib.contextmanager
@@ -33,33 +40,44 @@ def trace(logdir: str) -> Iterator[Any]:
     under ``logdir``. Yields the ``torch.profiler.profile`` (its events and
     ``key_averages()`` are read after the block).
 
-    The profiler starts in a warm-up step whose records are discarded: on
-    the card one device op runs and is waited for there, so CUDA activity
-    tracing is live before the block's first kernel. The recorded window
-    then opens ``WINDOW_PAD_S`` before the block and closes as long after
-    it, the device idle and waited for: the profiler drops device records
-    whose host-clock start falls outside the window, and that mapping
-    jitters, so a block's first kernels were lost without the margin."""
+    On the card the recording opens with ``SACRIFICE_KERNELS`` one-cycle
+    ``torch.cuda._sleep`` kernels, waited for, under the range
+    ``trace: warm-up``: the profiler drops the first kernel records of a
+    session, more of them the older the process, and these absorb the loss
+    so that the block's own records survive. The block then starts
+    ``WINDOW_PAD_S`` after them and the window closes as long after it,
+    the device idle and waited for, because the profiler also drops device
+    records whose host-clock start falls outside the window. A trace in
+    which not one warm-up kernel survived may lack the block's first
+    records too, and says so in a warning."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule, tensorboard_trace_handler
+    from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
     cuda = torch.cuda.is_available()
     if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+    with profile(activities=activities) as prof:
         if cuda:
-            torch.ones(1, device="cuda").add_(1)
-            torch.cuda.synchronize()
-        prof.step()  # warm-up -> recording
-        if cuda:
+            with record_function("trace: warm-up"):
+                for _ in range(SACRIFICE_KERNELS):
+                    torch.cuda._sleep(1)
+                torch.cuda.synchronize()
             time.sleep(WINDOW_PAD_S)
         yield prof
         if cuda:
             torch.cuda.synchronize()
             time.sleep(WINDOW_PAD_S)
+    if cuda and warmup_kernels_kept(prof) == 0:
+        warnings.warn(f"trace: the profiler dropped all {SACRIFICE_KERNELS} warm-up kernel "
+                      "records, so the block's first device records may be missing too")
+    tensorboard_trace_handler(logdir)(prof)
+
+
+def warmup_kernels_kept(prof) -> int:
+    """How many of ``trace``'s warm-up kernels the profiler recorded."""
+    return sum(SACRIFICE_KERNEL_NAME in e.name() for e in prof.profiler.kineto_results.events())
 
 
 class StageTimer:

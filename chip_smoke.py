@@ -295,7 +295,21 @@ Phases, each of which raises on failure (exit code != 0):
    loop counts one error and writes no ``.error.json``; (b) a 2-epoch
    ``run runner=mgfn`` with ``trainer.figure_dir`` against the same run
    without it under deterministic cuDNN: the figures or two warnings,
-   equal metrics records, bit-equal checkpoints.
+   equal metrics records, bit-equal checkpoints;
+19. the JAX package's orbax checkpoints, on a copy of the committed run
+   directory ``tests/data/orbax_mgfn/run`` (``tests/make_orbax_fixture.py``:
+   MGFN at 2048 channels, narrow dims, steps 2 and 4; the card has no JAX):
+   (a) ``python -m ...infer --checkpoint <copy>`` on phase 18's MJPG with
+   phase 10's weights as a process, K1 / K2 / K3 1 / 1 / 3, its score JSON
+   equal to ``infer --torch-weights`` of the fixture's ``mgfn_step4.pt``
+   (the JAX exporter's) but ``latency_s``; (b) the restored scorer's state
+   dict bit-equal to that file, with the read's time; (c) ``run
+   trainer.resume=true`` on the copy for two more epochs with TF32 off:
+   ``resumed from step 4``, the JAX resumed run's steps, its losses within
+   1e-4 relative (the largest gap printed), both orbax steps kept beside
+   the port's new ones; (d) ``eval_only`` of orbax step 4 twice: equal
+   AUCs in [0, 1], within 1e-4 of the JAX run's eval of that step. The
+   committed fixture's bytes are checked unchanged at the end.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -3650,37 +3664,71 @@ TRACE_KERNELS = ("crop_norm_kernel", "stem_kernel", "bottleneck_kernel")
 def check_trace(torch, root: str, extractor, video) -> None:
     """Phase 14 (e): one bf16 extraction pass of the 4-clip video inside
     ``utils.profiling.trace``. Gates: one Chrome trace written, naming the
-    K1, K2 and K3 kernels."""
+    K1, K2 and K3 kernels. Prints how many of ``trace``'s warm-up kernels
+    the profiler kept (the rest it dropped in place of the pass's)."""
     import glob
 
-    from anomaly_detection_on_video_tpu_torch.utils.profiling import trace
+    from anomaly_detection_on_video_tpu_torch.utils.profiling import (SACRIFICE_KERNELS, trace,
+                                                                     warmup_kernels_kept)
 
     logdir = os.path.join(root, "trace")
     start = time.perf_counter()
-    with trace(logdir):
+    with trace(logdir) as prof:
         extractor.extract_frames(video)
         torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
     text = open(files[0]).read() if len(files) == 1 else ""
     missing = [name for name in TRACE_KERNELS if name not in text]
+    kept = warmup_kernels_kept(prof)
     if missing:
-        raise AssertionError(f"trace: files {files}, kernels missing {missing}")
+        raise AssertionError(f"trace: files {files}, kernels missing {missing}, warm-up "
+                             f"kernels kept {kept} of {SACRIFICE_KERNELS}")
     print(f"trace: one bf16 pass of the 4-clip video in {seconds:.2f} s wrote "
           f"{os.path.basename(files[0])} ({len(text) / 1e6:.1f} MB) naming "
-          f"{', '.join(TRACE_KERNELS)}", flush=True)
+          f"{', '.join(TRACE_KERNELS)}; the profiler kept {kept} of the "
+          f"{SACRIFICE_KERNELS} warm-up kernels", flush=True)
 
 
-def probe_trace(passes: int) -> int:
+def trace_record_loss(path: str, warm_up: bool) -> dict:
+    """Of one Chrome trace: the kernel launches whose kernel record is
+    missing (with ``warm_up``, those of ``trace``'s warm-up kernels apart),
+    which of K1, K2 and K3 it lacks, and the least kernel start minus its
+    launch's (µs)."""
+    from anomaly_detection_on_video_tpu_torch.utils.profiling import (SACRIFICE_KERNEL_NAME,
+                                                                     SACRIFICE_KERNELS)
+
+    with open(path) as f:
+        text = f.read()
+    events = json.loads(text)["traceEvents"]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
+                and "LaunchKernel" in e["name"]}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    recorded = {e.get("args", {}).get("correlation") for e in kernels}
+    gaps = [e["ts"] - launched[e["args"]["correlation"]] for e in kernels
+            if e.get("args", {}).get("correlation") in launched]
+    warm_lost = (SACRIFICE_KERNELS - sum(SACRIFICE_KERNEL_NAME in e["name"] for e in kernels)
+                 if warm_up else 0)
+    return {"lost": sum(c not in recorded for c in launched) - warm_lost,
+            "warm_up_lost": warm_lost, "lacking": [n for n in TRACE_KERNELS if n not in text],
+            "least_gap_us": round(min(gaps), 1) if gaps else None}
+
+
+def probe_trace(passes: int, age_s: float = 15.0) -> int:
     """``python3 chip_smoke.py --trace-probe N`` (not part of the smoke's
-    run): how often the Chrome trace of one bf16 extraction pass of a
-    4-clip video lacks a K1, K2 or K3 record, N passes under a profiler
-    that starts recording at once (``trace`` without its warm-up step and
-    margins) against N under ``utils.profiling.trace``, in turns, after one
-    pass outside any profiler; and in each way the least start of a kernel
-    minus its launch's (correlated runtime call, µs on the trace's host
-    clock; below 0 the device-to-host clock mapping put a kernel before its
-    own launch). Prints one JSON line."""
+    run): N rounds in one process, each a CUDA-only profiler session of
+    three passes (as the smoke's kernel timing), one bf16 extraction pass
+    of a 4-clip video under a profiler that starts recording at once
+    (``trace`` without its warm-up kernels and margins), one under
+    ``utils.profiling.trace``, then ``age_s`` seconds of passes outside any
+    profiler, so the process ages as the smoke's does. Per round and way:
+    the launches whose kernel record is missing (for ``trace``, those of
+    its warm-up kernels and those of the pass apart), which of K1, K2 and
+    K3 the trace lacks, and the least start of a kernel minus its launch's
+    (correlated runtime call, µs on the trace's host clock; below 0 the
+    device-to-host clock mapping put a kernel before its own launch).
+    Prints one JSON line a round and a summary line."""
     import glob
 
     import numpy as np
@@ -3694,46 +3742,51 @@ def probe_trace(passes: int) -> int:
     from anomaly_detection_on_video_tpu_torch.ops.kernels._build import build
     from anomaly_detection_on_video_tpu_torch.utils.profiling import trace
 
+    def one_pass():
+        extractor.extract_frames(video)
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
     build()
     video = np.random.RandomState(0).randint(0, 256, (64, 240, 320, 3), dtype=np.uint8)
     extractor = FeatureExtractor(dtype=torch.bfloat16, batch=40, device="cuda", seed=0)
-    extractor.extract_frames(video)
-    torch.cuda.synchronize()
+    one_pass()
     work = tempfile.mkdtemp(prefix="trace_probe_")
-    lacking = {"at once": {name: 0 for name in TRACE_KERNELS},
-               "trace": {name: 0 for name in TRACE_KERNELS}}
-    least_gap_us = dict.fromkeys(lacking, float("inf"))
+    rounds = []
     try:
         for i in range(passes):
-            for way in lacking:
-                path = os.path.join(work, f"{way.replace(' ', '_')}{i}")
-                if way == "trace":
-                    with trace(path):
-                        extractor.extract_frames(video)
-                        torch.cuda.synchronize()
-                    path = glob.glob(os.path.join(path, "*.pt.trace.json"))[0]
-                else:
-                    with profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
-                        extractor.extract_frames(video)
-                        torch.cuda.synchronize()
-                    prof.export_chrome_trace(path)
-                with open(path) as f:
-                    text = f.read()
-                for name in TRACE_KERNELS:
-                    lacking[way][name] += name not in text
-                events = json.loads(text)["traceEvents"]
-                launched = {e["args"]["correlation"]: e["ts"] for e in events
-                            if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
-                for e in events:
-                    correlation = e.get("args", {}).get("correlation")
-                    if e.get("cat") == "kernel" and correlation in launched:
-                        least_gap_us[way] = min(least_gap_us[way], e["ts"] - launched[correlation])
+            with profile(activities=[ProfilerActivity.CUDA]):
+                for _ in range(3):
+                    one_pass()
+            path = os.path.join(work, f"at_once{i}.json")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                one_pass()
+            prof.export_chrome_trace(path)
+            at_once = trace_record_loss(path, warm_up=False)
+            with trace(os.path.join(work, f"trace{i}")):
+                one_pass()
+            traced = trace_record_loss(
+                glob.glob(os.path.join(work, f"trace{i}", "*.pt.trace.json"))[0], warm_up=True)
+            rounds.append({"round": i, "age_s": round(time.perf_counter() - t0, 1),
+                           "at once": at_once, "trace": traced})
+            print(json.dumps(rounds[-1]), flush=True)
+            until = time.perf_counter() + age_s
+            while time.perf_counter() < until:
+                extractor.extract_frames(video)
+            torch.cuda.synchronize()
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"{smi_line()}", flush=True)
-    print(json.dumps({"passes": passes, "traces lacking each kernel": lacking,
-                      "least kernel start minus its launch, us": least_gap_us}), flush=True)
+    print(json.dumps({
+        "rounds": passes, "age_s": round(time.perf_counter() - t0, 1),
+        "at once: most kernel records lost": max(r["at once"]["lost"] for r in rounds),
+        "at once: rounds lacking K1, K2 or K3": sum(bool(r["at once"]["lacking"]) for r in rounds),
+        "trace: most kernel records of the pass lost": max(r["trace"]["lost"] for r in rounds),
+        "trace: most warm-up records lost": max(r["trace"]["warm_up_lost"] for r in rounds),
+        "trace: rounds lacking K1, K2 or K3": sum(bool(r["trace"]["lacking"]) for r in rounds),
+        "least kernel start minus its launch, us": min(
+            r[w]["least_gap_us"] for r in rounds for w in ("at once", "trace")
+            if r[w]["least_gap_us"] is not None)}), flush=True)
     return 0
 
 
@@ -4584,6 +4637,183 @@ def check_figures(torch, root: str, checkpoint: str, weights: str, video) -> Non
     print(f"figures phase (18): {time.perf_counter() - start:.1f} s", flush=True)
 
 
+# ------------------------------------ phase 19: the JAX package's orbax checkpoints
+
+ORBAX_FIXTURE = os.path.join("tests", "data", "orbax_mgfn")
+
+
+def tree_digest(root: str) -> str:
+    """sha256 over a directory's relative file paths and bytes."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for dirpath, dirs, files in sorted(os.walk(root)):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(dirpath, name)
+            digest.update(os.path.relpath(path, root).encode())
+            with open(path, "rb") as f:
+                digest.update(f.read())
+    return digest.hexdigest()
+
+
+def fixture_overrides(data: str) -> dict:
+    """The fixture's run overrides (``resume.json``) as ``run_training``
+    takes them, its relative data paths under ``data``."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), ORBAX_FIXTURE,
+                           "resume.json")) as f:
+        ref = json.load(f)
+    overrides = {}
+    for item in ref["overrides"]:
+        key, _, value = item.partition("=")
+        if key == "runner":
+            continue
+        if key.startswith("data.") and key.endswith("_path"):
+            value = os.path.join(data, value[len("data/"):])
+        try:
+            overrides[key] = json.loads(value)
+        except ValueError:
+            overrides[key] = value
+    return overrides, ref
+
+
+def check_orbax_infer(torch, work: str, copy: str, weights: str, video) -> None:
+    """Phase 19 (a), (b)."""
+    from anomaly_detection_on_video_tpu_torch import infer
+    from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
+    from anomaly_detection_on_video_tpu_torch.training.orbax import read_orbax_step
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), ORBAX_FIXTURE)
+    pt = os.path.join(fixture, "mgfn_step4.pt")
+    _, ref = fixture_overrides("")
+    model_config = [o[len("runner.model_config."):] for o in ref["overrides"]
+                    if o.startswith("runner.model_config.")]
+    vids = os.path.join(work, "videos")
+    os.makedirs(vids)
+    write_mjpg(os.path.join(vids, f"{FIGURE_STEM}.avi"), video)
+    common = ["--videos", vids, "--i3d-weights", weights]
+    out = {tag: os.path.join(work, tag) for tag in ("orbax", "weights")}
+    runs = {"orbax": start_infer(work, "orbax", common + ["--checkpoint", copy, "--outdir",
+                                                         out["orbax"]], False),
+            "weights": start_infer(work, "weights", common + [
+                "--torch-weights", pt, "--model", "mgfn", "--model-config", *model_config,
+                "--outdir", out["weights"]], False)}
+    results = {tag: finish_infer(*run) for tag, run in runs.items()}
+    want = {"ten_crop_standardize": 1, "stem_conv_pool": 1, "bottleneck_block": 3}
+    for tag, (code, output, launches) in results.items():
+        if code != 0 or any(launches.get(k, 0) != n for k, n in want.items()):
+            raise AssertionError(f"phase 19 (a) infer {tag}: exit {code}, launches {launches}, "
+                                 f"expected {want}: {output[-3000:]}")
+    name = f"{FIGURE_STEM}_scores.json"
+    got, ref_json = (json.load(open(os.path.join(out[tag], name))) for tag in ("orbax", "weights"))
+    if {k: v for k, v in got.items() if k != "latency_s"} != {
+            k: v for k, v in ref_json.items() if k != "latency_s"}:
+        raise AssertionError(f"infer --checkpoint <orbax dir> differs from --torch-weights: "
+                             f"{got} / {ref_json}")
+    print(f"phase 19 (a) infer --checkpoint <the JAX run's orbax directory> over a 64-frame MJPG "
+          f"video: exit 0, K1 / K2 / K3 1 / 1 / 3 in each process, {got['n_clips']} clip "
+          f"scores {got['clip_scores']} equal to --torch-weights mgfn_step4.pt's (the JAX "
+          f"exporter's) but latency_s", flush=True)
+
+    step_dir = os.path.join(copy, "4")
+    t0 = time.perf_counter()
+    read_orbax_step(step_dir)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    args = argparse.Namespace(model=None, model_config=None, checkpoint=copy, torch_weights=None,
+                              official=False, i3d_weights=None, checkpoint_step="latest",
+                              device="cuda")
+    build_ms = []
+    for _ in range(2):  # the first also pays torch's lazy imports at its first optimizer load
+        t0 = time.perf_counter()
+        scorer, model_name = infer.build_scorer(args)
+        torch.cuda.synchronize()
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+    sd = scorer.state_dict()
+    exported = torch.load(pt, map_location="cpu", weights_only=True)
+    params = [n for n, _ in scorer.named_parameters()]
+    unequal = [k for k, v in exported.items() if k in sd and not torch.equal(sd[k].cpu(), v)]
+    if model_name != "mgfn" or unequal or not set(params) <= set(exported):
+        raise AssertionError(f"phase 19 (b): {model_name}, unequal {unequal}, missing "
+                             f"{sorted(set(params) - set(exported))}")
+    ckpt = TopKCheckpointer(copy)
+    print(f"phase 19 (b) the restored scorer's state dict bit-equal to mgfn_step4.pt "
+          f"({len(exported)} tensors, {sum(v.numel() for v in exported.values())} values); "
+          f"steps {ckpt.all_steps()} (orbax: {[ckpt.is_orbax(s) for s in ckpt.all_steps()]}); "
+          f"read_orbax_step of step 4 {read_ms:.1f} ms, build_scorer with its restore "
+          f"{build_ms[0]:.1f} ms, then {build_ms[1]:.1f} ms (host clock)", flush=True)
+
+
+def check_orbax_resume(torch, work: str, copy: str) -> None:
+    """Phase 19 (c), (d)."""
+    from anomaly_detection_on_video_tpu_torch.training.orbax import is_orbax_step
+    from anomaly_detection_on_video_tpu_torch.utils.device import full_f32
+
+    data = os.path.join(work, "data")
+    write_training_data(data)
+    overrides, ref = fixture_overrides(data)
+    overrides.update({"trainer.max_epochs": ref["max_epochs"], "trainer.resume": True,
+                      "trainer.log_path": os.path.join(work, "resume.jsonl"),
+                      "trainer.checkpoint.dirpath": copy})
+    with full_f32():
+        printed = run_training(overrides, "mgfn")
+    with open(overrides["trainer.log_path"]) as f:
+        records = [json.loads(line) for line in f]
+    want = ref["records"]
+    gaps = [abs(g["train_loss"] - w["train_loss"]) / abs(w["train_loss"])
+            for g, w in zip(records, want) if "train_loss" in w]
+    steps = sorted(os.listdir(copy))
+    kept = [s for s in ("2", "4") if is_orbax_step(os.path.join(copy, s))
+            and not os.path.exists(os.path.join(copy, s, "state.pt"))]
+    if (f"resumed from step {ref['restored_step']}" not in printed
+            or [r["step"] for r in records] != [r["step"] for r in want]
+            or len(gaps) != 4 or max(gaps) > 1e-4 or kept != ["2", "4"]
+            or steps != ["2", "4", "6", "8", "hparams.json"]):
+        raise AssertionError(f"phase 19 (c): steps {[r['step'] for r in records]}, loss gaps "
+                             f"{gaps}, directory {steps}, orbax steps kept {kept}: "
+                             f"{printed[-3000:]}")
+    aucs = [(r["valid/rec_auc"], r["valid/pr_auc"]) for r in records if "valid/rec_auc" in r]
+    print(f"phase 19 (c) run trainer.resume=true on the JAX run's directory, 2 more epochs: "
+          f"resumed from step {ref['restored_step']}, steps {[r['step'] for r in records]}, "
+          f"losses {[r['train_loss'] for r in records if 'train_loss' in r]}, largest relative "
+          f"gap to the JAX resumed run {max(gaps):.3e} (gate 1e-4), AUCs {aucs}; the "
+          f"directory {steps} keeps orbax steps {kept}", flush=True)
+
+    lines = []
+    for _ in range(2):
+        with full_f32():
+            printed = run_training(dict(overrides, **{"trainer.eval_only": True,
+                                                      "trainer.resume": False,
+                                                      "trainer.checkpoint_step": 4,
+                                                      "trainer.log_path": None}), "mgfn")
+        lines.append(json.loads(printed.strip().splitlines()[-1]))
+    jax_eval = next(r for r in ref["train_records"] if r["step"] == 4 and "valid/rec_auc" in r)
+    keys = ("valid/rec_auc", "valid/pr_auc")
+    if (lines[0] != lines[1] or lines[0]["step"] != 4
+            or not all(0.0 <= lines[0][k] <= 1.0 for k in keys)
+            or any(abs(lines[0][k] - jax_eval[k]) > 1e-4 for k in keys)):
+        raise AssertionError(f"phase 19 (d): eval_only {lines}, the JAX run's eval {jax_eval}")
+    print(f"phase 19 (d) eval_only of orbax step 4, twice: rec_auc {lines[0]['valid/rec_auc']:.6f}"
+          f", pr_auc {lines[0]['valid/pr_auc']:.6f} both times (the JAX run's eval of step 4: "
+          f"{jax_eval['valid/rec_auc']:.6f}, {jax_eval['valid/pr_auc']:.6f})", flush=True)
+
+
+def check_orbax(torch, root: str, weights: str, video) -> None:
+    """Phase 19: the JAX package's orbax checkpoints through the port's
+    entry points, on a copy of the committed fixture."""
+    start = time.perf_counter()
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), ORBAX_FIXTURE)
+    before = tree_digest(fixture)
+    work = os.path.join(root, "orbax")
+    copy = os.path.join(work, "run")
+    shutil.copytree(os.path.join(fixture, "run"), copy)
+    check_orbax_infer(torch, work, copy, weights, video)
+    check_orbax_resume(torch, work, copy)
+    if tree_digest(fixture) != before:
+        raise AssertionError(f"phase 19 changed the committed fixture {fixture}")
+    print(f"orbax phase (19): {time.perf_counter() - start:.1f} s; the fixture's bytes unchanged",
+          flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4817,6 +5047,11 @@ def main() -> int:
         # 18. eval figures and infer --figure: the slice's path (K1-K3 in
         # the CLI's processes), then fit with figure_dir
         check_figures(torch, work, checkpoints["mgfn"], os.path.join(work, "i3res50.pt"), video)
+        torch.cuda.empty_cache()
+
+        # 19. the JAX package's orbax checkpoints: infer --checkpoint, run
+        # resume and eval_only on a copy of a JAX run's directory
+        check_orbax(torch, work, os.path.join(work, "i3res50.pt"), video)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

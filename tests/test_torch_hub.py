@@ -433,7 +433,8 @@ def test_run_trains_from_the_cache(hub_cache, monkeypatch, tmp_path):
     by_path = common + [f"data.train_path={train}", f"data.test_path={test}",
                         f"data.ground_truth_path={gt}"]
     for name, argv in (("path", by_path), ("cache", common)):
-        t_run.main(argv + [f"trainer.log_path={tmp_path}/{name}.jsonl"])
+        t_run.main(argv + [f"trainer.log_path={tmp_path}/{name}.jsonl",
+                           f"trainer.checkpoint.dirpath={tmp_path}/{name}_ckpt"])
 
     def records(name):
         with open(tmp_path / f"{name}.jsonl") as f:
@@ -447,5 +448,5 @@ def test_run_trains_from_the_cache(hub_cache, monkeypatch, tmp_path):
     assert [untimed(g) for g in got] == [untimed(w) for w in want]
     monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "empty"))
     with pytest.raises(SystemExit) as exc:
-        t_run.main(common + ["trainer.log_path="])
+        t_run.main(common + ["trainer.log_path=", f"trainer.checkpoint.dirpath={tmp_path}/ckpt"])
     assert str(exc.value.code).startswith("data error: cannot download")

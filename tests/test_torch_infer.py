@@ -509,15 +509,17 @@ def test_checkpoint_of_port_run_is_served(rng, tmp_path, runner):
 
 
 def test_checkpoint_without_port_steps_names_the_export_route(tmp_path):
-    """A JAX (orbax) checkpoint directory, whose steps hold no state.pt,
-    is not parsed: the message names
+    """A JAX (orbax) step that cannot be read (here its tree metadata,
+    ``default/_METADATA``, is missing; readable orbax steps are served,
+    tests/test_torch_orbax.py) fails naming the step, the missing file,
     the JAX package's exporters and --torch-weights; an empty directory
     holds no checkpoints."""
     step = tmp_path / "orbax" / "1"  # orbax's layout: no state.pt in a step
     (step / "default").mkdir(parents=True)
     (step / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(SystemExit, match=r"export_\{mgfn,rtfm,sultani\}_state_dict.*--torch-weights"):
-        t_infer.build_scorer(_args(checkpoint=str(tmp_path / "orbax")))
+    with pytest.raises(ValueError, match=r"(?s)orbax checkpoint step 1 .*_METADATA.*"
+                                         r"export_\{mgfn,rtfm,sultani\}_state_dict.*--torch-weights"):
+        t_infer.build_scorer(_args(checkpoint=str(tmp_path / "orbax"), model="sultani"))
     (tmp_path / "empty").mkdir()
     for build in (j_infer.build_scorer, t_infer.build_scorer):
         with pytest.raises(SystemExit, match="directory contains no checkpoints"):

@@ -8,6 +8,7 @@ Files are written in ``tmp_path``; both packages read the same files.
 
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -17,6 +18,7 @@ import zipfile
 import jax
 import jax.numpy as jnp
 import numpy as np
+import orbax.checkpoint as ocp
 import pytest
 import torch
 
@@ -49,6 +51,7 @@ from anomaly_detection_on_video_tpu_torch.models import (
 from anomaly_detection_on_video_tpu_torch.models import i3d as ti3d
 from anomaly_detection_on_video_tpu_torch.training import VideoAnomalyDetectionRunner
 from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
+from anomaly_detection_on_video_tpu_torch.training.optim import adam_with_l2
 from anomaly_detection_on_video_tpu_torch.training.runner import TrainState
 from anomaly_detection_on_video_tpu_torch.utils.convert import (
     i3d_state_dict_from_flax,
@@ -423,7 +426,11 @@ def test_run_matches_jax_run_py(rng, tmp_path, monkeypatch, capsys):
     into both runners: the two frameworks draw different initial weights,
     and identity norms tie the top-k). Per-step losses, AUCs and
     hparams.json agree, and eval_only from the port's checkpoint repeats
-    its last AUCs."""
+    its last AUCs. Then the JAX run's orbax directory: ``trainer.resume``
+    of both CLIs (each on a copy) takes two more epochs from step 4 with
+    equal steps, losses and AUCs, keeping the JAX steps (fault 8: the port
+    restarted from step 0 and replaced them); the port's restored Adam
+    state is bit-equal to optax's, relayouted; ``eval_only`` of both agrees."""
     train, test, _, gt_path = write_features(str(tmp_path), rng)
     common = ["runner=mgfn", f"data.train_path={train}", f"data.test_path={test}",
               f"data.ground_truth_path={gt_path}", "data.batch_size=2", "trainer.max_epochs=2",
@@ -478,3 +485,54 @@ def test_run_matches_jax_run_py(rng, tmp_path, monkeypatch, capsys):
     assert line["step"] == 4
     assert line["valid/rec_auc"] == got[-1]["valid/rec_auc"]
     assert line["valid/pr_auc"] == got[-1]["valid/pr_auc"]
+
+    # the JAX run's orbax directory: resumed by both CLIs for two more
+    # epochs (each on a copy), and evaluated by both
+    for tag in ("resume_t", "resume_j"):
+        shutil.copytree(tmp_path / "ck_j", tmp_path / tag)
+    resume = common + ["trainer.max_epochs=4", "trainer.resume=true"]
+    t_run.main(resume + ["device=cpu", f"trainer.log_path={tmp_path}/t_resume.jsonl",
+                         f"trainer.checkpoint.dirpath={tmp_path}/resume_t"])
+    assert "resumed from step 4" in capsys.readouterr().out
+    j_run.main(resume + ["trainer.data_parallel=false", f"trainer.log_path={tmp_path}/j_resume.jsonl",
+                         f"trainer.checkpoint.dirpath={tmp_path}/resume_j"])
+    ref, got = records("j_resume.jsonl"), records("t_resume.jsonl")
+    assert [r["step"] for r in got] == [r["step"] for r in ref] == [4, 5, 6, 6, 7, 8]
+    for g, r in zip(got, ref):
+        assert set(g) == set(r)
+        for key in ("train_loss", "train_loss_epoch"):
+            if key in r:
+                np.testing.assert_allclose(g[key], r[key], rtol=1e-4)
+        for key in ("valid/rec_auc", "valid/pr_auc"):
+            if key in r:
+                np.testing.assert_allclose(g[key], r[key], atol=1e-4)
+    assert sorted(os.listdir(tmp_path / "resume_t")) == sorted(os.listdir(tmp_path / "resume_j")) \
+        == ["2", "4", "6", "8", "hparams.json"]
+    resumed = TopKCheckpointer(str(tmp_path / "resume_t"))
+    assert [resumed.is_orbax(s) for s in resumed.all_steps()] == [True, True, False, False]
+
+    # the restored optimizer state: exp_avg, exp_avg_sq and step bit-equal
+    # to optax's mu, nu and count (orbax's own read), relayouted
+    raw = ocp.PyTreeCheckpointer().restore(str(tmp_path / "ck_j" / "4" / "default"))
+    adam = raw["opt_state"][2][0]
+    from_raw = {k: mgfn_state_dict_from_flax({"params": adam[k], "batch_stats": raw["batch_stats"]})
+                for k in ("mu", "nu")}
+    model = MGFN(MGFNConfig(dims=(16, 16, 32), depths=(1, 1, 1), dim_head=8, channels=C,
+                            dropout_rate=0.0))
+    state = TopKCheckpointer(str(tmp_path / "ck_j")).restore(
+        TrainState(model, adam_with_l2(model.parameters())), step=4)
+    assert state.step == 4 == int(raw["step"])
+    optimizer = state.optimizer.state_dict()["state"]
+    for i, (key, _) in enumerate(state.model.named_parameters()):
+        assert torch.equal(optimizer[i]["exp_avg"], from_raw["mu"][key]), key
+        assert torch.equal(optimizer[i]["exp_avg_sq"], from_raw["nu"][key]), key
+        assert optimizer[i]["step"].item() == float(adam["count"]) == 4.0
+
+    for main, extra in ((t_run.main, ["device=cpu"]), (j_run.main, ["trainer.data_parallel=false"])):
+        main(common + extra + ["trainer.eval_only=true", "trainer.log_path=",
+                               f"trainer.checkpoint.dirpath={tmp_path}/ck_j"])
+    port_line, jax_line = (json.loads(text) for text in
+                           capsys.readouterr().out.strip().splitlines()[-2:])
+    assert port_line["step"] == jax_line["step"] == 4
+    for key in ("valid/rec_auc", "valid/pr_auc"):
+        np.testing.assert_allclose(port_line[key], jax_line[key], atol=1e-4)

@@ -176,11 +176,15 @@ def test_msgpack_chunked_leaves_and_refusals(monkeypatch, tmp_path):
 
 
 def test_new_modules_import_no_jax_flax_or_msgpack(tmp_path):
-    """With jax, flax, msgpack and the JAX package made unimportable, the
-    port's new modules import, and its codec writes and reads a file."""
+    """With jax, flax, msgpack, orbax, tensorstore, zstandard, numcodecs and
+    the JAX package made unimportable, the port's new modules import, its
+    codec writes and reads a file, and it reads and restores the committed
+    orbax run directory (tests/data/orbax_mgfn)."""
+    fixture = os.path.join(REPO, "tests", "data", "orbax_mgfn", "run")
     code = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'msgpack', 'anomaly_detection_on_video_tpu'):\n"
+        "for name in ('jax', 'flax', 'msgpack', 'orbax', 'tensorstore', 'zstandard', 'numcodecs',\n"
+        "             'anomaly_detection_on_video_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import numpy as np\n"
         "from anomaly_detection_on_video_tpu_torch import infer, run, extract_features\n"
@@ -192,6 +196,12 @@ def test_new_modules_import_no_jax_flax_or_msgpack(tmp_path):
         f"serialization.save_variables({str(tmp_path / 'x.msgpack')!r}, tree)\n"
         f"back = serialization.load_variables({str(tmp_path / 'x.msgpack')!r})\n"
         "assert back['n'] == 3 and (back['params']['w'] == tree['params']['w']).all()\n"
+        "from anomaly_detection_on_video_tpu_torch.training import checkpoints, orbax\n"
+        "from anomaly_detection_on_video_tpu_torch.utils import ocdbt, zarr, zstd\n"
+        f"assert int(orbax.read_orbax_step({os.path.join(fixture, '4')!r})['step']) == 4\n"
+        "scorer, name = infer.build_scorer(infer.build_parser().parse_args(\n"
+        f"    ['--outdir', 'x', '--checkpoint', {fixture!r}, '--device', 'cpu']))\n"
+        "assert name == 'mgfn' and scorer.config.channels == 2048\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True,
