@@ -28,9 +28,9 @@ glob, or a directory searched recursively (the UCF-Crime class
 subfolders).
 
 The scorer: ``--checkpoint`` is a run directory, written by the port's
-``run`` (``<step>/state.pt``) or by the JAX package's ``run.py`` on a TPU
-(orbax steps, read by ``training/orbax.py`` with no JAX), with its
-``hparams.json``, whose persisted model family and config are rebuilt
+``run`` or by the JAX package's ``run.py`` on a TPU (orbax steps both,
+read by ``training/orbax.py`` with no JAX; an earlier port's
+``<step>/state.pt`` steps too), with its ``hparams.json``, whose persisted model family and config are rebuilt
 unless ``--model`` is given, with ``--model-config`` keys applied on top.
 ``--torch-weights`` is a state dict in the reference's layout (MGFN: the
 HF names, ``--official`` for the official release's; RTFM: the official

@@ -20,7 +20,8 @@ which takes a composed dict and needs no PyYAML. ``trainer.eval_only``
 prints one JSON line of metrics. ``trainer.resume`` and ``eval_only`` also
 read a run directory of the root ``run.py`` (orbax steps, read by
 ``training/orbax.py``: weights, Adam moments, step); the run's own saves
-go beside them in the port's format. ``trainer.compile_cache: DIR`` builds the
+are orbax steps too (``training/orbax.write_orbax_step``), so the root
+``run.py`` resumes them and its ``infer.py --checkpoint`` serves them. ``trainer.compile_cache: DIR`` builds the
 CUDA kernels into DIR and loads them from there
 (``utils/compile_cache.py``). ``-m`` sweeps comma-separated override values
 as the root ``run.py`` does, one job after another, each a process of this

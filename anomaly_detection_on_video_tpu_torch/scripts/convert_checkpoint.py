@@ -17,7 +17,9 @@ Kinds: ``i3d`` (i3res50, the reference's names), ``i3d-8x8`` (a
 pytorchvideo ``.pyth``'s ``model_state``), ``mgfn-hf``, ``mgfn-official``
 (forward only, as in the reference), ``rtfm`` (the official release; a
 BatchNorm after a conv folds into it) and ``sultani``. ``src`` may also be
-a ``state.pt`` of the port's ``run`` checkpoints (its ``model``). Keys the
+a ``state.pt`` from a run of the earlier port, whose ``run`` saved its
+checkpoints so (its ``model``; the port's ``run`` now writes orbax steps,
+whose weights ``infer --checkpoint`` reads). Keys the
 JAX converter ignores (an I3D file's Kinetics head) are dropped and named
 on stderr; MGFN refuses unknown keys, as there. Host work only.
 """
@@ -71,7 +73,8 @@ FROM_FLAX = {
 def load_torch_state_dict(path: str) -> dict:
     """A torch weight file's state dict: a module's, a pytorchvideo
     ``.pyth``'s ``model_state``, a ``state_dict`` wrapper, or the
-    ``model`` of a port ``run`` checkpoint's ``state.pt``."""
+    ``model`` of a ``state.pt`` that a run of the earlier port saved as a
+    checkpoint step."""
     state_dict = torch.load(path, map_location="cpu", weights_only=True)
     if hasattr(state_dict, "state_dict"):
         state_dict = state_dict.state_dict()

@@ -1,18 +1,23 @@
 """Top-k checkpointing (counterpart of the JAX package's
-``training/checkpoints.py`` ``TopKCheckpointer``), saved with ``torch.save``.
+``training/checkpoints.py`` ``TopKCheckpointer``), saved in orbax's format.
 
-A save writes ``<dir>/<step>/state.pt`` (model state dict, optimizer state
-dict, step) and, when the save carries a metric, ``<dir>/<step>/
-metrics.json``; a step directory is complete once renamed into place.
-``hparams.json`` holds the run's hyperparameters with the JAX
-checkpointer's keys.
+A save writes ``<dir>/<step>/`` as the JAX checkpointer's orbax
+``StandardSave`` does (``training/orbax.write_orbax_step`` of
+``utils/convert.train_state_to_orbax``: params, batch_stats, the Adam
+state, step; ``metrics/metrics`` when the save carries a metric), into
+``<step>.tmp`` first; a step directory is complete once renamed into
+place. So a run trained here resumes in the JAX package's ``run.py``, and
+serves in its ``infer.py --checkpoint`` and ``eval_only``. ``hparams.json``
+holds the run's hyperparameters with the JAX checkpointer's keys.
 
-A directory may also hold the JAX package's orbax steps (a run trained on
-a TPU, resumed or served here): ``all_steps``, ``metrics``,
-``resolve_step`` and retention see both kinds alike (an orbax step's
-metric is its ``metrics/metrics``), and ``restore`` reads an orbax step
-through ``training/orbax.py`` and ``utils/convert.train_state_from_orbax``
-(weights, Adam moments, step). Saves always write the port's format.
+A directory may also hold steps of the port's earlier format, ``<step>/
+state.pt`` (``torch.save`` of the model and optimizer state dicts and the
+step) and ``<step>/metrics.json``: ``all_steps``, ``metrics``,
+``resolve_step``, retention and ``restore`` take both formats alike (an
+orbax step's metric is its ``metrics/metrics``), and ``restore`` reads an
+orbax step through ``training/orbax.py`` and ``utils/convert.
+train_state_from_orbax`` (weights, Adam moments, step), whether the port
+or a TPU job wrote it.
 Retention is the JAX checkpointer's orbax policy over every step, whatever
 its format: the latest step, plus the ``top_k`` steps with the highest
 metric (every step while there are at most ``top_k``); a metric-less save
@@ -37,12 +42,21 @@ import torch
 
 from ..models import MODEL_REGISTRY
 from ..parallel import process_index
-from ..utils.convert import train_state_from_orbax
-from .orbax import is_orbax_step, read_orbax_metrics, read_orbax_step
+from ..utils.convert import train_state_from_orbax, train_state_to_orbax
+from .orbax import is_orbax_step, read_orbax_metrics, read_orbax_step, write_orbax_step
 
 METADATA_FILE = "hparams.json"
-STATE_FILE = "state.pt"
+STATE_FILE = "state.pt"  # a step of the port's earlier format
 METRICS_FILE = "metrics.json"
+
+
+def model_family(model: Any) -> str:
+    """The registry name (``mgfn``, ``rtfm``, ``sultani``) of a scorer's
+    class; ValueError for any other model."""
+    name = next((n for n, (_, cls) in MODEL_REGISTRY.items() if isinstance(model, cls)), None)
+    if name is None:
+        raise ValueError(f"{type(model).__name__} is not a scorer of {sorted(MODEL_REGISTRY)}")
+    return name
 
 
 class TopKCheckpointer:
@@ -80,24 +94,20 @@ class TopKCheckpointer:
             return json.load(f)
 
     def save(self, step: int, state: Any, metric: Optional[float] = None) -> Optional[str]:
-        """Save ``state`` (a ``TrainState``) as ``step`` in the port's
-        format; returns the step directory (None on ranks other than 0,
-        which write nothing). A step already on disk, of either format (a
-        run resumed from an earlier step), is replaced.
+        """Save ``state`` (a ``TrainState`` of a registered scorer) as
+        orbax step ``step``; returns the step directory (None on ranks
+        other than 0, which write nothing). A step already on disk, of
+        either format (a run resumed from an earlier step), is replaced.
         Every rank of a DP x TP run must call it: the state's slices are
         gathered."""
-        model_sd, optimizer_sd = state.state_dicts()
+        state_dicts = state.state_dicts()
         if process_index() != 0:
             return None
-        path = os.path.join(self.directory, str(step))
+        tree = train_state_to_orbax(state, model_family(state.model), state_dicts)
+        path = self._path(step)
         tmp = path + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save({"model": model_sd, "optimizer": optimizer_sd, "step": int(state.step)},
-                   os.path.join(tmp, STATE_FILE))
-        if metric is not None:
-            with open(os.path.join(tmp, METRICS_FILE), "w") as f:
-                json.dump({"metric": float(metric)}, f)
+        write_orbax_step(tmp, tree, metric)
         shutil.rmtree(path, ignore_errors=True)
         os.replace(tmp, path)
         self._prune()
@@ -181,11 +191,10 @@ class TopKCheckpointer:
                 "Export its weights with the JAX package's utils/convert.py "
                 "export_{mgfn,rtfm,sultani}_state_dict and pass them as --torch-weights"
             ) from exc
-        name = next((n for n, (_, cls) in MODEL_REGISTRY.items() if isinstance(state.model, cls)),
-                    None)
-        if name is None:
-            raise ValueError(f"orbax step {step}: {type(state.model).__name__} is not a scorer "
-                             f"of {sorted(MODEL_REGISTRY)}")
+        try:
+            name = model_family(state.model)
+        except ValueError as exc:
+            raise ValueError(f"orbax step {step}: {exc}") from None
         try:
             return train_state_from_orbax(tree, name, state)
         except (RuntimeError, ValueError, KeyError, TypeError) as exc:

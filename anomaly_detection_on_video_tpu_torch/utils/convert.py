@@ -650,6 +650,75 @@ def adam_state_dict_from_optax(opt_state: Any, batch_stats: Mapping, model_name:
     return {"state": state, "param_groups": param_groups}
 
 
+# --------------------------------------------- the port's train states -> orbax
+
+SCORERS_TO_FLAX = {"mgfn": mgfn_state_dict_to_flax, "rtfm": rtfm_state_dict_to_flax,
+                   "sultani": sultani_state_dict_to_flax}
+
+
+def adam_state_dict_to_optax(optimizer_sd: Mapping[str, Any], model_sd: Mapping[str, Any],
+                             model_name: str, param_names: list) -> list:
+    """``AdamWithL2.state_dict()`` -> the JAX package's ``adam_with_l2``
+    state, the inverse of ``adam_state_dict_from_optax``: the chain's three
+    slots ``[EmptyState, EmptyState, (ScaleByAdamState, EmptyState)]``,
+    each empty state None and the ``ScaleByAdamState`` a dict ``count``,
+    ``mu``, ``nu``. ``param_names`` name the optimizer's parameters in
+    the order it was given them (``model.named_parameters()``).
+
+    ``mu`` and ``nu`` are each parameter's ``exp_avg`` / ``exp_avg_sq``
+    through the family's ``*_state_dict_to_flax``; ``count`` is the
+    parameters' common ``step`` as an int32 scalar. An optimizer that has
+    not stepped yet gives zero moments and count 0 (what a fresh optax
+    state holds); parameters whose steps differ, or of which only some
+    have a state, raise ValueError."""
+    ids = [i for group in optimizer_sd["param_groups"] for i in group["params"]]
+    if len(ids) != len(param_names):
+        raise ValueError(f"the optimizer holds {len(ids)} parameters, the model "
+                         f"{len(param_names)}")
+    state = optimizer_sd["state"]
+    if not state:
+        zeros = {n: torch.zeros_like(torch.as_tensor(model_sd[n])) for n in param_names}
+        mu, nu, count = zeros, zeros, 0
+    else:
+        missing = [n for i, n in zip(ids, param_names) if i not in state]
+        if missing or any(not {"step", "exp_avg", "exp_avg_sq"} <= set(state[i]) for i in ids):
+            raise ValueError("only Adam states of every parameter convert to optax; no "
+                             f"moments for {missing or 'some parameters'}")
+        steps = {float(state[i]["step"]) for i in ids}
+        if len(steps) != 1:
+            raise ValueError(f"the parameters' Adam steps differ ({sorted(steps)}); optax "
+                             "keeps one count")
+        count = steps.pop()
+        mu = {n: state[i]["exp_avg"] for i, n in zip(ids, param_names)}
+        nu = {n: state[i]["exp_avg_sq"] for i, n in zip(ids, param_names)}
+    convert = SCORERS_TO_FLAX[model_name]
+    adam = {"count": np.asarray(count, np.int32), "mu": convert(mu)["params"],
+            "nu": convert(nu)["params"]}
+    return [None, None, [adam, None]]
+
+
+def train_state_to_orbax(state: Any, model_name: str,
+                         state_dicts: Optional[Tuple[dict, dict]] = None) -> Dict[str, Any]:
+    """The port's ``TrainState`` of family ``model_name`` as the tree the
+    JAX package's checkpointer saves, the inverse of
+    ``train_state_from_orbax``: ``params`` and ``batch_stats`` (``{}`` for
+    a family without BatchNorm; a BatchNorm's ``num_batches_tracked`` has
+    no counterpart) through ``*_state_dict_to_flax``, ``opt_state``
+    through ``adam_state_dict_to_optax``, ``step`` an int32 scalar; numpy
+    arrays in the state's own dtypes. ``state_dicts`` are the state's
+    ``state_dicts()`` where the caller has them (a DP x TP state gathers
+    them collectively)."""
+    if model_name not in SCORERS_TO_FLAX:
+        raise ValueError(f"unknown model {model_name!r}; orbax steps convert for "
+                         f"{sorted(SCORERS_TO_FLAX)}")
+    model_sd, optimizer_sd = state_dicts or state.state_dicts()
+    variables = SCORERS_TO_FLAX[model_name](model_sd)
+    names = [n for n, _ in state.model.named_parameters()]
+    return {"params": variables["params"], "batch_stats": variables.get("batch_stats", {}),
+            "opt_state": adam_state_dict_to_optax(optimizer_sd, model_sd, model_name, names),
+            "step": np.asarray(int(state.step), np.int32)}
+
+
 def _float32_leaves(tree: Any) -> Any:
     """``tree`` with its bfloat16 leaves (torch tensors: numpy has no
     bfloat16) as float32 numpy arrays, exactly, as orbax restores a

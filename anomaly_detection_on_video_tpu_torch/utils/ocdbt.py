@@ -1,8 +1,9 @@
-"""A read-only OCDBT key-value store (tensorstore's "optionally-cooperative
-distributed b-tree", the store under the JAX package's orbax checkpoints).
+"""The OCDBT key-value store (tensorstore's "optionally-cooperative
+distributed b-tree", the store under the JAX package's orbax checkpoints),
+read and written.
 
-It reads the on-disk format that tensorstore documents ("OCDBT on-disk
-format"), with no tensorstore:
+It reads and writes the on-disk format that tensorstore documents ("OCDBT
+on-disk format"), with no tensorstore:
 
 - ``manifest.ocdbt`` at the database's root holds the config and the
   version tree: the newest versions inline, older ones in version tree
@@ -23,13 +24,15 @@ format"), with no tensorstore:
 
 ``OcdbtStore(path).list()`` returns the sorted keys of the newest version
 and ``read(key)`` a value's bytes. Only the single-file manifest kind
-(tensorstore's default, the one orbax writes) is read.
+(tensorstore's default, the one orbax writes) is read. ``OcdbtWriter``
+writes a new database of one version in that kind, its b-tree one leaf.
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import time
 from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple, Union
 
 from . import zstd
@@ -38,6 +41,11 @@ MANIFEST_MAGIC = 0x0CDB3A2A
 BTREE_MAGIC = 0x0CDB20DE
 VERSION_TREE_MAGIC = 0x0CDB1234
 MANIFEST_FILE = "manifest.ocdbt"
+# the writer's config: orbax's (tensorstore's defaults)
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
+ZSTD_LEVEL = 0  # the library's default level
 _MISSING = 2**64 - 1  # the offset and length of an empty tree's root
 
 
@@ -365,3 +373,165 @@ class OcdbtStore:
         if loc is None:
             return value
         return self._read(loc.path, loc.offset, loc.length)
+
+
+# ---------------------------------------------------------------- writing
+
+def _varint(value: int) -> bytes:
+    if value < 0:
+        raise ValueError(f"ocdbt: a varint of {value}")
+    out = bytearray()
+    while True:
+        byte = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(byte | 0x80)
+        else:
+            out.append(byte)
+            return bytes(out)
+
+
+def _varints(values) -> bytes:
+    return b"".join(_varint(v) for v in values)
+
+
+def _common_prefix(a: bytes, b: bytes) -> int:
+    n = min(len(a), len(b))
+    i = 0
+    while i < n and a[i] == b[i]:
+        i += 1
+    return i
+
+
+def encode_file(body: bytes, magic: int) -> bytes:
+    """One manifest or node file around ``body``: ``magic | length |
+    version 0 | compression 1 | zstd(body) | crc32c``."""
+    body = zstd.compress(body, ZSTD_LEVEL)
+    head = _varint(0) + _varint(1)
+    length = 12 + len(head) + len(body) + 4
+    data = struct.pack(">I", magic) + struct.pack("<Q", length) + head + body
+    return data + struct.pack("<I", crc32c(data))
+
+
+def _encode_data_file_table(paths: List[str]) -> bytes:
+    """A table of ``paths`` (each its own base: base path length 0)."""
+    raw = [p.encode() for p in paths]
+    prefix = [_common_prefix(a, b) for a, b in zip(raw, raw[1:])]
+    suffix = [p[c:] for p, c in zip(raw, [0] + prefix)]
+    return (_varint(len(raw)) + _varints(prefix) + _varints(len(s) for s in suffix)
+            + _varints(0 for _ in raw) + b"".join(suffix))
+
+
+def _encode_keys(keys: List[bytes]) -> bytes:
+    """A leaf's keys, each stored without its prefix shared with the one before."""
+    prefix = [_common_prefix(a, b) for a, b in zip(keys, keys[1:])]
+    suffix = [k[c:] for k, c in zip(keys, [0] + prefix)]
+    return (_varint(len(keys)) + _varints(prefix) + _varints(len(s) for s in suffix)
+            + b"".join(suffix))
+
+
+class OcdbtWriter:
+    """Writes one OCDBT database, generation 1, at ``path`` (a directory
+    that must not hold a database yet), readable by ``OcdbtStore`` and by
+    tensorstore's ``ocdbt`` driver, in the config of the JAX package's
+    orbax checkpoints (``MAX_INLINE_VALUE_BYTES``,
+    ``MAX_DECODED_NODE_BYTES``).
+
+    ``put(key, value)`` stores a value: one of at most
+    ``MAX_INLINE_VALUE_BYTES`` bytes stays inline in the leaf node, a
+    longer one is appended raw to the database's one data file
+    (``d/<32 hex digits>``) at once. ``close()`` writes the b-tree, one
+    leaf node, into the same data file (a leaf past
+    ``MAX_DECODED_NODE_BYTES`` raises: an orbax step of the port's models
+    has about a thousand keys) and then ``manifest.ocdbt``: the config (a
+    fresh uuid, zstd nodes) and the one version. As a context manager it
+    closes on leaving the block, and on an exception only closes its data
+    file (no manifest: no database)."""
+
+    def __init__(self, path: str):
+        self.path = os.path.abspath(path)
+        if os.path.exists(os.path.join(self.path, MANIFEST_FILE)):
+            raise FileExistsError(f"ocdbt: {self.path} already holds a database")
+        os.makedirs(os.path.join(self.path, "d"), exist_ok=True)
+        self.data_file = "d/" + os.urandom(16).hex()
+        self._file = open(os.path.join(self.path, self.data_file), "wb")
+        self._offset = 0
+        # key -> (inline value, None) or (None, (offset, length))
+        self._entries: Dict[bytes, Tuple[Optional[bytes], Optional[Tuple[int, int]]]] = {}
+
+    def __enter__(self) -> "OcdbtWriter":
+        return self
+
+    def __exit__(self, kind, *_) -> None:
+        if kind is None:
+            self.close()
+        else:
+            self._file.close()
+
+    def put(self, key: Union[str, bytes], value) -> None:
+        """Store ``value`` (any C-contiguous buffer) under ``key``."""
+        if isinstance(key, str):
+            key = key.encode()
+        if key in self._entries:
+            raise KeyError(f"ocdbt: key {key!r} is written twice")
+        view = memoryview(value).cast("B")
+        if len(view) <= MAX_INLINE_VALUE_BYTES:
+            self._entries[key] = (bytes(view), None)
+            return
+        self._file.write(view)
+        self._entries[key] = (None, (self._offset, len(view)))
+        self._offset += len(view)
+
+    def _leaf(self) -> Tuple[int, int, int]:
+        """Append the one leaf node of every entry: (its offset, its
+        length, the bytes its values hold in the data file)."""
+        keys = sorted(self._entries)
+        values = [self._entries[k] for k in keys]
+        indirect = [ref for _, ref in values if ref is not None]
+        table = [self.data_file] if indirect else []
+        body = (b"\x00" + _encode_data_file_table(table) + _encode_keys(keys)
+                + _varints(len(v) if v is not None else ref[1] for v, ref in values)
+                + _varints(0 if v is not None else 1 for v, _ in values)
+                + _varints(0 for _ in indirect) + _varints(o for o, _ in indirect)
+                + b"".join(v for v, _ in values if v is not None))
+        if len(body) > MAX_DECODED_NODE_BYTES:
+            raise ValueError(f"ocdbt: a leaf of {len(body)} bytes passes the limit of "
+                             f"{MAX_DECODED_NODE_BYTES} (the writer writes no interior node)")
+        node = encode_file(body, BTREE_MAGIC)
+        offset = self._offset
+        self._file.write(node)
+        self._offset += len(node)
+        return offset, len(node), sum(n for _, n in indirect)
+
+    def close(self) -> Version:
+        """Write the b-tree and the manifest; returns the version written."""
+        try:
+            root = self._leaf() if self._entries else None
+        finally:
+            self._file.close()
+        commit_time = time.time_ns()
+        if root is None:
+            os.remove(os.path.join(self.path, self.data_file))
+            # as tensorstore writes an empty tree: file 0 of the table is ""
+            table, location, stats = [""], (0, _MISSING, _MISSING), (0, 0, 0)
+        else:
+            table = [self.data_file]
+            offset, length, indirect_bytes = root
+            location = (0, offset, length)
+            stats = (len(self._entries), length, indirect_bytes)
+        body = (os.urandom(16) + _varint(0) + _varint(MAX_INLINE_VALUE_BYTES)
+                + _varint(MAX_DECODED_NODE_BYTES)
+                + bytes([VERSION_TREE_ARITY_LOG2]) + _varint(1) + struct.pack("<i", ZSTD_LEVEL)
+                + _encode_data_file_table(table)
+                + _varint(1) + _varint(1) + bytes([0]) + _varints(location)
+                + _varints(stats) + struct.pack("<Q", commit_time)
+                + _varint(0))
+        manifest = encode_file(body, MANIFEST_MAGIC)
+        tmp = os.path.join(self.path, MANIFEST_FILE + ".tmp")
+        with open(tmp, "wb") as f:
+            f.write(manifest)
+        os.replace(tmp, os.path.join(self.path, MANIFEST_FILE))
+        loc = None if root is None else Location(self.data_file, "", *location[1:])
+        self.version = Version(1, 0, loc, stats[0], commit_time)
+        return self.version
+

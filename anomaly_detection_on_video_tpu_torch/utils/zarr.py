@@ -1,5 +1,6 @@
-"""zarr v2 arrays read from a key-value store (the array layout of the JAX
-package's orbax checkpoints, one array per parameter in an OCDBT store).
+"""zarr v2 arrays read from and written to a key-value store (the array
+layout of the JAX package's orbax checkpoints, one array per parameter in
+an OCDBT store).
 
 An array ``name`` is ``<name>/.zarray`` (JSON: shape, chunks, dtype,
 compressor, fill_value, order, dimension_separator) and one value per
@@ -13,6 +14,13 @@ order ``C`` (``F`` raises); any little-endian or byte-sized numpy dtype
 (``<f4 <f8 <i4 <i8 <u4 |b1 |u1`` ...) and ``bfloat16``, which has no numpy
 dtype and comes back as a ``torch.bfloat16`` tensor (every other dtype as
 a numpy array).
+
+Write (``encode_array``, the inverse of ``read_array``): the (key, value)
+pairs that orbax writes for an array of one device, one chunk the
+array's whole shape (key ``0``, ``0.0``, ... ; ``0`` for a 0-d array),
+zstd at level 1, ``fill_value`` null, the ``.zarray`` keys sorted with no
+spaces; the same dtypes, little-endian (a ``torch.bfloat16`` tensor as
+``bfloat16``).
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
-from typing import Any, Callable, Dict, Iterable, Union
+from typing import Any, Callable, Dict, Iterable, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -100,3 +108,35 @@ def read_array(read: Callable[[str], bytes], keys: Iterable[str], name: str
     if bf16:
         return torch.from_numpy(out.view(np.int16)).view(torch.bfloat16)
     return out
+
+
+ORBAX_COMPRESSOR = {"id": "zstd", "level": 1}
+
+
+def _storage(array: Union[np.ndarray, torch.Tensor]):
+    """(zarr dtype name, little-endian C-contiguous numpy array of the
+    stored bytes) of an array or tensor."""
+    if isinstance(array, torch.Tensor):
+        array = array.detach().cpu()
+        if array.dtype == torch.bfloat16:
+            return "bfloat16", np.asarray(array.view(torch.int16).numpy(), order="C").view("<u2")
+        array = array.numpy()
+    array = np.asarray(array)
+    dtype = array.dtype.newbyteorder("<") if array.dtype.byteorder == ">" else array.dtype
+    storage_dtype(dtype.str)
+    return dtype.str, np.asarray(array, dtype, order="C")  # 0-d stays 0-d
+
+
+def encode_array(name: str, array: Union[np.ndarray, torch.Tensor]) -> List[Tuple[str, bytes]]:
+    """The (key, value) pairs of the zarr v2 array ``name`` holding
+    ``array`` (numpy, or a CPU or device tensor): its ``.zarray`` and its
+    one compressed chunk."""
+    dtype, data = _storage(array)
+    shape = list(data.shape)
+    meta = {"chunks": shape, "compressor": ORBAX_COMPRESSOR, "dimension_separator": ".",
+            "dtype": dtype, "fill_value": None, "filters": None, "order": "C", "shape": shape,
+            "zarr_format": 2}
+    chunk = ".".join("0" for _ in shape) or "0"
+    return [(f"{name}/.zarray", json.dumps(meta, sort_keys=True, separators=(",", ":")).encode()),
+            (f"{name}/{chunk}", zstd.compress(data, ORBAX_COMPRESSOR["level"]))]
+

@@ -1,24 +1,29 @@
-"""Zstandard decompression through the system's ``libzstd.so.1``.
+"""Zstandard compression and decompression through the system's
+``libzstd.so.1``.
 
 The JAX package's orbax checkpoints compress their b-tree nodes, manifests
-and array chunks with zstd (``training/orbax.py`` reads them). The port
-binds the C library with ``ctypes`` the first time a frame is
-decompressed, and uses no Python zstd package:
+and array chunks with zstd (``training/orbax.py`` reads and writes them).
+The port binds the C library with ``ctypes`` the first time a frame is
+made or read, and uses no Python zstd package:
 
+- ``compress`` writes one frame with ``ZSTD_compress`` into a buffer of
+  ``ZSTD_compressBound`` bytes; the frame records its content size;
 - a frame that records its content size goes through ``ZSTD_decompress``
   into a buffer of exactly that size;
 - a frame that does not (a streaming writer's) goes through the streaming
   API (``ZSTD_decompressStream``), one output block at a time.
 
-Where the library is missing, ``decompress`` raises ``OSError`` naming it;
-there is no second route.
+Where the library is missing, both raise ``OSError`` naming it; there is
+no second route.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import Optional, Union
+
+import numpy as np
 
 LIBRARY = "libzstd.so.1"
 MAGIC = b"\x28\xb5\x2f\xfd"
@@ -46,8 +51,8 @@ def library() -> ctypes.CDLL:
                 lib = ctypes.CDLL(LIBRARY)
             except OSError:
                 raise OSError(f"zstd: the system library {LIBRARY} is not installed; "
-                              "reading orbax checkpoints needs it (Debian/Ubuntu package "
-                              "libzstd1)") from None
+                              "reading and writing orbax checkpoints need it (Debian/Ubuntu "
+                              "package libzstd1)") from None
             size_t, void_p = ctypes.c_size_t, ctypes.c_void_p
             lib.ZSTD_getFrameContentSize.argtypes = [void_p, size_t]
             lib.ZSTD_getFrameContentSize.restype = ctypes.c_ulonglong
@@ -68,6 +73,10 @@ def library() -> ctypes.CDLL:
             lib.ZSTD_decompressStream.argtypes = [void_p, ctypes.POINTER(_OutBuffer),
                                                   ctypes.POINTER(_InBuffer)]
             lib.ZSTD_decompressStream.restype = size_t
+            lib.ZSTD_compressBound.argtypes = [size_t]
+            lib.ZSTD_compressBound.restype = size_t
+            lib.ZSTD_compress.argtypes = [void_p, size_t, void_p, size_t, ctypes.c_int]
+            lib.ZSTD_compress.restype = size_t
             _lib = lib
         return _lib
 
@@ -76,6 +85,21 @@ def _check(lib: ctypes.CDLL, code: int) -> int:
     if lib.ZSTD_isError(code):
         raise ValueError(f"zstd: {lib.ZSTD_getErrorName(code).decode()}")
     return code
+
+
+def compress(data: Union[bytes, bytearray, memoryview, np.ndarray], level: int = 3) -> bytes:
+    """One zstd frame holding ``data`` (any C-contiguous buffer, read in
+    place), compressed at ``level`` (0: the library's default, 3). The
+    frame records its content size, as ``zstandard``'s do by default."""
+    lib = library()
+    src = np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray) else data
+    if not src.flags.c_contiguous:
+        raise ValueError("zstd: compress takes a C-contiguous buffer")
+    size = src.nbytes
+    out = np.empty(max(int(lib.ZSTD_compressBound(size)), 1), np.uint8)
+    n = _check(lib, lib.ZSTD_compress(out.ctypes.data, out.size, src.ctypes.data if size else None,
+                                      size, int(level)))
+    return out[:n].tobytes()
 
 
 def decompress(frame: bytes) -> bytes:

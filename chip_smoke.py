@@ -248,7 +248,8 @@ Phases, each of which raises on failure (exit code != 0):
    ``extract_features`` process, AUC >= 0.7 (the script's own gate), the
    export's ``manifest.json``; then at once (their gates are outcomes, not
    times): (c) ``convert_checkpoint`` round trips of phase 8's MGFN
-   ``state.pt`` (``mgfn-hf``) and phase 10's ``i3res50.pt`` (``i3d``) to
+   weights (``mgfn-hf``, its orbax step restored and saved as a ``.pt``)
+   and phase 10's ``i3res50.pt`` (``i3d``) to
    ``.msgpack`` and back, every tensor bit-equal (``num_batches_tracked``
    back as 0), and ``infer.load_i3d_weights`` of the ``.msgpack`` equal to
    the ``.pt``, then (b) ``infer`` on four ``int8_e2e`` corpus videos saved
@@ -306,10 +307,27 @@ Phases, each of which raises on failure (exit code != 0):
    dict bit-equal to that file, with the read's time; (c) ``run
    trainer.resume=true`` on the copy for two more epochs with TF32 off:
    ``resumed from step 4``, the JAX resumed run's steps, its losses within
-   1e-4 relative (the largest gap printed), both orbax steps kept beside
+   1e-4 relative (the largest gap printed), both JAX steps kept beside
    the port's new ones; (d) ``eval_only`` of orbax step 4 twice: equal
    AUCs in [0, 1], within 1e-4 of the JAX run's eval of that step. The
    committed fixture's bytes are checked unchanged at the end.
+20. a run trained on the card, written as orbax by the port's
+   ``TopKCheckpointer.save``: (a) ``run runner=mgfn`` at full width
+   (the default ``MGFNConfig``) for 2 epochs on phase 8's bags with
+   ``save_top_k`` 2: every step directory orbax, none holding
+   ``state.pt``; the last step through ``read_orbax_step`` +
+   ``train_state_from_orbax`` bit-equal to the live state recorded at
+   its save (weights, Adam moments, step); each save's host ms and bytes
+   on disk beside ``torch.save`` of the same payload, with the card's
+   name and power limit; (b) ``python -m ...infer --checkpoint <that
+   directory>`` on phase 18's MJPG with phase 10's weights as a process,
+   K1 / K2 / K3 1 / 1 / 3, its score JSON equal to ``--torch-weights`` of
+   the restored scorer's state dict but ``latency_s``; (c) ``run
+   trainer.resume=true`` on a copy for 2 more epochs: ``resumed from step
+   <last>``, later steps, only orbax steps, those the JAX policy keeps
+   (the latest and the top 2 by metric); (d) after phase 19 (c), the JAX
+   run's directory holds steps 2, 4, 6 and 8, all orbax and none with
+   ``state.pt``, and steps 2 and 4 keep their bytes.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -3977,11 +3995,12 @@ def check_conversions(root: str, checkpoint: str, weights: str) -> None:
     import torch
 
     from anomaly_detection_on_video_tpu_torch.infer import load_i3d_weights
-    from anomaly_detection_on_video_tpu_torch.training.checkpoints import STATE_FILE, TopKCheckpointer
+    from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
 
     step = TopKCheckpointer(checkpoint).latest_step()
-    state = os.path.join(checkpoint, str(step), STATE_FILE)
-    chains = {"mgfn-hf": (state, torch.load(state, map_location="cpu", weights_only=True)["model"]),
+    state = os.path.join(root, "mgfn_checkpoint.pt")  # the weights of the run's orbax step
+    torch.save(checkpoint_weights(checkpoint, step), state)
+    chains = {"mgfn-hf": (state, torch.load(state, map_location="cpu", weights_only=True)),
               "i3d": (weights, torch.load(weights, map_location="cpu", weights_only=True))}
     results, errors = {}, []
 
@@ -4006,8 +4025,8 @@ def check_conversions(root: str, checkpoint: str, weights: str) -> None:
         if not key.endswith("num_batches_tracked") and not torch.equal(loaded[key],
                                                                        value.detach().cpu()):
             raise AssertionError(f"load_i3d_weights(.msgpack): {key} differs from the .pt")
-    print(f"phase 16 (c) convert_checkpoint round trips, bit-equal: mgfn-hf (phase 8's step-{step} "
-          f"state.pt) {results['mgfn-hf'][1]} tensors, i3d (phase 10's i3res50.pt, "
+    print(f"phase 16 (c) convert_checkpoint round trips, bit-equal: mgfn-hf (phase 8's orbax "
+          f"step {step}, restored) {results['mgfn-hf'][1]} tensors, i3d (phase 10's i3res50.pt, "
           f"{os.path.getsize(results['i3d'][0]) / 1e6:.1f} MB .msgpack) {results['i3d'][1]} "
           f"tensors; num_batches_tracked back as 0; load_i3d_weights(.msgpack) equals the .pt; "
           f"wall {wall:.1f} s for both chains at once (four processes)", flush=True)
@@ -4286,8 +4305,6 @@ def check_parity(torch, root: str, weights: str, checkpoint: str) -> None:
 
     from anomaly_detection_on_video_tpu_torch.ops import kernels
     from anomaly_detection_on_video_tpu_torch.scripts import parity_check
-    from anomaly_detection_on_video_tpu_torch.training.checkpoints import STATE_FILE, TopKCheckpointer
-
     start = time.perf_counter()
     videos = os.path.join(root, "parity_videos")
     os.makedirs(videos)
@@ -4295,10 +4312,8 @@ def check_parity(torch, root: str, weights: str, checkpoint: str) -> None:
     for name in ("Abuse031_x264.avi", "Normal_Videos_016_x264.avi"):
         write_mjpg(os.path.join(videos, name),
                    gen.integers(0, 256, (32, 240, 320, 3), dtype=np.uint8))
-    step = TopKCheckpointer(checkpoint).latest_step()
     mgfn = os.path.join(root, "mgfn_hf.pt")
-    torch.save(torch.load(os.path.join(checkpoint, str(step), STATE_FILE), map_location="cpu",
-                          weights_only=True)["model"], mgfn)
+    torch.save(checkpoint_weights(checkpoint), mgfn)
     data = os.path.join(root, "data")
     reports = {}
     for dtype, bound in PARITY_BOUNDS.items():
@@ -4603,8 +4618,7 @@ def check_fit_figures(torch, root: str) -> None:
                             if k not in ("time", "epoch_time_s")} for line in f]
             ckpt = overrides["trainer.checkpoint.dirpath"]
             steps = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
-            runs[tag] = (records, steps, [torch.load(os.path.join(ckpt, str(s), "state.pt"),
-                                                     map_location="cpu")["model"] for s in steps])
+            runs[tag] = (records, steps, [checkpoint_weights(ckpt, s) for s in steps])
     finally:
         torch.backends.cudnn.deterministic = deterministic
     warnings = [line for line in printed["fig"].splitlines()
@@ -4762,8 +4776,7 @@ def check_orbax_resume(torch, work: str, copy: str) -> None:
     gaps = [abs(g["train_loss"] - w["train_loss"]) / abs(w["train_loss"])
             for g, w in zip(records, want) if "train_loss" in w]
     steps = sorted(os.listdir(copy))
-    kept = [s for s in ("2", "4") if is_orbax_step(os.path.join(copy, s))
-            and not os.path.exists(os.path.join(copy, s, "state.pt"))]
+    kept = [s for s in ("2", "4") if is_orbax_step(os.path.join(copy, s))]
     if (f"resumed from step {ref['restored_step']}" not in printed
             or [r["step"] for r in records] != [r["step"] for r in want]
             or len(gaps) != 4 or max(gaps) > 1e-4 or kept != ["2", "4"]
@@ -4776,7 +4789,7 @@ def check_orbax_resume(torch, work: str, copy: str) -> None:
           f"resumed from step {ref['restored_step']}, steps {[r['step'] for r in records]}, "
           f"losses {[r['train_loss'] for r in records if 'train_loss' in r]}, largest relative "
           f"gap to the JAX resumed run {max(gaps):.3e} (gate 1e-4), AUCs {aucs}; the "
-          f"directory {steps} keeps orbax steps {kept}", flush=True)
+          f"directory {steps} keeps the JAX steps {kept}", flush=True)
 
     lines = []
     for _ in range(2):
@@ -4808,9 +4821,226 @@ def check_orbax(torch, root: str, weights: str, video) -> None:
     shutil.copytree(os.path.join(fixture, "run"), copy)
     check_orbax_infer(torch, work, copy, weights, video)
     check_orbax_resume(torch, work, copy)
+    check_jax_dir_steps(fixture, copy)
     if tree_digest(fixture) != before:
         raise AssertionError(f"phase 19 changed the committed fixture {fixture}")
     print(f"orbax phase (19): {time.perf_counter() - start:.1f} s; the fixture's bytes unchanged",
+          flush=True)
+
+
+# ------------------------- phase 20: a run trained on the card, written as orbax
+
+
+def checkpoint_weights(checkpoint: str, step="latest") -> dict:
+    """The model state dict of a ``run`` directory's step, restored on the
+    CPU through ``infer.build_scorer`` (the checkpointer's restore, either
+    format)."""
+    from anomaly_detection_on_video_tpu_torch import infer
+
+    args = argparse.Namespace(model=None, model_config=None, checkpoint=checkpoint,
+                              torch_weights=None, official=False, i3d_weights=None,
+                              checkpoint_step=str(step), device="cpu")
+    scorer, _ = infer.build_scorer(args)
+    return scorer.state_dict()
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+@contextlib.contextmanager
+def recorded_saves(torch):
+    """Every ``TopKCheckpointer.save`` in the block recorded: the live
+    state dicts and step copied to the host before the save (the state the
+    save was given), the save's host ms, and ``torch.save`` of the same
+    payload (the live state dicts, as the earlier port saved them) timed
+    right after it into a scratch file, with both sizes on disk."""
+    from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
+
+    original, saves = TopKCheckpointer.save, []
+
+    def save(self, step, state, metric=None):
+        model_sd, optimizer_sd = state.state_dicts()
+        live = ({k: v.detach().cpu().clone() for k, v in model_sd.items()},
+                {i: {k: v.detach().cpu().clone() for k, v in moments.items()}
+                 for i, moments in optimizer_sd["state"].items()}, int(state.step))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = original(self, step, state, metric)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        scratch = os.path.join(self.directory + ".torch_save", f"{step}.pt")
+        os.makedirs(os.path.dirname(scratch), exist_ok=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.save({"model": model_sd, "optimizer": optimizer_sd, "step": int(state.step)},
+                   scratch)
+        torch_ms = (time.perf_counter() - t0) * 1e3
+        saves.append({"step": step, "metric": metric, "live": live, "save_ms": save_ms,
+                      "torch_save_ms": torch_ms, "bytes": dir_bytes(path),
+                      "torch_save_bytes": os.path.getsize(scratch)})
+        os.remove(scratch)
+        return path
+
+    TopKCheckpointer.save = save
+    try:
+        yield saves
+    finally:
+        TopKCheckpointer.save = original
+
+
+def policy_steps(saves: list, top_k: int) -> list:
+    """The steps the JAX checkpointer's orbax policy keeps after ``saves``
+    (in order): the latest, and the ``top_k`` best by metric (ties to the
+    newer); a step saved twice counts once, as its last save."""
+    last = {}
+    for record in saves:
+        last[record["step"]] = record["metric"]
+    steps = sorted(last)
+    ranked = sorted((m, s) for s, m in last.items() if m is not None)
+    return sorted({steps[-1]} | {s for _, s in ranked[-top_k:]})
+
+
+def check_written_steps(torch, ckpt: str, saves: list) -> None:
+    """Phase 20 (a)'s gates on a directory the port's ``run`` wrote: every
+    step orbax and no ``state.pt``; the last step, read by
+    ``read_orbax_step`` and loaded by ``train_state_from_orbax``, bit-equal
+    to the live state recorded at its save."""
+    from anomaly_detection_on_video_tpu_torch.models import MGFN
+    from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
+    from anomaly_detection_on_video_tpu_torch.training.optim import adam_with_l2
+    from anomaly_detection_on_video_tpu_torch.training.orbax import is_orbax_step, read_orbax_step
+    from anomaly_detection_on_video_tpu_torch.training.runner import TrainState
+    from anomaly_detection_on_video_tpu_torch.utils.convert import train_state_from_orbax
+
+    steps = TopKCheckpointer(ckpt).all_steps()
+    for s in steps:
+        path = os.path.join(ckpt, str(s))
+        if not is_orbax_step(path) or any("state.pt" in files for _, _, files in os.walk(path)):
+            raise AssertionError(f"phase 20: step {s} of {ckpt} is not an orbax step: "
+                                 f"{os.listdir(path)}")
+    model_sd, moments, step = next(r["live"] for r in reversed(saves) if r["step"] == steps[-1])
+    model = MGFN()
+    state = train_state_from_orbax(read_orbax_step(os.path.join(ckpt, str(steps[-1]))), "mgfn",
+                                   TrainState(model, adam_with_l2(model.parameters())))
+    got_sd, got_opt = state.state_dicts()
+    unequal = [k for k, v in model_sd.items() if not k.endswith("num_batches_tracked")
+               and not (got_sd[k].dtype == v.dtype and torch.equal(got_sd[k], v))]
+    unequal += [f"{i}.{k}" for i, m in moments.items() for k, v in m.items()
+                if not torch.equal(got_opt["state"][i][k], v)]
+    if state.step != step or sorted(got_sd) != sorted(model_sd) or unequal or sorted(
+            got_opt["state"]) != sorted(moments):
+        raise AssertionError(f"phase 20: step {steps[-1]} restored unequal to the live state: "
+                             f"step {state.step} / {step}, {unequal[:10]}")
+
+
+def print_saves(part: str, saves: list) -> None:
+    """One line for each save ``recorded_saves`` timed: the orbax save's
+    host ms and bytes beside ``torch.save``'s of the same payload."""
+    for r in saves:
+        print(f"phase 20 {part} save of step {r['step']}: host {r['save_ms']:.1f} ms, "
+              f"{r['bytes']} bytes on disk (orbax); torch.save of the same payload "
+              f"{r['torch_save_ms']:.1f} ms, {r['torch_save_bytes']} bytes; card {smi_line()}",
+              flush=True)
+
+
+def check_orbax_written(torch, root: str, weights: str, video) -> None:
+    """Phase 20: a full-width MGFN run trained on the card, its steps
+    written as orbax by the port, served and resumed."""
+    from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
+
+    start = time.perf_counter()
+    work = os.path.join(root, "orbax_written")
+    os.makedirs(work)
+    top_k = 2
+    overrides = dict(training_overrides(root, "mgfn", "orbax_written"),
+                     **{"trainer.max_epochs": 2, "trainer.max_steps": -1,
+                        "trainer.eval_every": 1, "trainer.checkpoint.save_top_k": top_k})
+    ckpt = overrides["trainer.checkpoint.dirpath"]
+    with recorded_saves(torch) as saves:
+        run_training(overrides, "mgfn")
+    check_written_steps(torch, ckpt, saves)
+    steps = TopKCheckpointer(ckpt).all_steps()
+    params = sum(v.numel() for v in saves[-1]["live"][0].values())
+    print(f"phase 20 (a) run runner=mgfn at full width ({params} values in the model's state "
+          f"dict), 2 epochs: orbax steps {steps}, no state.pt; the last step through "
+          f"read_orbax_step + train_state_from_orbax bit-equal to the live state (weights, "
+          f"exp_avg, exp_avg_sq, step; num_batches_tracked has no orbax counterpart)", flush=True)
+    print_saves("(a)", saves)
+
+    # (b) the written run served by infer --checkpoint, against --torch-weights
+    pt = os.path.join(work, "restored_mgfn.pt")
+    torch.save(checkpoint_weights(ckpt), pt)
+    vids = os.path.join(work, "videos")
+    os.makedirs(vids)
+    write_mjpg(os.path.join(vids, f"{FIGURE_STEM}.avi"), video)
+    common = ["--videos", vids, "--i3d-weights", weights]
+    out = {tag: os.path.join(work, tag) for tag in ("checkpoint", "weights")}
+    runs = {"checkpoint": start_infer(work, "checkpoint", common + [
+                "--checkpoint", ckpt, "--outdir", out["checkpoint"]], False),
+            "weights": start_infer(work, "weights", common + [
+                "--torch-weights", pt, "--model", "mgfn", "--outdir", out["weights"]], False)}
+    results = {tag: finish_infer(*run) for tag, run in runs.items()}
+    want = {"ten_crop_standardize": 1, "stem_conv_pool": 1, "bottleneck_block": 3}
+    for tag, (code, output, launches) in results.items():
+        if code != 0 or any(launches.get(k, 0) != n for k, n in want.items()):
+            raise AssertionError(f"phase 20 (b) infer {tag}: exit {code}, launches {launches}, "
+                                 f"expected {want}: {output[-3000:]}")
+    name = f"{FIGURE_STEM}_scores.json"
+    got, ref = (json.load(open(os.path.join(out[tag], name))) for tag in ("checkpoint", "weights"))
+    if {k: v for k, v in got.items() if k != "latency_s"} != {
+            k: v for k, v in ref.items() if k != "latency_s"}:
+        raise AssertionError(f"phase 20 (b): infer --checkpoint differs from --torch-weights: "
+                             f"{got} / {ref}")
+    print(f"phase 20 (b) infer --checkpoint <the port-written run> over a 64-frame MJPG video: "
+          f"exit 0, K1 / K2 / K3 {results['checkpoint'][2].get('ten_crop_standardize')} / "
+          f"{results['checkpoint'][2].get('stem_conv_pool')} / "
+          f"{results['checkpoint'][2].get('bottleneck_block')}, {got['n_clips']} clip scores "
+          f"{got['clip_scores']} equal to --torch-weights of the restored scorer's state dict "
+          f"but latency_s", flush=True)
+
+    # (c) a copy of the written run resumed for two more epochs
+    copy_dir = ckpt + "_resumed"
+    shutil.copytree(ckpt, copy_dir)
+    resume = dict(overrides, **{"trainer.max_epochs": 4, "trainer.resume": True,
+                                "trainer.checkpoint.dirpath": copy_dir,
+                                "trainer.log_path": os.path.join(work, "resumed.jsonl")})
+    with recorded_saves(torch) as resumed_saves:
+        printed = run_training(resume, "mgfn")
+    with open(resume["trainer.log_path"]) as f:
+        records = [json.loads(line) for line in f]
+    check_written_steps(torch, copy_dir, resumed_saves)
+    got_steps = TopKCheckpointer(copy_dir).all_steps()
+    want_steps = policy_steps(saves + resumed_saves, top_k)
+    losses = [r["train_loss"] for r in records if "train_loss" in r]
+    if (f"resumed from step {steps[-1]}" not in printed or not records
+            or min(r["step"] for r in records) < steps[-1] or got_steps != want_steps
+            or not all(r["step"] > steps[-1] for r in resumed_saves)
+            or not losses or not all(l == l for l in losses)):
+        raise AssertionError(f"phase 20 (c): saves {[r['step'] for r in resumed_saves]}, "
+                             f"steps {got_steps} (policy {want_steps}), records "
+                             f"{[r['step'] for r in records]}: {printed[-3000:]}")
+    print(f"phase 20 (c) run trainer.resume=true on a copy, 2 more epochs: resumed from step "
+          f"{steps[-1]}, saves at {[r['step'] for r in resumed_saves]}, losses {losses}; orbax "
+          f"steps kept {got_steps} (the JAX policy, top {top_k} by metric + latest: "
+          f"{want_steps}); phase 20 (a)-(c) {time.perf_counter() - start:.1f} s", flush=True)
+    print_saves("(c)", resumed_saves)
+
+
+def check_jax_dir_steps(fixture: str, copy: str) -> None:
+    """Phase 20 (d): after phase 19 (c)'s port resume in the JAX run's
+    directory, every step is orbax (the port's 6 and 8 too) and the JAX
+    steps 2 and 4 keep their bytes."""
+    from anomaly_detection_on_video_tpu_torch.training.orbax import is_orbax_step
+
+    steps = sorted(int(s) for s in os.listdir(copy) if s.isdigit())
+    orbax = [s for s in steps if is_orbax_step(os.path.join(copy, str(s)))
+             and not any("state.pt" in f for _, _, f in os.walk(os.path.join(copy, str(s))))]
+    kept = [s for s in (2, 4) if tree_digest(os.path.join(copy, str(s))) == tree_digest(
+        os.path.join(fixture, "run", str(s)))]
+    if steps != [2, 4, 6, 8] or orbax != steps or kept != [2, 4]:
+        raise AssertionError(f"phase 20 (d): steps {steps}, orbax {orbax}, byte-equal {kept}")
+    print(f"phase 20 (d) the JAX run's directory after the port's resume: steps {steps}, every "
+          f"one orbax, none holding state.pt; steps {kept} byte for byte the JAX run's",
           flush=True)
 
 
@@ -5052,6 +5282,11 @@ def main() -> int:
         # 19. the JAX package's orbax checkpoints: infer --checkpoint, run
         # resume and eval_only on a copy of a JAX run's directory
         check_orbax(torch, work, os.path.join(work, "i3res50.pt"), video)
+        torch.cuda.empty_cache()
+
+        # 20. a full-width run trained on the card, its steps written as
+        # orbax: restored bit-equal, served by infer --checkpoint, resumed
+        check_orbax_written(torch, work, os.path.join(work, "i3res50.pt"), video)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -45,7 +45,8 @@ from anomaly_detection_on_video_tpu_torch.models.i3d import I3DResNet
 from anomaly_detection_on_video_tpu_torch.ops.metrics import anomaly_events, frame_level_scores
 from anomaly_detection_on_video_tpu_torch.training import VideoAnomalyDetectionRunner
 from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
-from anomaly_detection_on_video_tpu_torch.training.runner import buckets_up_to
+from anomaly_detection_on_video_tpu_torch.training.optim import adam_with_l2
+from anomaly_detection_on_video_tpu_torch.training.runner import TrainState, buckets_up_to
 from anomaly_detection_on_video_tpu_torch.utils.convert import (
     rtfm_state_dict_from_flax,
     sultani_state_dict_from_flax,
@@ -493,7 +494,7 @@ def test_checkpoint_of_port_run_is_served(rng, tmp_path, runner):
         scorer, name = t_infer.build_scorer(_args(checkpoint=str(ck), checkpoint_step=selector))
         assert name == runner
         direct = build_model(runner, channels=C, hidden_dims=(32, 16))[1]
-        direct.load_state_dict(torch.load(ck / str(step) / "state.pt", weights_only=True)["model"])
+        ckpt.restore(TrainState(direct, adam_with_l2(direct.parameters())), step=step)
         np.testing.assert_array_equal(t_infer.score_features(feats, scorer),
                                       t_infer.score_features(feats, direct.eval()))
     scorer, _ = t_infer.build_scorer(_args(checkpoint=str(ck), model_config=["dropout_rate=0.5"]))

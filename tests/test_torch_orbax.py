@@ -523,7 +523,7 @@ def test_port_resume_keeps_the_jax_steps(tmp_path, capsys):
                 np.testing.assert_allclose(g[key], r[key], rtol=1e-4)
     ckpt = TopKCheckpointer(str(run))
     assert ckpt.all_steps() == [2, 4, 6, 8]
-    assert [ckpt.is_orbax(s) for s in ckpt.all_steps()] == [True, True, False, False]
+    assert [ckpt.is_orbax(s) for s in ckpt.all_steps()] == [True, True, True, True]
     for step in (2, 4):  # byte for byte the JAX run's
         for path in glob.glob(os.path.join(FIXTURE, "run", str(step), "**"), recursive=True):
             if os.path.isfile(path):

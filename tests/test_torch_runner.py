@@ -6,6 +6,7 @@ K2/K3 shape rule, the crop-protocol pin).
 Files are written in ``tmp_path``; both packages read the same files.
 """
 
+import argparse
 import json
 import os
 import shutil
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 import chip_smoke
+import infer as j_infer
 import make_gt_ucf as j_make_gt_ucf
 import run as j_run
 from anomaly_detection_on_video_tpu.config import compose as j_compose
@@ -33,6 +35,7 @@ from anomaly_detection_on_video_tpu.data import segments as jsegments
 from anomaly_detection_on_video_tpu.models import i3d as ji3d
 from anomaly_detection_on_video_tpu.training import runner as jrunner
 from anomaly_detection_on_video_tpu.training.checkpoints import TopKCheckpointer as JCheckpointer
+from anomaly_detection_on_video_tpu_torch import infer as t_infer
 from anomaly_detection_on_video_tpu_torch import make_gt_ucf as t_make_gt_ucf
 from anomaly_detection_on_video_tpu_torch import run as t_run
 from anomaly_detection_on_video_tpu_torch.config import compose, instantiate, locate
@@ -56,6 +59,7 @@ from anomaly_detection_on_video_tpu_torch.training.runner import TrainState
 from anomaly_detection_on_video_tpu_torch.utils.convert import (
     i3d_state_dict_from_flax,
     mgfn_state_dict_from_flax,
+    mgfn_state_dict_to_flax,
 )
 from test_torch_i3d import NARROW, _randomize_bn
 from test_torch_mgfn import randomize_norms
@@ -327,35 +331,42 @@ def test_config_names_map_to_port_classes_without_jax():
 
 # -------------------------------------------------------------- checkpoints
 
-def _linear_state(step):
-    model = torch.nn.Linear(3, 2)
-    return TrainState(model, torch.optim.SGD(model.parameters(), lr=0.1), step)
+def _scorer_state(step):
+    """A tiny Sultani's train state (the checkpointer saves a scorer's
+    state in orbax's format)."""
+    model = Sultani(SultaniConfig(channels=3, hidden_dims=(2, 2)))
+    return TrainState(model, adam_with_l2(model.parameters()), step)
 
 
 def test_checkpointer_retention_and_selection_match_jax(tmp_path):
     """Top-k by metric union latest, over the same save sequence as the
     JAX (orbax) checkpointer: the same steps survive every save, and
-    latest / best / exact selections agree."""
+    latest / best / exact selections agree; the JAX checkpointer opened on
+    the port's directory after every save sees the same steps and
+    selections."""
     metrics = [0.5, None, 0.7, 0.7, 0.2, None, 0.9, 0.1, None]
     ours = TopKCheckpointer(str(tmp_path / "t"), top_k=3)
     ref = JCheckpointer(str(tmp_path / "j"), top_k=3)
     for i, metric in enumerate(metrics):
         step = (i + 1) * 2
-        ours.save(step, _linear_state(step), metric)
+        ours.save(step, _scorer_state(step), metric)
         ref.save(step, types.SimpleNamespace(params={"w": np.zeros(3, np.float32)},
                                              batch_stats={"m": np.zeros(1, np.float32)},
                                              opt_state={"n": np.zeros(1, np.float32)},
                                              step=np.int32(step)), metric)
         ref.wait()
-        assert ours.all_steps() == sorted(ref.manager.all_steps()), (step, metric)
+        on_ours = JCheckpointer(str(tmp_path / "t"), top_k=3)
+        assert ours.all_steps() == sorted(ref.manager.all_steps()) == sorted(
+            on_ours.manager.all_steps()), (step, metric)
         for selector in ("latest", "best", None):
-            assert ours.resolve_step(selector) == ref.resolve_step(selector)
+            assert ours.resolve_step(selector) == ref.resolve_step(selector) == (
+                on_ours.resolve_step(selector))
     for selector in (ours.all_steps()[0], str(ours.all_steps()[-1])):
         assert ours.resolve_step(selector) == ref.resolve_step(selector)
     for ckpt in (ours, ref):
         with pytest.raises(ValueError, match="not found"):
             ckpt.resolve_step(3)
-    restored = ours.restore(_linear_state(0), "best")
+    restored = ours.restore(_scorer_state(0), "best")
     assert restored.step == ref.resolve_step("best")
     meta = {"model_name": "mgfn", "seed": 0}
     ours.write_metadata(meta)
@@ -509,7 +520,7 @@ def test_run_matches_jax_run_py(rng, tmp_path, monkeypatch, capsys):
     assert sorted(os.listdir(tmp_path / "resume_t")) == sorted(os.listdir(tmp_path / "resume_j")) \
         == ["2", "4", "6", "8", "hparams.json"]
     resumed = TopKCheckpointer(str(tmp_path / "resume_t"))
-    assert [resumed.is_orbax(s) for s in resumed.all_steps()] == [True, True, False, False]
+    assert [resumed.is_orbax(s) for s in resumed.all_steps()] == [True, True, True, True]
 
     # the restored optimizer state: exp_avg, exp_avg_sq and step bit-equal
     # to optax's mu, nu and count (orbax's own read), relayouted
@@ -531,6 +542,83 @@ def test_run_matches_jax_run_py(rng, tmp_path, monkeypatch, capsys):
     for main, extra in ((t_run.main, ["device=cpu"]), (j_run.main, ["trainer.data_parallel=false"])):
         main(common + extra + ["trainer.eval_only=true", "trainer.log_path=",
                                f"trainer.checkpoint.dirpath={tmp_path}/ck_j"])
+    port_line, jax_line = (json.loads(text) for text in
+                           capsys.readouterr().out.strip().splitlines()[-2:])
+    assert port_line["step"] == jax_line["step"] == 4
+    for key in ("valid/rec_auc", "valid/pr_auc"):
+        np.testing.assert_allclose(port_line[key], jax_line[key], atol=1e-4)
+
+
+def test_port_written_run_resumes_serves_and_evaluates_in_jax(rng, tmp_path, monkeypatch,
+                                                              capsys):
+    """The CLI handshake the other way: the port's ``run`` trains 2 epochs
+    into a fresh directory (orbax steps, from an init with random norms:
+    identity norms tie the top-k). The root ``run.py`` and the port's
+    ``run`` each resume a copy for 2 more epochs: the same steps, losses
+    within 1e-4 relative, the same files left. The root ``infer.py``'s
+    ``build_scorer`` of the port-written directory scores as the port's,
+    within 1e-5, and the JAX ``eval_only`` equals the port's."""
+    train, test, _, gt_path = write_features(str(tmp_path), rng)
+    common = ["runner=mgfn", f"data.train_path={train}", f"data.test_path={test}",
+              f"data.ground_truth_path={gt_path}", "data.batch_size=2", "trainer.max_epochs=2",
+              "data.num_workers=0"] + NARROW_MGFN
+    t_init = VideoAnomalyDetectionRunner.init_state
+
+    def port_init(self):
+        state = t_init(self)
+        variables = randomize_norms(mgfn_state_dict_to_flax(state.model.state_dict()),
+                                    np.random.RandomState(5))
+        state.model.load_state_dict(mgfn_state_dict_from_flax(variables))
+        return state
+
+    monkeypatch.setattr(VideoAnomalyDetectionRunner, "init_state", port_init)
+    ck = tmp_path / "ck"
+    t_run.main(common + ["device=cpu", f"trainer.log_path={tmp_path}/t.jsonl",
+                         f"trainer.checkpoint.dirpath={ck}"])
+    assert TopKCheckpointer(str(ck)).all_steps() == [2, 4]
+    assert not list(ck.glob("*/state.pt"))
+    for tag in ("resume_t", "resume_j"):
+        shutil.copytree(ck, tmp_path / tag)
+    resume = common + ["trainer.max_epochs=4", "trainer.resume=true"]
+    capsys.readouterr()
+    j_run.main(resume + ["trainer.data_parallel=false", f"trainer.log_path={tmp_path}/j_r.jsonl",
+                         f"trainer.checkpoint.dirpath={tmp_path}/resume_j"])
+    t_run.main(resume + ["device=cpu", f"trainer.log_path={tmp_path}/t_r.jsonl",
+                         f"trainer.checkpoint.dirpath={tmp_path}/resume_t"])
+    assert "resumed from step 4" in capsys.readouterr().out
+
+    def records(name):
+        with open(tmp_path / name) as f:
+            return [json.loads(line) for line in f]
+
+    ref, got = records("j_r.jsonl"), records("t_r.jsonl")
+    assert [r["step"] for r in got] == [r["step"] for r in ref] == [4, 5, 6, 6, 7, 8]
+    for g, r in zip(got, ref):
+        assert set(g) == set(r)
+        for key in ("train_loss", "train_loss_epoch"):
+            if key in r:
+                np.testing.assert_allclose(g[key], r[key], rtol=1e-4)
+        for key in ("valid/rec_auc", "valid/pr_auc"):
+            if key in r:
+                np.testing.assert_allclose(g[key], r[key], atol=1e-4)
+    assert sorted(os.listdir(tmp_path / "resume_t")) == sorted(os.listdir(tmp_path / "resume_j")) \
+        == ["2", "4", "6", "8", "hparams.json"]
+
+    feats = (np.abs(rng.randn(9, 10, C)) * 0.5).astype(np.float32)
+    for step in ("latest", "best", "2"):
+        args = argparse.Namespace(model=None, model_config=None, checkpoint=str(ck),
+                                  torch_weights=None, official=False, i3d_weights=None,
+                                  checkpoint_step=step, device="cpu")
+        apply_fn, variables, eval_step, j_name, _ = j_infer.build_scorer(args)
+        scorer, t_name = t_infer.build_scorer(args)
+        assert j_name == t_name == "mgfn"
+        np.testing.assert_allclose(t_infer.score_features(feats, scorer),
+                                   j_infer.score_features(feats, apply_fn, variables, eval_step),
+                                   atol=1e-5, rtol=1e-5)
+
+    for main, extra in ((t_run.main, ["device=cpu"]), (j_run.main, ["trainer.data_parallel=false"])):
+        main(common + extra + ["trainer.eval_only=true", "trainer.log_path=",
+                               f"trainer.checkpoint.dirpath={ck}"])
     port_line, jax_line = (json.loads(text) for text in
                            capsys.readouterr().out.strip().splitlines()[-2:])
     assert port_line["step"] == jax_line["step"] == 4
