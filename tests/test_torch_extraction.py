@@ -51,7 +51,8 @@ from anomaly_detection_on_video_tpu_torch.utils import npyio as tnpyio
 from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_from_flax
 from anomaly_detection_on_video_tpu_torch.utils.profiling import StageTimer
 from test_torch_i3d import NARROW, _randomize_bn
-from test_torch_infer import _args, _flax_variables, _save_weights
+from torch_infer_fixtures import _args, _flax_variables, _save_weights
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 RESIZE, CROP = 64, 56
 DECODE_THREADS = ("frame-decode", "decode-pool")
@@ -166,7 +167,7 @@ def test_center_features_equal_ten_crop_row4(narrow, rng, shape):
 
 def test_int8_center_calibration_matches_jax(narrow, rng, tmp_path):
     """int8 with center crops calibrates on the first chunk's center crops:
-    the JAX calibration path's scales (rtol 1e-5, as tests/test_torch_int8.py);
+    the JAX calibration path's scales (rtol 1e-5, as tests/test_torch_int8_model.py);
     the scales are pinned and the features keep the (n, 1, C) shape."""
     frames = rng.randint(0, 256, (40, 120, 160, 3), np.uint8)
     ex = _extractor(narrow, batch=8, crops="center", quantize=True)

@@ -27,10 +27,11 @@ from anomaly_detection_on_video_tpu_torch.models.mgfn import MGFN, MGFNConfig
 from anomaly_detection_on_video_tpu_torch.ops.metrics import roc_auc
 from anomaly_detection_on_video_tpu_torch.training import runner as trunner
 from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
-from test_torch_infer import NARROW_2048, _flax_variables, _NoExtractor, _port_mgfn_weights, \
-    _save_weights, _touch
-from test_torch_runner import C, write_features
 from test_torch_serving import _port_extractor, _read, _request, _Server
+from torch_infer_fixtures import NARROW_2048, _flax_variables, _NoExtractor, _port_mgfn_weights, \
+    _save_weights, _touch
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
+from torch_runner_fixtures import C, write_features
 
 # the files the JAX ``fit`` writes into ``figure_dir`` over 2 epochs with
 # eval_every=1: ``f"eval_epoch{epoch:04d}.png"`` for epochs 0 and 1

@@ -21,6 +21,7 @@ from anomaly_detection_on_video_tpu_torch.data import flow as tdflow
 from anomaly_detection_on_video_tpu_torch.ops import flow as tflow
 from anomaly_detection_on_video_tpu_torch.ops import tvl1 as ttvl1
 from test_flow import smooth_image, to_rgb
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 scipy_ndimage = pytest.importorskip("scipy.ndimage")
 

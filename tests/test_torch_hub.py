@@ -28,11 +28,12 @@ from anomaly_detection_on_video_tpu_torch.data import features as tfeatures
 from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
 from anomaly_detection_on_video_tpu_torch.models import build_model, i3d as ti3d, seeded_init_
 from anomaly_detection_on_video_tpu_torch.utils import hub as thub
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FEATURES = "jinmang2/ucf_crime_tencrop_i3d_seg32"
 C = 64  # feature width of the cached zips
-# narrow i3res50 with 2048-wide features, as tests/test_torch_i3d_variants.py
+# narrow i3res50 with 2048-wide features, as tests/torch_i3d_variants_fixtures.py
 STAGES_2048 = ((8, 1, 1, (3,), (1,)), (8, 1, 2, (1,), (1,)), (8, 1, 1, (1,), (1,)),
                (512, 1, 1, (1,), (1,)))
 

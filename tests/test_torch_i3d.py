@@ -27,6 +27,7 @@ from anomaly_detection_on_video_tpu_torch.ops.kernels import (
 from anomaly_detection_on_video_tpu_torch.ops.kernels._operands import cached_operands
 from anomaly_detection_on_video_tpu_torch.ops.kernels.stem import fold_bn
 from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_from_flax
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,59 +1,50 @@
-"""PyTorch port vs the JAX package: the scoring CLI's scorer side and the
-video discovery both CLIs share.
-
-``anomaly_events``; ``find_videos`` and ``warn_duplicate_stems`` on a
-class-subfolder tree (the recursive discovery the port lacked); the
-warm-up's bucket list; ``build_scorer`` + ``score_features`` from one
-``.pt`` per scorer family (and the official MGFN layout) against the JAX
-CLI's; ``main`` against the JAX ``main`` on cached features with events;
-the flags of this CLI (``--warmup``, ``--group-mode``, ``--frames-per-clip``,
-``--features-dir`` and the int8 pin); serving the port's own ``run``
-checkpoints of RTFM and Sultani, with ``--checkpoint-step`` and
-``--model-config``; and the port's ``run runner=rtfm|sultani`` against the
-repository-root ``run.py``.
+"""PyTorch port vs the JAX package: the scoring CLI's scorer side. Weights
+of every family (and the official MGFN layout) through both CLIs'
+``build_scorer`` and their errors; ``main`` end to end on cached
+features, its parser checks and flags; ``process_video``'s feature
+cache; the port's ``run`` checkpoints served, and its RTFM and Sultani
+runs against the root ``run.py``.
 """
 
-import argparse
-import contextlib
-import io
 import json
 import os
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import extract_features as j_extract_features
 import infer as j_infer
 import run as j_run
 from anomaly_detection_on_video_tpu.data import extraction as jextraction
-from anomaly_detection_on_video_tpu.models import build_model as j_build_model
-from anomaly_detection_on_video_tpu.ops import metrics as jmetrics
 from anomaly_detection_on_video_tpu.training import runner as jrunner
 from anomaly_detection_on_video_tpu.training.checkpoints import TopKCheckpointer as JCheckpointer
-from anomaly_detection_on_video_tpu.utils import convert as jconvert
-from anomaly_detection_on_video_tpu.utils.aot import export_buckets
-from anomaly_detection_on_video_tpu_torch import extract_features as t_extract_features
 from anomaly_detection_on_video_tpu_torch import infer as t_infer
 from anomaly_detection_on_video_tpu_torch import run as t_run
-from anomaly_detection_on_video_tpu_torch.data.extraction import FeatureExtractor
-from anomaly_detection_on_video_tpu_torch.data.video import find_videos, warn_duplicate_stems
-from anomaly_detection_on_video_tpu_torch.models import MGFN, MGFNConfig, build_model, seeded_init_
-from anomaly_detection_on_video_tpu_torch.models.i3d import I3DResNet
+from anomaly_detection_on_video_tpu_torch.models import build_model
 from anomaly_detection_on_video_tpu_torch.ops.metrics import anomaly_events, frame_level_scores
 from anomaly_detection_on_video_tpu_torch.training import VideoAnomalyDetectionRunner
 from anomaly_detection_on_video_tpu_torch.training.checkpoints import TopKCheckpointer
 from anomaly_detection_on_video_tpu_torch.training.optim import adam_with_l2
-from anomaly_detection_on_video_tpu_torch.training.runner import TrainState, buckets_up_to
+from anomaly_detection_on_video_tpu_torch.training.runner import TrainState
 from anomaly_detection_on_video_tpu_torch.utils.convert import (
     rtfm_state_dict_from_flax,
     sultani_state_dict_from_flax,
 )
-from test_torch_i3d import NARROW as I3D_NARROW
-from test_torch_mgfn import randomize_norms
-from test_torch_runner import C, write_features
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
+from torch_runner_fixtures import C, write_features
+from torch_infer_fixtures import (
+    MODEL_CONFIG,
+    NARROW_2048,
+    _NoExtractor,
+    _args,
+    _cached_videos,
+    _flax_variables,
+    _narrow_extractor,
+    _port_mgfn_weights,
+    _save_weights,
+    _write_avi,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,182 +56,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-# ----------------------------------------------------------------- events
-
-EVENT_CASES = {
-    "seeded": (np.random.RandomState(0).rand(200), 0.6, 1),
-    "seeded_debounced": (np.random.RandomState(1).rand(300), 0.4, 3),
-    "all_above": (np.full(48, 0.9), 0.5, 1),
-    "none_above": (np.full(48, 0.1), 0.5, 1),
-    "run_at_last_frame": (np.r_[np.zeros(20), np.linspace(0.6, 0.9, 12)], 0.5, 1),
-    "min_frames": (np.repeat(np.random.RandomState(2).rand(40), 16), 0.5, 32),
-}
-
-
-@pytest.mark.parametrize("case", sorted(EVENT_CASES))
-def test_anomaly_events_match_jax(case):
-    scores, threshold, min_frames = EVENT_CASES[case]
-    got = anomaly_events(scores, threshold, min_frames)
-    assert got == jmetrics.anomaly_events(scores, threshold, min_frames)
-    if case == "run_at_last_frame":
-        assert got[-1]["end_frame"] == len(scores) - 1
-
-
-# ---------------------------------------------------- video discovery
-
-def _touch(path):
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "wb"):
-        pass
-    return str(path)
-
-
-def _video_tree(root):
-    """The UCF-Crime layout: videos in class subfolders, one stem twice."""
-    for rel in ("Abuse/Abuse001_x264.mp4", "Normal/Normal_Videos_003_x264.MP4",
-                "Normal/deeper/Normal_Videos_010_x264.avi", "Fighting/Abuse001_x264.avi",
-                "Abuse/notes.txt", "top[1].mkv"):
-        _touch(os.path.join(root, rel))
-    return str(root)
-
-
-def test_find_videos_matches_jax(tmp_path):
-    """Recursive, case-insensitive, sorted discovery of a directory; a
-    file named with glob characters is itself; a glob is a glob."""
-    root = _video_tree(tmp_path / "vids")
-    found = find_videos(root)
-    assert len(found) == 5 and not any(p.endswith(".txt") for p in found)
-    assert found == j_infer.find_videos(root) == j_extract_features.find_videos(root)
-    single = os.path.join(root, "top[1].mkv")
-    assert find_videos(single) == j_infer.find_videos(single) == [single]
-    pattern = os.path.join(root, "*", "*.mp4")
-    assert find_videos(pattern) == j_infer.find_videos(pattern) == [
-        os.path.join(root, "Abuse", "Abuse001_x264.mp4")]
-    assert find_videos(os.path.join(root, "missing*.mp4")) == []
-
-
-def test_warn_duplicate_stems_matches_jax(tmp_path):
-    paths = find_videos(_video_tree(tmp_path / "vids"))
-    outputs = []
-    for warn in (warn_duplicate_stems, j_extract_features.warn_duplicate_stems):
-        err = io.StringIO()
-        with contextlib.redirect_stderr(err):
-            dups = warn(paths, what="scored")
-        outputs.append((dups, err.getvalue()))
-    assert outputs[0] == outputs[1]
-    assert list(outputs[0][0]) == ["Abuse001_x264"] and "will be scored" in outputs[0][1]
-
-
-def _narrow_extractor(**kwargs):
-    """The CLIs' FeatureExtractor at a narrow width and a small crop."""
-    kwargs.setdefault("dtype", torch.float32)
-    return FeatureExtractor(model=I3DResNet(stages=I3D_NARROW), resize=64, cropsize=56, **kwargs)
-
-
-def _write_avi(path, rng, n_frames=20):
-    import cv2
-
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"MJPG"), 30, (160, 120))
-    for _ in range(n_frames):
-        writer.write(rng.randint(0, 256, (120, 160, 3), np.uint8))
-    writer.release()
-
-
-def test_extract_features_finds_class_subfolders(rng, tmp_path, monkeypatch, capsys):
-    """Both CLIs pointed at a UCF-Crime style tree: every video of every
-    class subfolder is extracted (the port listed only the top level and
-    found none), a shared stem is warned about, and an empty directory
-    exits with each JAX CLI's message."""
-    vids = tmp_path / "vids"
-    for rel in ("Abuse/Abuse001_x264.avi", "Normal/Normal_Videos_003_x264.avi",
-                "Normal/again/Abuse001_x264.avi"):
-        _write_avi(vids / rel, rng)
-    monkeypatch.setattr(t_extract_features, "FeatureExtractor",
-                        lambda **kw: _narrow_extractor(**dict(kw, dtype=torch.float32)))
-    t_extract_features.main(["--videos", str(vids), "--outdir", str(tmp_path / "out"),
-                             "--device", "cpu", "--batch", "20"])
-    assert sorted(os.listdir(tmp_path / "out")) == ["Abuse001_x264_i3d.npy",
-                                                    "Normal_Videos_003_x264_i3d.npy",
-                                                    "segment_features_32"]
-    assert np.load(tmp_path / "out" / "Abuse001_x264_i3d.npy").shape == (2, 10, 64)
-    assert "2 videos share the stem 'Abuse001_x264'" in capsys.readouterr().err
-    empty = tmp_path / "empty"
-    empty.mkdir()
-    with pytest.raises(SystemExit, match="no videos found under"):
-        t_extract_features.main(["--videos", str(empty), "--outdir", str(tmp_path / "o"),
-                                 "--device", "cpu"])
-    with pytest.raises(SystemExit, match="no videos match"):
-        t_infer.main(["--videos", str(empty), "--outdir", str(tmp_path / "o"),
-                      "--torch-weights", "w.pt", "--device", "cpu"])
-
-
-@pytest.mark.parametrize("max_clips", [1, 5, 32, 40, 100, 1024])
-def test_warmup_buckets_match_jax(max_clips):
-    assert buckets_up_to(max_clips) == export_buckets(max_clips)
-
-
-# ------------------------------------------------ the scorer from weights
-
-MODEL_CONFIG = {
-    "mgfn": ["dims=[16,16,32]", "depths=[1,1,1]", "dim_head=8", f"channels={C}"],
-    "rtfm": [f"channels={C}", "hidden_dims=[32,16]"],
-    "sultani": [f"channels={C}", "hidden_dims=[32,16]"],
-}
-# the official remap puts an intermediate at block index 3: the reference's depths
-MODEL_CONFIG["mgfn_official"] = ["dims=[16,16,32]", "depths=[3,3,1]", "dim_head=8",
-                                 f"channels={C}"]
-EXPORT = {"mgfn": jconvert.export_mgfn_state_dict, "rtfm": jconvert.export_rtfm_state_dict,
-          "sultani": jconvert.export_sultani_state_dict}
-
-
-def official_mgfn_layout(hf):
-    """HF-named MGFN tensors -> the official release's keys, the inverse of
-    the reference's official -> HF remap (scripts/convert_official_to_hf.py)."""
-    out = {}
-    for key, value in hf.items():
-        parts = key.split(".")
-        if parts[0] == "backbone" and parts[1] == "amplifier":
-            out[".".join(parts[2:])] = value
-        elif parts[0] == "layer_norm":
-            out[f"to_logits.0.{parts[1]}"] = value
-        elif parts[0] == "fc":
-            out[key] = value
-        else:
-            stage, block, module, rest = parts[2], parts[3], parts[4], parts[5:]
-            if module in ("layer_norm", "conv"):  # the intermediate, at block index 3
-                out[f"stages.{stage}.1.{0 if module == 'layer_norm' else 1}.{rest[-1]}"] = value
-            elif module == "scc":
-                out[f"stages.{stage}.0.0.{block}.0.{rest[-1]}"] = value
-            elif module == "attention":
-                out[f"stages.{stage}.0.0.{block}.1.{rest[0]}.{rest[-1]}"] = value
-            else:
-                index = {"layer_norm": 0, "in_conv": 1, "out_conv": 4}[rest[0]]
-                out[f"stages.{stage}.0.0.{block}.2.{index}.{rest[-1]}"] = value
-    return out
-
-
-def _flax_variables(name, config, rng, seed=0):
-    _, model = j_build_model(name, **config)
-    variables = jax.jit(model.init)(jax.random.PRNGKey(seed),
-                                    jnp.zeros((2, 10, 8, config["channels"] + 1)))
-    return randomize_norms(variables, rng) if name == "mgfn" else variables
-
-
-def _save_weights(path, name, variables, official=False):
-    sd = EXPORT[name](variables)
-    if official:
-        sd = official_mgfn_layout(sd)
-    torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, str(path))
-    return str(path)
-
-
-def _args(**kw):
-    defaults = dict(model=None, model_config=None, checkpoint=None, torch_weights=None,
-                    official=False, i3d_weights=None, checkpoint_step="latest", device="cpu")
-    return argparse.Namespace(**dict(defaults, **kw))
 
 
 @pytest.mark.parametrize("case", ["mgfn", "mgfn_official", "rtfm", "sultani"])
@@ -280,38 +95,6 @@ def test_build_scorer_errors_match_jax(rng, tmp_path):
         for build in (j_infer.build_scorer, t_infer.build_scorer):
             with pytest.raises(SystemExit, match=pattern):
                 build(_args(**kw))
-
-
-# ----------------------------------------------------- main, end to end
-
-class _NoExtractor:
-    """The JAX CLI's extractor where every video's features are cached:
-    built, never run (its full-width init would only cost compile time)."""
-
-    def __init__(self, **kwargs):
-        self.kwargs = kwargs
-
-
-NARROW_2048 = ["dims=[16,16,32]", "depths=[1,1,1]", "dim_head=8"]  # MGFN on 2048-d features
-
-
-def _cached_videos(tmp_path, rng):
-    """Two videos in class subfolders (empty files: never decoded) and
-    their cached 2048-d features."""
-    vids = tmp_path / "vids"
-    feats = tmp_path / "feats"
-    feats.mkdir()
-    for rel, n in (("Abuse/Abuse001_x264.mp4", 9), ("Normal/Normal_Videos_003_x264.mp4", 40)):
-        stem = os.path.splitext(os.path.basename(_touch(vids / rel)))[0]
-        np.save(feats / f"{stem}_i3d.npy", (np.abs(rng.randn(n, 10, 2048)) * 0.5).astype(np.float32))
-    return vids, feats
-
-
-def _port_mgfn_weights(path, channels):
-    """A seeded port MGFN's state dict (HF names) at ``channels``."""
-    config = MGFNConfig(dims=(16, 16, 32), depths=(1, 1, 1), dim_head=8, channels=channels)
-    torch.save(seeded_init_(MGFN(config), seed=3).state_dict(), str(path))
-    return str(path)
 
 
 # the JSON rounds scores to 6 decimals: peaks and means recomputed from the
@@ -512,7 +295,7 @@ def test_checkpoint_of_port_run_is_served(rng, tmp_path, runner):
 def test_checkpoint_without_port_steps_names_the_export_route(tmp_path):
     """A JAX (orbax) step that cannot be read (here its tree metadata,
     ``default/_METADATA``, is missing; readable orbax steps are served,
-    tests/test_torch_orbax.py) fails naming the step, the missing file,
+    tests/test_torch_orbax_steps.py) fails naming the step, the missing file,
     the JAX package's exporters and --torch-weights; an empty directory
     holds no checkpoints."""
     step = tmp_path / "orbax" / "1"  # orbax's layout: no state.pt in a step

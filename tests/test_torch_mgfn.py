@@ -23,6 +23,7 @@ from anomaly_detection_on_video_tpu_torch.models.mgfn import MGFN, MGFNConfig
 from anomaly_detection_on_video_tpu_torch.ops import metrics as tmetrics
 from anomaly_detection_on_video_tpu_torch.training.runner import eval_bucket, make_eval_step
 from anomaly_detection_on_video_tpu_torch.utils.convert import mgfn_state_dict_from_flax
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 
 @pytest.fixture(autouse=True, scope="module")

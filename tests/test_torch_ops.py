@@ -28,6 +28,7 @@ from anomaly_detection_on_video_tpu_torch.ops.kernels.crop_norm import (
     PAD,
     crop_norm_plan,
 )
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,29 +1,24 @@
-"""The port's reader of the JAX package's orbax checkpoints
-(``utils/zstd.py``, ``utils/ocdbt.py``, ``utils/zarr.py``,
-``training/orbax.py``, the checkpointer and the CLIs on top) against the
-libraries orbax writes with (``zstandard``, ``tensorstore``) and the JAX
-package's own ``TopKCheckpointer``, ``infer.py`` and ``run.py``."""
+"""The port's reader of the JAX package's orbax checkpoints, whole steps
+(``training/orbax.py``, the checkpointer and the CLIs on top) against the
+JAX package's own ``TopKCheckpointer``, ``infer.py`` and ``run.py``, on
+narrow JAX checkpoints of every family and on the committed JAX run
+directory.
+"""
 
-import argparse
 import functools
 import glob
 import json
 import os
 import shutil
-import struct
 import time
-import warnings
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
-import tensorstore as ts
 import torch
 import zstandard
-from hypothesis import given, settings
-from hypothesis import strategies as st
 
 import chip_smoke
 import infer as j_infer
@@ -49,15 +44,16 @@ from anomaly_detection_on_video_tpu_torch.utils.convert import (
     SCORERS_FROM_FLAX,
     train_state_from_orbax,
 )
-from anomaly_detection_on_video_tpu_torch.utils.zarr import read_array
-
-HERE = os.path.dirname(os.path.abspath(__file__))
-FIXTURE = os.path.join(HERE, "data", "orbax_mgfn")
-C = 64
-NARROW = {"mgfn": dict(dims=(16, 16, 32), depths=(1, 1, 1), dim_head=8, channels=C,
-                       dropout_rate=0.0),
-          "rtfm": dict(channels=C, hidden_dims=(32, 16)),
-          "sultani": dict(channels=C, hidden_dims=(32, 16))}
+from torch_orbax_fixtures import (
+    FIXTURE,
+    NARROW,
+    _args,
+    _jax_restored,
+    _jax_state,
+    _save,
+    assert_trees_bit_equal,
+)
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -66,75 +62,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-def _args(**kw):
-    defaults = dict(model=None, model_config=None, checkpoint=None, torch_weights=None,
-                    official=False, i3d_weights=None, checkpoint_step="latest", device="cpu")
-    return argparse.Namespace(**dict(defaults, **kw))
-
-
-def _random_like(tree, rng):
-    """Every array leaf of ``tree`` replaced by seeded random values of
-    its shape and dtype (counts and steps by small integers)."""
-    def leaf(a):
-        a = np.asarray(a)
-        if np.issubdtype(a.dtype, np.integer):
-            return jnp.asarray(rng.randint(1, 50, a.shape).astype(a.dtype))
-        return jnp.asarray(rng.randn(*a.shape).astype(np.float32)).astype(a.dtype)
-    return jax.tree_util.tree_map(leaf, tree)
-
-
-def _jax_state(name, rng, dtype=jnp.float32, tx=None):
-    """A JAX ``TrainState`` of a narrow ``name`` whose params, batch stats,
-    Adam moments and step are all random (so no leaf is zero or default)."""
-    _, model = j_build_model(name, **NARROW[name])
-    variables = jax.jit(functools.partial(model.init, train=True))(
-        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
-        jnp.zeros((2, 10, 8, C + 1)))
-    params = jax.tree_util.tree_map(lambda a: a.astype(dtype), variables["params"])
-    state = JTrainState.create(model, dict(variables, params=params), tx or j_adam_with_l2())
-    return state.replace(params=_random_like(state.params, rng),
-                         batch_stats=_random_like(state.batch_stats, rng),
-                         opt_state=_random_like(state.opt_state, rng),
-                         step=jnp.asarray(rng.randint(1, 1000), jnp.int32))
-
-
-def _save(directory, state, steps_metrics, top_k=10):
-    ckpt = JCheckpointer(str(directory), top_k=top_k)
-    for step, metric in steps_metrics:
-        ckpt.save(step, state, metric)
-    ckpt.wait()
-    return ckpt
-
-
-def _named_leaves(tree):
-    """{dotted key path: numpy array} of a JAX pytree or of the port's
-    nested dicts and lists (bfloat16 tensors as their int16 bits)."""
-    out = {}
-    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-        name = ".".join(str(getattr(p, "key", getattr(p, "idx", getattr(p, "name", p))))
-                        for p in path)
-        if isinstance(leaf, torch.Tensor):
-            leaf = leaf.view(torch.int16).numpy()
-        elif np.asarray(leaf).dtype == jnp.bfloat16:
-            leaf = np.asarray(leaf).view(np.int16)
-        out[name] = np.asarray(leaf)
-    return out
-
-
-def assert_trees_bit_equal(got, want):
-    got, want = _named_leaves(got), _named_leaves(want)
-    assert sorted(got) == sorted(want)
-    for key in want:
-        assert got[key].dtype == want[key].dtype and got[key].shape == want[key].shape, key
-        assert got[key].tobytes() == want[key].tobytes(), key
-
-
-def _jax_restored(directory, state, step):
-    restored = JCheckpointer(str(directory)).restore(state, step=step)
-    return {"params": restored.params, "batch_stats": restored.batch_stats,
-            "opt_state": restored.opt_state, "step": restored.step}
 
 
 @pytest.fixture(scope="module")
@@ -191,161 +118,6 @@ def test_zstd_decodes_every_frame_of_the_checkpoints(jax_dirs):
     for frame in frames:
         assert zstd.decompress(frame) == zstandard.ZstdDecompressor().decompressobj().decompress(
             frame)
-
-
-@pytest.mark.parametrize("level", [1, 3, 19])
-@pytest.mark.parametrize("kind", ["float32", "zeros", "json"])
-def test_zstd_matches_zstandard(level, kind):
-    """Frames zstandard writes, with and without the content size (the
-    streaming route), decode byte-equal."""
-    rng = np.random.RandomState(level)
-    data = {"float32": rng.randn(70000).astype(np.float32).tobytes(),
-            "zeros": bytes(300001),
-            "json": json.dumps({"k": rng.randint(0, 9, 3000).tolist()}).encode()}[kind]
-    with_size = zstandard.ZstdCompressor(level=level).compress(data)
-    stream = zstandard.ZstdCompressor(level=level, write_content_size=False).compress(data)
-    assert zstd.decompress(with_size) == zstd.decompress(stream) == data
-
-
-def test_zstd_decodes_a_large_streamed_frame():
-    """A 6 MB frame written in 64 KiB pieces with no content size (as
-    tensorstore writes a large chunk): the decoder takes input into its
-    own buffer ahead of its output."""
-    data = np.random.RandomState(4).randn(1_500_000).astype(np.float32).tobytes()
-    writer = zstandard.ZstdCompressor(level=1).compressobj()
-    frame = b"".join(writer.compress(data[i:i + 65536]) for i in range(0, len(data), 65536))
-    frame += writer.flush()
-    assert zstd.decompress(frame) == data
-    with pytest.raises(ValueError, match="truncated"):
-        zstd.decompress(frame[:-100])
-
-
-@settings(max_examples=40, deadline=None)
-@given(st.binary(max_size=5000), st.integers(1, 19), st.booleans())
-def test_zstd_matches_zstandard_on_any_bytes(data, level, size):
-    frame = zstandard.ZstdCompressor(level=level, write_content_size=size).compress(data)
-    assert zstd.decompress(frame) == data
-
-
-def test_zstd_refuses_what_is_not_a_frame():
-    frame = zstandard.ZstdCompressor(level=3).compress(b"abc" * 1000)
-    with pytest.raises(ValueError, match="not a zstd frame"):
-        zstd.decompress(b"\x00" + frame)
-    with pytest.raises(ValueError, match="zstd"):
-        zstd.decompress(frame[: len(frame) // 2])
-
-
-# ----------------------------------------------------------------- OCDBT
-
-def _tensorstore_db(path, commits=20, keys_per_commit=8):
-    """A database written through tensorstore's ocdbt driver with nodes of
-    at most 256 bytes (interior b-tree nodes) and ``commits`` commits (more
-    than 16: a version tree of more than one node), some values above the
-    16-byte inline limit."""
-    kv = ts.KvStore.open({"driver": "ocdbt", "base": f"file://{path}/",
-                          "config": {"max_decoded_node_bytes": 256,
-                                     "max_inline_value_bytes": 16}}).result()
-    rng = np.random.RandomState(1)
-    for c in range(commits):
-        for _ in range(keys_per_commit):
-            key = f"key{c:03d}/{rng.randint(0, 1000):04d}"
-            kv.write(key, bytes(rng.randint(0, 256, rng.randint(0, 64)).astype(np.uint8))).result()
-    return kv
-
-
-def _assert_store_equal(path, kv=None):
-    kv = kv or ts.KvStore.open({"driver": "ocdbt", "base": f"file://{path}/"}).result()
-    store = ocdbt.OcdbtStore(str(path))
-    want = kv.list().result()
-    assert store.list() == sorted(want)
-    for key in want:
-        assert store.read(key) == kv.read(key).result().value, key
-    return store
-
-
-@pytest.mark.parametrize("db", ["fixture_root", "fixture_process", "tensorstore"])
-def test_ocdbt_matches_tensorstore(db, tmp_path):
-    """``list()`` and every ``read()`` equal tensorstore's on an orbax
-    step's root database (its values in ``ocdbt.process_0/``), the process
-    database (values above the 1 KiB inline limit, in data files), and a
-    database of 20 commits with 256-byte nodes (interior nodes, and a
-    version tree with nodes of its own)."""
-    if db == "tensorstore":
-        kv = _tensorstore_db(str(tmp_path))
-        store = _assert_store_equal(str(tmp_path), kv)
-        assert store.latest.root_height >= 2 and len(store.versions) == 161
-        assert [v.generation for v in store.versions] == list(range(1, 162))
-        return
-    default = os.path.join(FIXTURE, "run", "4", "default")
-    path = default if db == "fixture_root" else os.path.join(default, "ocdbt.process_0")
-    store = _assert_store_equal(path)
-    sizes = [len(store.read(k)) for k in store.list()]
-    assert max(sizes) > store.config.max_inline_value_bytes == 1024
-
-
-def test_ocdbt_checks_every_file(tmp_path):
-    """One flipped byte in a manifest or a node fails its CRC32C; an
-    absent key raises KeyError."""
-    _tensorstore_db(str(tmp_path / "db"), commits=3)
-    for victim in ("manifest.ocdbt", "node"):
-        db = tmp_path / victim.replace(".", "_")
-        shutil.copytree(tmp_path / "db", db)
-        store = ocdbt.OcdbtStore(str(db))
-        loc = store.latest.root
-        path, offset = (db / "manifest.ocdbt", 20) if victim == "manifest.ocdbt" else (
-            db / loc.path, loc.offset + 20)
-        data = bytearray(path.read_bytes())
-        data[offset] ^= 0x01
-        path.write_bytes(bytes(data))
-        with pytest.raises(ValueError, match="CRC32C"):
-            ocdbt.OcdbtStore(str(db)).list()
-    with pytest.raises(KeyError):
-        ocdbt.OcdbtStore(str(tmp_path / "db")).read("no such key")
-    assert ocdbt.crc32c(b"123456789") == 0xE3069283  # the CRC-32C check value
-
-
-# ------------------------------------------------------------------ zarr
-
-@pytest.mark.parametrize("dtype", ["<f4", "<f8", "<i4", "<i8", "<u4", "|b1", "|u1", "bfloat16"])
-def test_zarr_arrays_match_tensorstore(dtype, tmp_path):
-    """zarr v2 arrays tensorstore writes into an OCDBT store: a 5x7 array
-    in 2x3 chunks (edge chunks padded), zstd and uncompressed, one chunk
-    never written (read as fill_value, or zeros when it is null), and a
-    0-d array."""
-    rng = np.random.RandomState(2)
-    base = {"driver": "ocdbt", "base": f"file://{tmp_path}/"}
-    wants = {}
-    for name, shape, chunks, compressor, fill in (
-            ("a", [5, 7], [2, 3], {"id": "zstd", "level": 1}, None),
-            ("b", [5, 7], [2, 3], None, True if dtype == "|b1" else 1),
-            ("s", [], [], {"id": "zstd", "level": 3}, None)):
-        spec = {"driver": "zarr", "kvstore": dict(base, path=f"{name}/"),
-                "metadata": {"shape": shape, "chunks": chunks, "dtype": dtype,
-                             "compressor": compressor, "fill_value": fill}}
-        arr = ts.open(spec, create=True).result()
-        values = np.asarray(rng.randn(*shape) * 5).astype(arr.dtype.numpy_dtype)
-        if shape:
-            arr[2:, :] = values[2:]
-        else:
-            arr[...] = values
-        wants[name] = np.asarray(arr.read().result())
-    kv = ts.KvStore.open(base).result()
-    keys = {k.decode() for k in kv.list().result()}
-    assert "a/0.0" not in keys and "a/2.2" in keys
-    for name, want in wants.items():
-        got = read_array(lambda k: kv.read(k).result().value, keys, name)
-        if dtype == "bfloat16":
-            assert isinstance(got, torch.Tensor) and got.dtype == torch.bfloat16
-            got, want = got.view(torch.int16).numpy(), want.view(np.int16)
-        assert got.dtype == want.dtype and got.shape == want.shape
-        assert got.tobytes() == want.tobytes(), name
-
-
-def test_zarr_refuses_fortran_order():
-    meta = {"zarr_format": 2, "shape": [2, 2], "chunks": [2, 2], "dtype": "<f4",
-            "compressor": None, "fill_value": None, "filters": None, "order": "F"}
-    with pytest.raises(ValueError, match="order 'F'"):
-        read_array(lambda k: json.dumps(meta).encode(), set(), "x")
 
 
 # ------------------------------------------------------------------ trees
@@ -479,7 +251,7 @@ def test_infer_checkpoint_matches_jax_infer(tmp_path, monkeypatch, rng):
     CLI's on the committed JAX run directory (cached features): the same
     files and clip scores within 1e-5 (the latest step is held bit for bit
     to the JAX exporter's file above)."""
-    from test_torch_infer import _NoExtractor, _cached_videos
+    from torch_infer_fixtures import _NoExtractor, _cached_videos
 
     vids, feats = _cached_videos(tmp_path, rng)
     monkeypatch.setattr(jextraction, "FeatureExtractor", _NoExtractor)
@@ -556,16 +328,3 @@ def test_full_width_mgfn_checkpoint_reads_as_jax_reads_it(tmp_path):
     assert_trees_bit_equal(tree, _jax_restored(tmp_path, state, 2))
     assert sum(a.size for a in jax.tree_util.tree_leaves(tree["params"])) > 28_000_000
     print(f"read_orbax_step of a full-width MGFN step: {seconds:.2f} s")
-
-
-def test_ocdbt_header_layout():
-    """The fixed header the reader checks: magic (big-endian), the file's
-    length, a version and compression byte before the zstd body."""
-    data = open(os.path.join(FIXTURE, "run", "4", "default", "manifest.ocdbt"), "rb").read()
-    assert struct.unpack(">I", data[:4])[0] == ocdbt.MANIFEST_MAGIC
-    assert struct.unpack("<Q", data[4:12])[0] == len(data) and data[12:14] == b"\x00\x01"
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        assert ocdbt.decode_file(data, ocdbt.MANIFEST_MAGIC, "manifest")
-    with pytest.raises(ValueError, match="magic"):
-        ocdbt.decode_file(data, ocdbt.BTREE_MAGIC, "manifest")

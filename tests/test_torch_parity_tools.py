@@ -26,6 +26,7 @@ from anomaly_detection_on_video_tpu_torch.models import build_model
 from anomaly_detection_on_video_tpu_torch.models.i3d import I3RES50_STAGES
 from anomaly_detection_on_video_tpu_torch.scripts import dynamics_ab, parity_check
 from torch_oracles import OracleMGFN, TorchI3Res50, randomize_bn_stats
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_MGFN = dict(dims=(8, 8, 16), depths=(1, 1, 1), dim_head=4)

@@ -8,7 +8,7 @@ draws cannot be matched; a separate test holds the port's dropout to its
 generator and rate), and the loaders of the reference's layouts: the
 official RTFM release with BatchNorms folded and Sultani's ``fc1``-``fc3``
 (the official MGFN release remap is held through the CLI, in
-tests/test_torch_infer.py). One flax init feeds both packages.
+tests/test_torch_infer_scoring.py). One flax init feeds both packages.
 """
 
 import jax
@@ -22,6 +22,7 @@ from anomaly_detection_on_video_tpu.utils import convert as jconvert
 from anomaly_detection_on_video_tpu_torch.models import build_model
 from anomaly_detection_on_video_tpu_torch.models.common import dropout
 from anomaly_detection_on_video_tpu_torch.utils import convert as tconvert
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 NARROW = {"rtfm": dict(channels=64, hidden_dims=(32, 16)),
           "sultani": dict(channels=64, hidden_dims=(32, 16))}

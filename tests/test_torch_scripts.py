@@ -27,6 +27,7 @@ from anomaly_detection_on_video_tpu_torch.models import i3d as ti3d
 from anomaly_detection_on_video_tpu_torch.scripts import convert_checkpoint, int8_e2e
 from anomaly_detection_on_video_tpu_torch.scripts import operating_point, tp_audit
 from anomaly_detection_on_video_tpu_torch.utils import convert as tconvert
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

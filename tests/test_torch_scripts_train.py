@@ -30,6 +30,7 @@ from anomaly_detection_on_video_tpu_torch.models.i3d import I3DResNet
 from anomaly_detection_on_video_tpu_torch.scripts import convergence_bench, int8_e2e
 from anomaly_detection_on_video_tpu_torch.training import runner as trunner
 from anomaly_detection_on_video_tpu_torch.utils import convert as tconvert
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 I3D_NARROW = ((8, 1, 1, (3,), (1,)), (16, 1, 2, (1,), (1,)))

@@ -41,7 +41,7 @@ from anomaly_detection_on_video_tpu_torch.ops.kernels import _build
 from anomaly_detection_on_video_tpu_torch.utils import aot as taot
 from anomaly_detection_on_video_tpu_torch.utils.compile_cache import enable_compile_cache
 from test_torch_i3d import NARROW as I3D_NARROW
-from test_torch_infer import (
+from torch_infer_fixtures import (
     MODEL_CONFIG,
     _args,
     _flax_variables,
@@ -52,7 +52,8 @@ from test_torch_infer import (
     _touch,
     _write_avi,
 )
-from test_torch_runner import C
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
+from torch_runner_fixtures import C
 
 TIMEOUT = 10  # seconds, for every HTTP call and join
 START_TIMEOUT = 60  # seconds for a server to bind (its scorer and extractor built first)

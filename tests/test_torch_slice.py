@@ -31,6 +31,7 @@ from anomaly_detection_on_video_tpu_torch.models.i3d import I3DResNet
 from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_from_flax
 from test_torch_i3d import NARROW, _randomize_bn
 from test_torch_mgfn import build_pair
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -41,6 +41,7 @@ from anomaly_detection_on_video_tpu_torch.training.optim import (
 from anomaly_detection_on_video_tpu_torch.training.runner import TrainState, make_train_step
 from anomaly_detection_on_video_tpu_torch.utils.convert import mgfn_state_dict_from_flax
 from test_torch_mgfn import randomize_norms
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 DYN = dict(dims=(16, 32, 64), depths=(1, 1, 1), channels=64, dim_head=8, dropout_rate=0.0)
 

@@ -4,7 +4,7 @@ The port's flax msgpack codec against flax's (bytes and values, chunked
 leaves, the refusals), ``.msgpack`` I3D weights through ``load_i3d_weights``
 and the inverse converter, the runner's prefetching loader and evaluation
 (bit-equal to the serial loops, and to the JAX runner at the tolerances of
-``tests/test_torch_runner.py``), MGFN's feed-forward dropout (eval mode and
+``tests/test_torch_runner_loop.py``), MGFN's feed-forward dropout (eval mode and
 one fixed mask against the JAX model at float32 tolerance, the port's own
 draws), ``run -m`` sweeps against the root ``run.py``, ``to_container`` and
 ``trace``. The port's new modules import no JAX, flax or msgpack.
@@ -54,7 +54,8 @@ from anomaly_detection_on_video_tpu_torch.utils.convert import (
 )
 from anomaly_detection_on_video_tpu_torch.utils.profiling import trace
 from test_torch_mgfn import randomize_norms
-from test_torch_runner import C, NARROW_MGFN, write_features
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
+from torch_runner_fixtures import C, NARROW_MGFN, write_features
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = os.path.join(REPO, "configs")

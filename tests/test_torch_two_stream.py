@@ -46,7 +46,8 @@ from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_fr
 from test_torch_extraction import _write_mjpg
 from test_torch_flow import textured_scene
 from test_torch_i3d import NARROW, _randomize_bn, stem_slab, stem_tap_rows
-from test_torch_int8 import _port_conv_bn
+from torch_int8_fixtures import _port_conv_bn
+from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 RESIZE, CROP, WIDTH = 64, 56, 64  # WIDTH: the narrow model's features per crop
 TOL = dict(rtol=1e-4, atol=1e-4)  # the RGB extractor tests' tolerance
