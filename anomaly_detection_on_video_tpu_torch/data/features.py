@@ -8,8 +8,9 @@ normal iff ``"Normal"`` is in its filename. ``add_magnitude`` appends the
 L2 norm channel, 2048 -> 2049. The test split carries frame-level ground
 truth from ``ground_truth.json``. Training batches are numpy arrays
 ``(2 * bsz, 10, T, 2049)``, normal bags first. With no local path the zips
-come from the reference's feature repo in the local Hugging Face cache
-(``utils/hub.py``); the port downloads nothing.
+come from the reference's feature repo on the Hugging Face hub: downloaded
+by ``huggingface_hub`` where it is installed, else read from the local
+cache (``utils/hub.py``).
 """
 
 from __future__ import annotations
@@ -187,23 +188,33 @@ def build_feature_dataset(
     ``.npy`` files. ``stream`` is ``rgb``, ``flow`` or ``both``.
 
     With no ``local_path``, the split's zip of ``DEFAULT_FEATURE_HUB`` at
-    ``revision`` is read from the local Hugging Face cache (``cache_dir``
-    or the default root), and a test split without ``ground_truth_path``
-    takes the repo's ``ground_truth.json``. As in the JAX package, that
-    file is read at ``main`` in the default cache root, whatever
-    ``revision`` and ``cache_dir`` say. A file that is not cached raises
-    ``FileNotFoundError``."""
+    ``revision`` comes from the Hugging Face hub: through ``hf_hub_download``
+    (``cache_dir``) where ``huggingface_hub`` imports, else from the local
+    cache (``cached_file``: ``cache_dir`` or the default root). A test
+    split without ``ground_truth_path`` takes the repo's
+    ``ground_truth.json``; as in the JAX package, that file is fetched at
+    ``main`` into the default cache, whatever ``revision`` and ``cache_dir``
+    say. A file that is not cached offline raises ``FileNotFoundError``."""
     if mode not in ("train", "test"):
         raise ValueError(f"mode must be train or test, got {mode!r}")
     if local_path is None:
         try:
-            filepath = cached_file(DEFAULT_FEATURE_HUB, DEFAULT_FILENAMES[mode], revision,
-                                   cache_dir, repo_type="dataset")
+            from huggingface_hub import hf_hub_download
+            from huggingface_hub.errors import LocalEntryNotFoundError as missing
+        except ImportError:  # no huggingface_hub: the cache, read by the port
+            missing = FileNotFoundError
+
+            def fetch(filename, **kw):
+                return cached_file(DEFAULT_FEATURE_HUB, filename, repo_type="dataset", **kw)
+        else:
+            def fetch(filename, **kw):
+                return hf_hub_download(repo_id=DEFAULT_FEATURE_HUB, filename=filename,
+                                       repo_type="dataset", **kw)
+        try:
+            filepath = fetch(DEFAULT_FILENAMES[mode], cache_dir=cache_dir, revision=revision)
             if mode == "test" and ground_truth_path is None:
-                ground_truth_path = cached_file(DEFAULT_FEATURE_HUB, "ground_truth.json",
-                                                repo_type="dataset")
-        except FileNotFoundError as exc:
-            # the JAX package's text: the port has no network either
+                ground_truth_path = fetch("ground_truth.json")
+        except missing as exc:
             raise FileNotFoundError(
                 f"cannot download {DEFAULT_FEATURE_HUB}/{DEFAULT_FILENAMES[mode]} from the HF "
                 f"hub (no network or not cached). Point the {mode} split at local features "

@@ -65,8 +65,32 @@ def _open(path: str):
     return cv2, cap
 
 
-def decode_video_frames(path: str, start: int = 0, count: Optional[int] = None) -> np.ndarray:
-    """Decode frames [start, start+count) to RGB uint8 (N, H, W, 3)."""
+def _decord_frames(path: str, start: int, count: Optional[int]) -> np.ndarray:
+    """The reference's decode: ``decord.VideoReader`` read in order, RGB as
+    it comes. decord is optional (imported here only, and not installed
+    with the port); where it is, it gives the byte stream the published
+    feature zips were extracted from."""
+    import decord
+
+    vr = decord.VideoReader(uri=path)
+    stop = len(vr) if count is None else min(len(vr), start + count)
+    frames = [np.asarray(vr[i].asnumpy()) for i in range(start, stop)]
+    if not frames:
+        raise ValueError(f"no frames decoded from {path!r} at start={start}")
+    return np.stack(frames)
+
+
+def decode_video_frames(path: str, start: int = 0, count: Optional[int] = None,
+                        backend: str = "cv2") -> np.ndarray:
+    """Decode frames [start, start+count) to RGB uint8 (N, H, W, 3).
+
+    ``backend`` is ``"cv2"`` (OpenCV, the port's decoder) or ``"decord"``
+    (the reference's, which must be installed): a decode difference can be
+    told from a model difference by running both."""
+    if backend == "decord":
+        return _decord_frames(path, start, count)
+    if backend != "cv2":
+        raise ValueError(f"unknown decode backend {backend!r}")
     cv2, cap = _open(path)
     try:
         if start:

@@ -1,7 +1,8 @@
 """Extract I3D features for a directory of videos::
 
     python -m anomaly_detection_on_video_tpu_torch.extract_features \\
-        --videos clips/ --outdir features/ [--split train|test] \\
+        (--videos clips/ | --hf-dataset jinmang2/ucf_crime) --outdir features/ \\
+        [--split train|test] \\
         [--model tushar-n-baseline|i3d_8x8_r50] \\
         [--weights i3res50.pt|i3d.msgpack|I3D_8x8_R50.pyth] \\
         [--dtype bfloat16|float32|int8] [--batch 240] \\
@@ -20,6 +21,13 @@ unless ``--no-segments`` or ``--split test``, pools every feature file into
 trainer reads. ``--videos`` is a video file, a glob, or a directory
 searched recursively (the UCF-Crime class subfolders); videos of different
 folders that share a stem share one output file, and a warning names them.
+
+``--hf-dataset ID`` is the reference's network mode: the dataset's
+``anomaly`` configuration through ``datasets.load_dataset`` (imported only
+then), each split's ``video_path`` list extracted into
+``<outdir>/anomaly_features/<split>`` (``--split`` keeps one), the train
+split's features pooled into segments as above. With no ``--weights`` it
+takes the model's default hub weights (``utils/hub.default_weight_spec``).
 
 ``--crops center`` is the serving protocol: one center crop per clip,
 ``(n_clips, 1, 2048)``, exactly ten-crop row 4, pinned per directory in
@@ -43,9 +51,10 @@ default) or ``i3d_8x8_r50``, for both streams; ``--weights`` is its weight
 file, read as the JAX CLI's ``load_weights`` reads it (flax variables in a
 ``.msgpack`` file, an I3Res50 state dict, or for ``i3d_8x8_r50`` a
 pytorchvideo ``.pyth`` whose ``model_state`` is converted), or an
-``hf://org/repo[@revision]/file`` spec read from the local Hugging Face
-cache (``utils/hub.py``; one that is not cached exits), with seeded random
-weights when unset;
+``hf://org/repo[@revision]/file`` spec (``utils/hub.py``: downloaded by
+``huggingface_hub`` where it is installed, else read from the local Hugging
+Face cache; one that cannot be had exits), with seeded random weights when
+unset outside network mode;
 keys the model does not have (a Kinetics head) are dropped with a printed
 line, as the JAX converter ignores them. ``--compile-cache DIR`` builds the
 CUDA kernels into DIR and loads them from there
@@ -60,8 +69,7 @@ is all they share, so several may run on one card. Under ``--dtype int8``
 process 0 first calibrates on the first video and pins
 ``act_scales_<stream>.json``; after a barrier each process extracts
 ``videos[i::n]`` into the shared output directory, and after another only
-process 0 pools the segments. ``--hf-dataset`` is not ported (it needs the
-network), and is refused.
+process 0 pools the segments; it takes ``--videos`` only.
 """
 
 from __future__ import annotations
@@ -84,13 +92,13 @@ from .models.i3d import MODEL_ZOO
 from .parallel import barrier, initialize_multihost, process_count, process_index, shutdown
 from .utils.compile_cache import enable_compile_cache
 from .utils.device import resolve_device
-from .utils.hub import is_hub_spec
+from .utils.hub import default_weight_spec, is_hub_spec
 from .utils.profiling import StageTimer
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--videos", help="video file, glob, or directory (searched recursively)")
-    parser.add_argument("--hf-dataset", help="not ported: HF dataset id (network mode)")
+    parser.add_argument("--hf-dataset", help="HF dataset id (network mode; needs datasets)")
     parser.add_argument("--outdir", required=True)
     parser.add_argument("--split", default=None, choices=[None, "train", "test"],
                         help="subdirectory under outdir; train also gets segments")
@@ -99,7 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--weights", default=None,
                         help="the backbone's weights: flax variables (.msgpack, any backbone), an "
                              "I3Res50 state dict (.pt), or for i3d_8x8_r50 a pytorchvideo file "
-                             "(.pyth); seeded random weights if unset")
+                             "(.pyth), or hf://org/repo/file; seeded random weights if unset "
+                             "(network mode: the model's hub weights)")
     parser.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float32", "int8"],
                         help="float32 for parity runs (exact resize); int8 quantizes the "
                              "convs, currently slower than bfloat16 on an H100 (PERF.md sec. 5)")
@@ -149,28 +158,36 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = parser.parse_args(argv)
     if args.multihost and args.hf_dataset:
         parser.error("--multihost supports --videos local mode only")
-    if args.hf_dataset:
-        parser.error("--hf-dataset is not ported (it needs the network); pass --videos")
-    if not args.videos:
+    if not args.videos and not args.hf_dataset:
         parser.error("one of --videos / --hf-dataset is required")
     if args.batch < 1:
         parser.error(f"--batch must be >= 1 (got {args.batch})")
     if args.weights and not is_hub_spec(args.weights) and not os.path.isfile(args.weights):
         parser.error(f"--weights {args.weights!r}: no such file (or use hf://org/repo/file "
-                     "from the local HF cache)")
+                     "from the HF hub)")
+    if args.hf_dataset and args.weights is None:
+        # network mode with no --weights takes the reference's hub weights
+        try:
+            args.weights = default_weight_spec(args.model)
+            print(f"--weights not given; defaulting to {args.weights} (reference network-mode "
+                  "flow)", file=sys.stderr)
+        except ValueError:
+            pass
     if args.flow_backend and args.stream == "rgb":
         print("warning: --flow-backend has no effect with --stream rgb (no optical-flow stream "
               "is extracted)", file=sys.stderr)
-    videos = find_videos(args.videos)
-    if not videos:
-        raise SystemExit(f"no videos found under {args.videos!r}")
-    warn_duplicate_stems(videos, what="extracted")
+    videos = None
+    if not args.hf_dataset:
+        videos = find_videos(args.videos)
+        if not videos:
+            raise SystemExit(f"no videos found under {args.videos!r}")
+        warn_duplicate_stems(videos, what="extracted")
     if args.compile_cache:  # before the first extractor builds the kernels
         enable_compile_cache(args.compile_cache)
     # one weight tree for both streams: the flow stem adapts from it
     try:
         state_dict = load_i3d_weights(args.weights, args.model) if args.weights else None
-    except FileNotFoundError as exc:  # an hf:// spec the cache lacks
+    except FileNotFoundError as exc:  # an hf:// spec that cannot be had
         raise SystemExit(str(exc))
     device = resolve_device(args.device)
     if args.multihost:  # the store only: the processes share no collective
@@ -208,34 +225,51 @@ def _extract(args: argparse.Namespace, videos: List[str], state_dict, device) ->
         print("--profile forces --decode-workers 1 (serial path)", file=sys.stderr)
         decode_workers = 1
 
-    outdir = os.path.join(args.outdir, args.split) if args.split else args.outdir
-    pi, pc = process_index(), process_count()
-    if pc > 1:
-        if args.dtype == "int8":
-            # one process owns the calibration: process 0 calibrates on the
-            # global first video and pins the scales before anyone extracts
-            if pi == 0:
-                extractor.ensure_calibrated(outdir, videos[0])
-                if flow_extractor is not None:
-                    flow_extractor.ensure_calibrated(outdir, videos[0])
-            barrier("int8 scales pinned")
-        videos = videos[pi::pc]
-    if decode_workers > 1:
-        n = extract_videos_pooled(videos, outdir, extractor, flow_extractor,
-                                  decode_workers=decode_workers)
-    elif flow_extractor is not None:
-        n = extract_videos_two_stream(videos, outdir, extractor, flow_extractor, timer=timer)
+    def run_extraction(videos: List[str], outdir: str) -> int:
+        if decode_workers > 1:
+            return extract_videos_pooled(videos, outdir, extractor, flow_extractor,
+                                         decode_workers=decode_workers)
+        if flow_extractor is not None:
+            return extract_videos_two_stream(videos, outdir, extractor, flow_extractor,
+                                             timer=timer)
+        return extract_videos(videos, outdir, extractor, timer=timer)
+
+    if args.hf_dataset:
+        from datasets import load_dataset
+
+        extracted = []
+        for mode, split in load_dataset(args.hf_dataset, "anomaly").items():
+            if args.split and mode != args.split:
+                continue
+            outdir = os.path.join(args.outdir, "anomaly_features", mode)
+            n = run_extraction([sample["video_path"] for sample in split], outdir)
+            extracted.append(mode)
+            print(f"{mode}: extracted {n} new videos -> {outdir}", flush=True)
+        train_dir = (os.path.join(args.outdir, "anomaly_features", "train")
+                     if "train" in extracted else None)
     else:
-        n = extract_videos(videos, outdir, extractor, timer=timer)
-    who = f"[process {pi}/{pc}] " if pc > 1 else ""
-    print(f"{who}extracted {n} new videos ({len(videos)} total) -> {outdir}", flush=True)
-    if pc > 1:
-        # every feature file exists before process 0 pools the segments
-        barrier("extraction complete")
-    shutdown()
-    if pi != 0:
-        return 0
-    train_dir = outdir if args.split in (None, "train") else None
+        outdir = os.path.join(args.outdir, args.split) if args.split else args.outdir
+        pi, pc = process_index(), process_count()
+        if pc > 1:
+            if args.dtype == "int8":
+                # one process owns the calibration: process 0 calibrates on the
+                # global first video and pins the scales before anyone extracts
+                if pi == 0:
+                    extractor.ensure_calibrated(outdir, videos[0])
+                    if flow_extractor is not None:
+                        flow_extractor.ensure_calibrated(outdir, videos[0])
+                barrier("int8 scales pinned")
+            videos = videos[pi::pc]
+        n = run_extraction(videos, outdir)
+        who = f"[process {pi}/{pc}] " if pc > 1 else ""
+        print(f"{who}extracted {n} new videos ({len(videos)} total) -> {outdir}", flush=True)
+        if pc > 1:
+            # every feature file exists before process 0 pools the segments
+            barrier("extraction complete")
+        shutdown()
+        if pi != 0:
+            return 0
+        train_dir = outdir if args.split in (None, "train") else None
     if timer is not None:
         print("pipeline stages:", timer.report())
     if args.crops == "center" and train_dir and not args.no_segments:

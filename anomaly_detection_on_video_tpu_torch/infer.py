@@ -41,8 +41,9 @@ CLI's ``load_weights`` reads it (``load_i3d_weights``: flax variables in a
 ``.msgpack`` file; a ``.pyth`` file's ``model_state`` unwrapped;
 ``i3d_8x8_r50`` weights in pytorchvideo's names),
 with seeded random weights when unset, as the JAX CLI initializes randomly.
-Both weight flags also take ``hf://org/repo[@revision]/file``, read from
-the local Hugging Face cache (``utils/hub.py``); a spec that is not cached
+Both weight flags also take ``hf://org/repo[@revision]/file``
+(``utils/hub.py``: downloaded by ``huggingface_hub`` where it is installed,
+else read from the local Hugging Face cache); a spec that cannot be had
 exits with a one-line message.
 
 ``--dtype int8`` runs the I3D convs in int8 (kernels K4 and K5) around
@@ -158,9 +159,8 @@ def load_state_dict(path: str) -> dict:
 
 
 def load_i3d_weights(path: str, model_name: str) -> dict:
-    """An I3D weight file, or an ``hf://`` spec resolved in the local HF
-    cache (``utils/hub.resolve_weights``, which raises
-    ``FileNotFoundError`` when it is not cached) -> the port's state dict
+    """An I3D weight file, or an ``hf://`` spec (``utils/hub.resolve_weights``,
+    which raises ``FileNotFoundError`` when it cannot be had) -> the port's state dict
     for ``model_name``, as
     the JAX CLIs' ``load_weights`` reads it: a ``.msgpack`` file holds flax
     variables (``convert_checkpoint --kind i3d``'s output: the JAX package's
@@ -242,7 +242,7 @@ def build_scorer(args: argparse.Namespace) -> Tuple[nn.Module, str]:
     if torch_weights:
         try:
             resolved = resolve_weights(torch_weights)
-        except FileNotFoundError as exc:  # an hf:// spec the cache lacks
+        except FileNotFoundError as exc:  # an hf:// spec that cannot be had
             raise SystemExit(str(exc))
         try:
             # keys the model lacks are dropped and named, as the JAX
@@ -894,7 +894,7 @@ def main(argv: Optional[List[str]] = None,
     try:
         state_dict = (load_i3d_weights(args.i3d_weights, args.i3d_model) if args.i3d_weights
                       else None)
-    except FileNotFoundError as exc:  # an hf:// spec the cache lacks
+    except FileNotFoundError as exc:  # an hf:// spec that cannot be had
         raise SystemExit(str(exc))
 
     devices = None

@@ -32,7 +32,10 @@ module with the sweep's ``device=``:
 
 ``trainer.figure_dir: DIR`` writes an eval figure per evaluation
 (``eval_epoch{epoch:04d}.png``, rank 0 only; needs matplotlib, else a
-warning). Not ported: W&B logging.
+warning). ``wandb_key=KEY`` also logs to W&B on rank 0 (``trainer/logger=
+wandb`` sets its ``project`` and ``log_model``; with ``log_model`` every
+saved step is uploaded as the artifact ``checkpoint-step{step}``); without
+the ``wandb`` package it warns and logs nothing there.
 """
 
 from __future__ import annotations
@@ -261,7 +264,7 @@ def _train(cfg: Dict[str, Any], device):
     from .parallel import process_index
     from .training import VideoAnomalyDetectionRunner
     from .training.checkpoints import TopKCheckpointer
-    from .training.loggers import ConsoleLogger, JsonlLogger
+    from .training.loggers import ConsoleLogger, JsonlLogger, WandbLogger
     from .training.runner import DataConfigError
 
     trainer_cfg = cfg.get("trainer", {})
@@ -280,8 +283,16 @@ def _train(cfg: Dict[str, Any], device):
     if log_path and is_primary:
         loggers.append(JsonlLogger(log_path))
     if cfg.get("wandb_key") and is_primary:
-        print("warning: wandb_key is set but W&B logging is not ported; JSONL and console "
-              "logging are unaffected", file=sys.stderr)
+        # the reference's run name: ${data}-${runner}-${now:%Y%m%d-%H%M%S}
+        import datetime
+
+        choices = cfg.get("_choices_", {})
+        stamp = datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
+        wandb_cfg = trainer_cfg.get("logger") or {}
+        loggers.append(WandbLogger(
+            project=wandb_cfg.get("project", "anomaly-detection-on-video-tpu"),
+            name=f"{choices.get('data', 'data')}-{choices.get('runner', 'runner')}-{stamp}",
+            key=cfg["wandb_key"], log_model=bool(wandb_cfg.get("log_model", False))))
 
     checkpointer = None
     ckpt_cfg = trainer_cfg.get("checkpoint", {})
@@ -324,7 +335,7 @@ def _train(cfg: Dict[str, Any], device):
 
     def load_split(mode, **kw):
         try:
-            # with no local path, the split comes from the local HF cache (utils/hub.py)
+            # with no local path, the split comes from the HF hub (data/features.py)
             return build_feature_dataset(
                 mode, local_path=data_cfg.get(f"{mode}_path") or data_cfg.get("local_path"),
                 cache_dir=data_cfg.get("cache_dir"), revision=data_cfg.get("revision", "main"),

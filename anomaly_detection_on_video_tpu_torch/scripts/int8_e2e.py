@@ -15,7 +15,7 @@ high-contrast moving block in their second half and ``Normal*`` videos
 never do: enough structure for the MIL objective to separate through a
 random-weight, calibrated I3D at full i3res50 width, so the trained scorer
 is not degenerate. Real weights: ``--i3d-weights`` (a local ``.pt``,
-``.pyth`` or ``.msgpack``, or an ``hf://`` spec in the local HF cache).
+``.pyth`` or ``.msgpack``, or an ``hf://`` spec, ``utils/hub.py``).
 
     python -m anomaly_detection_on_video_tpu_torch.scripts.int8_e2e \\
         --out int8_e2e.json [--device cuda]
@@ -229,7 +229,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                              "deltas are reported as mean/min/max across seeds, not one draw")
     parser.add_argument("--i3d-weights", default=None,
                         help="optional real i3res50 weights: a local .pt, .pyth or .msgpack, or "
-                             "an hf://org/repo/file spec in the local HF cache")
+                             "an hf://org/repo/file spec from the HF hub")
     parser.add_argument("--dump-segments", default=None, metavar="NPZ",
                         help="save the first seed's bf16 segment bags")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -246,7 +246,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     try:
         state_dict = (load_i3d_weights(args.i3d_weights, "tushar-n-baseline") if args.i3d_weights
                       else None)
-    except FileNotFoundError as exc:  # an hf:// spec the cache lacks
+    except FileNotFoundError as exc:  # an hf:// spec that cannot be had
         raise SystemExit(str(exc))
     with tempfile.TemporaryDirectory(prefix="int8_e2e_scales_") as tmp:
         scales = os.path.splitext(args.out)[0] + "_scales" if args.out else tmp

@@ -14,8 +14,8 @@ reference's behaviour on them in one command:
         --out parity_report.json [--device cuda]
 
 ``--i3d-weights`` / ``--mgfn-weights`` take local paths or ``hf://`` specs
-read from the local Hugging Face cache (``utils/hub.py``; the port
-downloads nothing). The comparison side is ``tests/torch_oracles.py``
+(``utils/hub.py``: downloaded by ``huggingface_hub`` where it is installed,
+else read from the local Hugging Face cache). The comparison side is ``tests/torch_oracles.py``
 (``TorchI3Res50``, ``OracleMGFN``): torch-primitive rebuilds of the
 reference topologies, loaded from the repository's ``tests/`` by path. No
 other module of the port imports them, and the port is not built from them.
@@ -88,17 +88,7 @@ def oracles():
 def decode_frames(path: str, max_frames: int, backend: str = "cv2") -> np.ndarray:
     """The first ``max_frames`` RGB frames by OpenCV or decord (sequential
     ``vr[i]``, as the reference reads)."""
-    if backend == "cv2":
-        return decode_video_frames(path, count=max_frames)
-    if backend != "decord":
-        raise ValueError(f"unknown decode backend {backend!r}")
-    import decord  # the reference's decoder; its absence raises here
-
-    vr = decord.VideoReader(uri=path)
-    frames = [np.asarray(vr[i].asnumpy()) for i in range(min(len(vr), max_frames))]
-    if not frames:
-        raise ValueError(f"no frames decoded from {path!r}")
-    return np.stack(frames)
+    return decode_video_frames(path, count=max_frames, backend=backend)
 
 
 def decode_provenance_report(path: str, max_frames: int, backend: str = "cv2") -> dict:
@@ -333,7 +323,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--i3d-weights",
                         help="torch I3Res50 state dict, reference layout "
                              "(converted_ref_i3d.pt from jinmang2/test_video_fe), or an hf:// "
-                             "spec in the local HF cache")
+                             "spec from the HF hub")
     parser.add_argument("--mgfn-weights",
                         help="torch MGFN state dict, HF layout (convert the official release's "
                              "with the convert_checkpoint tool first)")
@@ -388,7 +378,7 @@ def main(argv=None) -> dict:
         mgfn_sd = _load_torch(args.mgfn_weights, "state_dict") if args.mgfn_weights else None
         i3d_sd = (_load_torch(args.i3d_weights, "model_state")
                   if args.videos and args.i3d_weights else None)
-    except FileNotFoundError as exc:  # an hf:// spec the cache lacks, or a missing file
+    except FileNotFoundError as exc:  # an hf:// spec that cannot be had, or a missing file
         raise SystemExit(str(exc))
     mgfn_over = json.loads(args.mgfn_config) if args.mgfn_config else None
 

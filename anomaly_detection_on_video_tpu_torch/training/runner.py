@@ -709,8 +709,12 @@ class VideoAnomalyDetectionRunner:
             save_this_epoch = ((epoch + 1) % max(1, checkpoint_every_n_epochs) == 0
                                or hit_max or epoch == max_epochs - 1)
             if self.checkpointer is not None and self.state is not None and save_this_epoch:
-                self.checkpointer.save(step=step, state=self.state,
-                                       metric=metrics.get("valid/rec_auc"))
+                ckpt_path = self.checkpointer.save(step=step, state=self.state,
+                                                   metric=metrics.get("valid/rec_auc"))
+                if ckpt_path:
+                    for logger in self.loggers:
+                        if getattr(logger, "log_model", False) and hasattr(logger, "log_artifact"):
+                            logger.log_artifact(ckpt_path, f"checkpoint-step{step}")
             if hit_max:
                 print(f"max_steps {max_steps} reached at step {step}, stopping")
                 break

@@ -1,5 +1,5 @@
-"""Weights and features from a local Hugging Face hub cache (counterpart of
-the JAX package's ``utils/hub.py``).
+"""Weights and features from the Hugging Face hub or its local cache
+(counterpart of the JAX package's ``utils/hub.py``).
 
 The reference downloads its I3D weights from the HF model repo
 ``jinmang2/test_video_fe`` and its features from the dataset repo
@@ -10,9 +10,12 @@ default:
     --weights hf://jinmang2/test_video_fe/converted_ref_i3d.pt
     --weights hf://org/repo@revision/sub/dir/file.pt
 
-The port downloads nothing and does not use ``huggingface_hub``: it reads
-the hub's standard cache layout itself, as ``hf_hub_download`` does on an
-offline host. The cache root is ``cache_dir``, else ``HF_HUB_CACHE`` (or
+Where ``huggingface_hub`` is installed, a spec downloads through its
+``hf_hub_download`` (the standard HF cache, ``HF_HUB_OFFLINE``), as in the
+JAX package; the package is imported only when a spec is resolved. Where it
+is not, the port reads the hub's standard cache layout itself, as
+``hf_hub_download`` does on an offline host, and downloads nothing
+(``cached_file``). The cache root is ``cache_dir``, else ``HF_HUB_CACHE`` (or
 the older ``HUGGINGFACE_HUB_CACHE``), else ``$HF_HOME/hub``, else
 ``$XDG_CACHE_HOME/huggingface/hub``, else ``~/.cache/huggingface/hub``,
 read when a spec is resolved. A repo ``org/name`` of type ``model`` lives in
@@ -123,23 +126,55 @@ def cached_file(repo_id: str, filename: str, revision: Optional[str] = None,
     return path
 
 
+def _hub_failure_types() -> tuple:
+    """The ``huggingface_hub`` errors that mean an artifact cannot be had:
+    not cached offline, a wrong repo, file or revision, a gated repo, an
+    HTTP failure. Older versions keep them in ``huggingface_hub.utils``
+    (or lack some); a missing name is skipped."""
+    try:
+        from huggingface_hub import errors as hub_errors
+    except ImportError:  # versions before the errors module
+        try:
+            from huggingface_hub import utils as hub_errors
+        except ImportError:
+            hub_errors = None
+    return tuple(
+        t for t in (getattr(hub_errors, name, None)
+                    for name in ("LocalEntryNotFoundError", "RepositoryNotFoundError",
+                                 "EntryNotFoundError", "RevisionNotFoundError", "GatedRepoError",
+                                 "HfHubHTTPError"))
+        if hub_errors is not None and t is not None) or (FileNotFoundError,)
+
+
 def resolve_weights(spec: Optional[str], cache_dir: Optional[str] = None) -> Optional[str]:
     """A ``--weights`` value -> a local file path.
 
-    Local paths (and ``None``) pass through; an ``hf://`` spec resolves in
-    the local hub cache (``cached_file``). An artifact that is not cached
-    raises ``FileNotFoundError`` with the JAX package's remediation hint,
-    the same contract as the feature zips' (``data/features.py``)."""
+    Local paths (and ``None``) pass through. An ``hf://`` spec downloads
+    through ``hf_hub_download`` where ``huggingface_hub`` imports, else
+    resolves in the local hub cache (``cached_file``). An artifact that
+    cannot be had raises ``FileNotFoundError`` with the JAX package's
+    remediation hint; the cache reader's text adds that it does not
+    download."""
     if not is_hub_spec(spec):
         return spec
     repo_id, revision, filename = parse_hub_spec(spec)
+    hint = f"Pass a local file instead, e.g. --weights /path/to/{filename.rsplit('/', 1)[-1]}"
     try:
-        return cached_file(repo_id, filename, revision, cache_dir)
-    except FileNotFoundError as exc:
+        from huggingface_hub import hf_hub_download
+    except ImportError:
+        try:
+            return cached_file(repo_id, filename, revision, cache_dir)
+        except FileNotFoundError as exc:
+            raise FileNotFoundError(
+                f"cannot download {repo_id}/{filename} from the HF hub "
+                f"({type(exc).__name__}: no network, not cached, or a bad "
+                f"repo/file/revision in {spec!r}; the port reads the local HF cache and does not "
+                f"download). {hint}") from exc
+    try:
+        return hf_hub_download(repo_id=repo_id, filename=filename, revision=revision,
+                               cache_dir=cache_dir)
+    except _hub_failure_types() as exc:
         raise FileNotFoundError(
             f"cannot download {repo_id}/{filename} from the HF hub "
             f"({type(exc).__name__}: no network, not cached, or a bad "
-            f"repo/file/revision in {spec!r}; the port reads the local HF cache and does not "
-            f"download). Pass a local file instead, "
-            f"e.g. --weights /path/to/{filename.rsplit('/', 1)[-1]}"
-        ) from exc
+            f"repo/file/revision in {spec!r}). {hint}") from exc

@@ -328,6 +328,21 @@ Phases, each of which raises on failure (exit code != 0):
    (the latest and the top 2 by metric); (d) after phase 19 (c), the JAX
    run's directory holds steps 2, 4, 6 and 8, all orbax and none with
    ``state.pt``, and steps 2 and 4 keep their bytes.
+21. the JAX package's network mode, with no network: the tests' stand-in
+   ``huggingface_hub``, ``datasets`` and ``wandb``
+   (``tests/torch_network_fixtures.py``) put in ``sys.modules`` of the
+   processes that need them, four processes at once: (a) ``extract_features --hf-dataset`` with no
+   ``--weights`` (the default spec served as phase 10's weights) over three
+   MJPG videos in two splits, against ``--videos`` of the train split with
+   that file: K1 / K2 / K3 1 / 1 / 3 per video, features and segments
+   byte-equal; (b) ``run runner=mgfn`` at full width with no data path
+   (phase 8's bags as the stand-in hub's zips), ``wandb_key``,
+   ``log_model`` and ``figure_dir``, 2 epochs: the JAX package's hub calls,
+   every JSONL record logged to W&B, one ``checkpoint-step{step}`` artifact
+   per save; (c) without the packages (blocked): ``--hf-dataset`` exits
+   non-zero naming ``datasets``; then in this process the cache reader
+   serves phase 17's cache and a 2-epoch run warns as the JAX logger does
+   and saves its steps.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -4192,22 +4207,34 @@ def write_hub_cache(root: str, weights: str) -> str:
     the reference's model repo file, and phase 8's bags (``root/data``) as
     the reference's feature repo: ``train.zip`` and ``test.zip`` at
     ``refs/tushar-n``, ``ground_truth.json`` at ``refs/main``."""
-    import zipfile
-
     cache = os.path.join(root, "hf_cache")
     hub_put(cache, "jinmang2/test_video_fe", "main", "converted_ref_i3d.pt", weights)
+    for split, path in feature_repo_files(root).items():
+        if split == "ground_truth":
+            hub_put(cache, FEATURE_REPO, "main", "ground_truth.json", path, "dataset")
+        else:
+            hub_put(cache, FEATURE_REPO, "tushar-n", f"{split}.zip", path, "dataset")
+    return cache
+
+
+def feature_repo_files(root: str) -> dict:
+    """Phase 8's bags (``root/data``, written at first use) as the feature
+    repo's files: ``root/train.zip``, ``root/test.zip`` (written once) and
+    the ground truth."""
+    import zipfile
+
     data = os.path.join(root, "data")
     if not os.path.isdir(data):
         write_training_data(data)
+    files = {}
     for split in ("train", "test"):
-        archive = os.path.join(root, f"{split}.zip")
-        with zipfile.ZipFile(archive, "w") as z:
-            for name in sorted(os.listdir(os.path.join(data, split))):
-                z.write(os.path.join(data, split, name), f"{split}/{name}")
-        hub_put(cache, FEATURE_REPO, "tushar-n", f"{split}.zip", archive, "dataset")
-    hub_put(cache, FEATURE_REPO, "main", "ground_truth.json",
-            os.path.join(data, "ground_truth.json"), "dataset")
-    return cache
+        archive = files[split] = os.path.join(root, f"{split}.zip")
+        if not os.path.exists(archive):
+            with zipfile.ZipFile(archive, "w") as z:
+                for name in sorted(os.listdir(os.path.join(data, split))):
+                    z.write(os.path.join(data, split, name), f"{split}/{name}")
+    files["ground_truth"] = os.path.join(data, "ground_truth.json")
+    return files
 
 
 def untimed(record: dict) -> dict:
@@ -5044,6 +5071,297 @@ def check_jax_dir_steps(fixture: str, copy: str) -> None:
           flush=True)
 
 
+# ------------------------------------------------------ phase 21: the network mode
+
+NETWORK_DATASET = "stand-in/anomaly-videos"
+# phase 21's CLI processes: a module run as ``python -m`` is, under cuDNN's
+# deterministic algorithms (features are compared byte for byte), with the
+# modules BLOCKED_MODULES names (comma-separated) made unimportable, as on a
+# host without them, and, where STAND_INS names a spec, the tests' stand-in
+# huggingface_hub, datasets and wandb put in their place (the card's machine
+# has no network, and has had none, some or all of the packages installed)
+# and their recorded calls written out when the module ends
+NETWORK_CHILD = ("import os, runpy, sys, torch\n"
+                 "for name in filter(None, os.environ.get('BLOCKED_MODULES', '').split(',')):\n"
+                 "    sys.modules[name] = None\n"
+                 "record = None\n"
+                 "if os.environ.get('STAND_INS'):\n"
+                 "    sys.path.append(os.path.join(os.getcwd(), 'tests'))\n"
+                 "    from torch_network_fixtures import install_stand_ins\n"
+                 "    record = install_stand_ins(os.environ['STAND_INS'])\n"
+                 "torch.backends.cudnn.deterministic = True\n"
+                 "try:\n"
+                 "    runpy.run_module(sys.argv.pop(1), run_name='__main__', alter_sys=True)\n"
+                 "finally:\n"
+                 "    if record:\n"
+                 "        record()\n")
+NETWORK_PACKAGES = ("huggingface_hub", "datasets", "wandb", "decord")
+
+
+def json_lines(path: str) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def start_network_cli(work: str, tag: str, module: str, argv: list, env: dict) -> tuple:
+    """``module argv`` as a process (``NETWORK_CHILD``) in the environment
+    ``env``, its output to ``<work>/<tag>.log`` and its launches to
+    ``<work>/<tag>_launches.jsonl``."""
+    from anomaly_detection_on_video_tpu_torch.ops import kernels
+
+    log = os.path.join(work, f"{tag}_launches.jsonl")
+    env = dict(env, PYTHONUNBUFFERED="1", **{kernels.LAUNCH_LOG_ENV: log})
+    err = open(os.path.join(work, f"{tag}.log"), "w+")
+    proc = subprocess.Popen([sys.executable, "-c", NETWORK_CHILD,
+                             f"anomaly_detection_on_video_tpu_torch.{module}", *argv],
+                            cwd=os.path.dirname(os.path.abspath(__file__)), env=env, stdout=err,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, log, err
+
+
+def feature_tree(root: str) -> dict:
+    """Relative path -> bytes of every file under ``root``."""
+    tree = {}
+    for base, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(base, name)
+            with open(path, "rb") as f:
+                tree[os.path.relpath(path, root)] = f.read()
+    return tree
+
+
+def check_network_mode(torch, root: str, weights: str, video) -> None:
+    """Phase 21: the JAX package's network mode, with the tests' stand-in
+    ``huggingface_hub``, ``datasets`` and ``wandb``
+    (``tests/torch_network_fixtures.py``, installed by ``NETWORK_CHILD``)
+    and no network. Four processes at once: (a) ``extract_features
+    --hf-dataset`` with no ``--weights`` (the default spec served by the
+    stand-in hub as phase 10's weights) over three MJPG videos of the 4-clip
+    video in two splits, and ``extract_features --videos`` of the train
+    split with ``--weights`` that file: K1 / K2 / K3 1 / 1 / 3 per video (one
+    group each), features and segments byte-equal (the test video is the
+    first train video's frames: its features equal that video's); (b)
+    ``run runner=mgfn`` at full width with no data path (the zips and
+    ``ground_truth.json`` of phase 8's bags served by the stand-in hub),
+    ``wandb_key``, ``trainer/logger=wandb``, ``log_model`` and
+    ``figure_dir``, 2 epochs: the hub calls the JAX package makes, every
+    JSONL record logged to W&B at its step, one ``checkpoint-step{step}``
+    artifact per saved step, ``valid/overlay`` only where matplotlib
+    imports; (c) without the packages (the stand-ins off the path and the
+    four names blocked, since the card's machine may have some of them):
+    ``--hf-dataset`` exits non-zero with the ModuleNotFoundError naming
+    ``datasets`` after the default weights resolve in phase 17's cache;
+    then in this process the cache reader serves phase 17's weights and a
+    2-epoch run from its zips that warns as the JAX logger does and saves
+    its steps."""
+    import importlib.util
+
+    import numpy as np
+
+    from anomaly_detection_on_video_tpu_torch.utils import hub as thub
+
+    start = time.perf_counter()
+    print("phase 21: installed on this machine: " + ", ".join(
+        f"{name} {'yes' if importlib.util.find_spec(name) else 'no'}"
+        for name in NETWORK_PACKAGES), flush=True)
+    work = os.path.join(root, "network")
+    served = [["jinmang2/test_video_fe", "converted_ref_i3d.pt", weights]]
+    for split, path in feature_repo_files(root).items():
+        served.append([FEATURE_REPO, os.path.basename(path) if split == "ground_truth"
+                       else f"{split}.zip", path])
+    videos = {"train": ["Abuse001_x264.avi", "Normal_Videos002_x264.avi"],
+              "test": ["Abuse003_x264.avi"]}
+    for mode, names in videos.items():
+        os.makedirs(os.path.join(work, "videos", mode))
+        for name in names:
+            frames = video[::-1] if name.startswith("Normal") else video
+            write_mjpg(os.path.join(work, "videos", mode, name), frames)
+    base, net_env = dict(os.environ), {}
+    for tag in ("hf", "run"):  # each process records its own calls
+        spec = {"hub": served, "cache": os.path.join(work, "hf_cache"),
+                "datasets": {mode: [os.path.join(work, "videos", mode, n) for n in names]
+                             for mode, names in videos.items()},
+                "record": os.path.join(work, f"{tag}_calls.json")}
+        with open(os.path.join(work, f"{tag}_stand_ins.json"), "w") as f:
+            json.dump(spec, f)
+        net_env[tag] = dict(base, STAND_INS=f.name)
+    phase17_cache = os.path.join(root, "hf_cache")
+    if not os.path.isdir(phase17_cache):
+        write_hub_cache(root, weights)
+    cache_env = dict(base, HF_HUB_CACHE=phase17_cache, BLOCKED_MODULES=",".join(NETWORK_PACKAGES))
+    out = {tag: os.path.join(work, tag) for tag in ("hf", "local", "missing")}
+    common = ["--decode-workers", "1"]
+    run_dir = os.path.join(work, "run")
+    run_argv = ["runner=mgfn", "data.batch_size=3", "runner.optimizer.learning_rate=0.0001",
+                "trainer.max_epochs=2", "trainer.eval_every=1", "wandb_key=stand-in-key",
+                "trainer/logger=wandb", "trainer.logger.log_model=true",
+                f"trainer.log_path={run_dir}/metrics.jsonl",
+                f"trainer.checkpoint.dirpath={run_dir}/checkpoints",
+                f"trainer.figure_dir={run_dir}/figures"]
+    procs = {
+        "hf": start_network_cli(work, "hf", "extract_features", common + [
+            "--hf-dataset", NETWORK_DATASET, "--outdir", out["hf"]], net_env["hf"]),
+        "local": start_network_cli(work, "local", "extract_features", common + [
+            "--videos", os.path.join(work, "videos", "train"), "--split", "train",
+            "--outdir", out["local"], "--weights", weights], base),
+        "run": start_network_cli(work, "run", "run", run_argv, net_env["run"]),
+        "missing": start_network_cli(work, "missing", "extract_features", common + [
+            "--hf-dataset", NETWORK_DATASET, "--outdir", out["missing"]], cache_env),
+    }
+    results = {}
+    try:
+        for tag, (proc, log, err) in procs.items():
+            code = proc.wait(600)
+            err.seek(0)
+            launches = {}
+            for record in json_lines(log):
+                for name, count in record["launches"].items():
+                    launches[name] = launches.get(name, 0) + count
+            results[tag] = (code, err.read(), launches)
+            err.close()
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    print(f"phase 21 processes: {time.perf_counter() - start:.1f} s", flush=True)
+
+    # (a) --hf-dataset against --videos
+    for tag in ("hf", "local", "run"):
+        if results[tag][0] != 0:
+            raise AssertionError(f"phase 21 {tag} exited {results[tag][0]}: "
+                                 f"{results[tag][1][-3000:]}")
+    default = f"--weights not given; defaulting to {HUB_WEIGHTS} (reference network-mode flow)"
+    hf_out, hf_launches = results["hf"][1], results["hf"][2]
+    n_groups = sum(len(names) for names in videos.values())
+    want = {"ten_crop_standardize": n_groups, "stem_conv_pool": n_groups,
+            "bottleneck_block": 3 * n_groups}
+    for tag, launches, groups in (("hf", hf_launches, n_groups),
+                                  ("local", results["local"][2], len(videos["train"]))):
+        expected = {k: v // n_groups * groups for k, v in want.items()}
+        if any(launches.get(k, 0) != v for k, v in expected.items()) or any(
+                launches.get(k, 0) for k in ("int8_matmul", "int8_conv")):
+            raise AssertionError(f"phase 21 (a) {tag}: launches {launches}, expected {expected}")
+    hf_tree, local_tree = feature_tree(out["hf"]), feature_tree(out["local"])
+    renamed = {k.replace(os.path.join("anomaly_features", ""), "", 1): v
+               for k, v in hf_tree.items()}
+    test_name = os.path.join("test", "Abuse003_x264_i3d.npy")
+    same = os.path.join("train", "Abuse001_x264_i3d.npy")
+    lines = [f"{mode}: extracted {len(names)} new videos -> "
+             f"{os.path.join(out['hf'], 'anomaly_features', mode)}" for mode, names in videos.items()]
+    if default not in hf_out or any(line not in hf_out for line in lines) or (
+            set(renamed) != set(local_tree) | {test_name}) or any(
+            renamed[k] != v for k, v in local_tree.items()) or renamed[test_name] != local_tree[same]:
+        raise AssertionError(f"phase 21 (a): files {sorted(hf_tree)} / {sorted(local_tree)}; "
+                             f"{hf_out[-3000:]}")
+    feats = np.load(os.path.join(out["hf"], "anomaly_features", same))
+    seg = np.load(os.path.join(out["hf"], "segment_features_32", "Abuse001_x264_i3d.npy"))
+    if feats.shape != (4, 10, FEATURE_DIM) or seg.shape != (10, 32, FEATURE_DIM) or not (
+            np.isfinite(feats).all() and np.isfinite(seg).all()):
+        raise AssertionError(f"phase 21 (a): features {feats.shape}, segments {seg.shape}")
+    recorded = {}
+    for tag in ("hf", "run"):
+        with open(os.path.join(work, f"{tag}_calls.json")) as f:
+            recorded[tag] = json.load(f)
+    if recorded["hf"]["hub"] != [{"repo_id": "jinmang2/test_video_fe",
+                                  "filename": "converted_ref_i3d.pt", "revision": None,
+                                  "cache_dir": None}] or recorded["hf"]["datasets"] != [
+            [[NETWORK_DATASET, "anomaly"], {}]]:
+        raise AssertionError(f"phase 21 (a): hub and datasets calls {recorded['hf']}")
+    print(f"phase 21 (a) extract_features --hf-dataset {NETWORK_DATASET} (stand-in datasets and "
+          f"hub, no --weights: '{default}'): {len(hf_tree)} files ({sorted(renamed)}) byte-equal "
+          f"to --videos with --weights {os.path.basename(weights)}, the test video's features "
+          f"equal to the same frames' in train; launches {hf_launches} over {n_groups} videos of "
+          f"one group each (--videos: {results['local'][2]})", flush=True)
+
+    # (b) run with no data path and wandb_key
+    records = json_lines(os.path.join(run_dir, "metrics.jsonl"))
+    calls = recorded["run"]["wandb"]
+    data_calls = sorted(({k: v for k, v in c.items() if v is not None}
+                         for c in recorded["run"]["hub"]), key=lambda c: c["filename"])
+    # by filename: the zips at the data config's revision, the ground truth with none
+    want_data = [{"repo_id": FEATURE_REPO, "filename": "ground_truth.json",
+                  "repo_type": "dataset"},
+                 {"repo_id": FEATURE_REPO, "filename": "test.zip", "revision": "tushar-n",
+                  "repo_type": "dataset"},
+                 {"repo_id": FEATURE_REPO, "filename": "train.zip", "revision": "tushar-n",
+                  "repo_type": "dataset"}]
+    steps = sorted(int(d) for d in os.listdir(os.path.join(run_dir, "checkpoints")) if d.isdigit())
+    logged = [(c[2], c[1]) for c in calls if c[0] == "log"]
+    scalars = [(step, {k: v for k, v in m.items() if k != "valid/overlay"}) for step, m in logged]
+    scalars = [entry for entry in scalars if entry[1]]
+    from_jsonl = [(r["step"], {k: v for k, v in r.items() if k not in ("step", "time")})
+                  for r in records]
+    overlays = [m["valid/overlay"][1] for _, m in logged if "valid/overlay" in m]
+    artifacts = [c[1:] for c in calls if c[0] == "log_artifact"]
+    want_artifacts = [[f"checkpoint-step{s}", "model",
+                       [["dir", os.path.join(run_dir, "checkpoints", str(s))]]] for s in steps]
+    mpl = has_matplotlib()
+    name = calls[1][2] if len(calls) > 1 else ""
+    if (data_calls != want_data or calls[:1] != [["login", "stand-in-key"]]
+            or calls[1][:2] != ["init", "anomaly-detection-on-video-tpu"]
+            or not re.match(r"^default-mgfn-\d{8}-\d{6}$", name) or scalars != from_jsonl
+            or steps != [2, 4] or artifacts != want_artifacts
+            or len(overlays) != (2 if mpl else 0)):
+        raise AssertionError(f"phase 21 (b): hub {data_calls}; steps {steps}; wandb {calls}; "
+                             f"records {records}; {results['run'][1][-3000:]}")
+    print(f"phase 21 (b) run runner=mgfn with no data path, wandb_key, log_model, figure_dir "
+          f"(matplotlib {'present' if mpl else 'absent'}): hub calls {want_data}; W&B run "
+          f"{name!r}, {len(scalars)} metric logs at steps {[s for s, _ in scalars]} equal to the "
+          f"JSONL records, artifacts {[a[0] for a in artifacts]}, {len(overlays)} overlays; "
+          f"launches {results['run'][2]}", flush=True)
+
+    # (c) without the stand-ins
+    code, output, launches = results["missing"]
+    error = next((line.strip() for line in reversed(output.splitlines())
+                  if line.startswith("ModuleNotFoundError")), "")
+    if code == 0 or "datasets" not in error or default not in output or os.path.exists(
+            os.path.join(out["missing"], "anomaly_features")):
+        raise AssertionError(f"phase 21 (c) --hf-dataset without datasets: exit {code}: "
+                             f"{output[-3000:]}")
+    saved = {name: sys.modules.get(name, False) for name in NETWORK_PACKAGES}
+    saved_cache = os.environ.get("HF_HUB_CACHE")
+    try:
+        for name in saved:
+            sys.modules[name] = None
+        os.environ["HF_HUB_CACHE"] = phase17_cache
+        path = thub.resolve_weights(HUB_WEIGHTS)
+        with open(path, "rb") as f, open(weights, "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"phase 21 (c): {path} differs from {weights}")
+        overrides = dict(training_overrides(root, "mgfn", "network_nowandb"),
+                         **{"data.train_path": None, "data.test_path": None,
+                            "data.ground_truth_path": None, "trainer.max_epochs": 2,
+                            "trainer.max_steps": -1, "trainer.eval_every": 1,
+                            "wandb_key": "stand-in-key"})
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            run_training(overrides, "mgfn")
+    finally:
+        for name, module in saved.items():
+            if module is False:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+        if saved_cache is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = saved_cache
+    warning = ("warning: wandb_key is set but the wandb package is not installed; W&B logging "
+               "disabled (JSONL/console logging unaffected)")
+    ckpt = overrides["trainer.checkpoint.dirpath"]
+    saved_steps = sorted(int(d) for d in os.listdir(ckpt) if d.isdigit())
+    if err.getvalue().splitlines().count(warning) != 1 or saved_steps != [2, 4]:
+        raise AssertionError(f"phase 21 (c) run without wandb: steps {saved_steps}; "
+                             f"{err.getvalue()[-3000:]}")
+    print(f"phase 21 (c) without the packages: --hf-dataset exit {code}, '{error}' (after "
+          f"'{default}' resolved in phase 17's cache, launches {launches}); the cache reader "
+          f"served {HUB_WEIGHTS} ({os.path.getsize(path)} bytes, equal to the file) and a 2-epoch "
+          f"run from its zips that warned '{warning}' and saved steps {saved_steps}", flush=True)
+    print(f"network mode phase (21): {time.perf_counter() - start:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5064,6 +5382,10 @@ def main() -> int:
     from anomaly_detection_on_video_tpu_torch.utils.device import set_f32_parity
 
     set_f32_parity()
+    # no phase reaches a network: a hub library on this machine stays offline
+    for name, value in (("HF_HUB_OFFLINE", "1"), ("HF_DATASETS_OFFLINE", "1"),
+                        ("WANDB_MODE", "offline")):
+        os.environ.setdefault(name, value)
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -5287,6 +5609,12 @@ def main() -> int:
         # 20. a full-width run trained on the card, its steps written as
         # orbax: restored bit-equal, served by infer --checkpoint, resumed
         check_orbax_written(torch, work, os.path.join(work, "i3res50.pt"), video)
+        torch.cuda.empty_cache()
+
+        # 21. the network mode, through stand-in huggingface_hub, datasets
+        # and wandb packages: extract_features --hf-dataset, run with no data
+        # path and wandb_key, and both without the stand-ins
+        check_network_mode(torch, work, os.path.join(work, "i3res50.pt"), video)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -15,6 +15,7 @@ import contextlib
 import io
 import json
 import os
+import sys
 import threading
 import time
 
@@ -52,6 +53,7 @@ from anomaly_detection_on_video_tpu_torch.utils.convert import i3d_state_dict_fr
 from anomaly_detection_on_video_tpu_torch.utils.profiling import StageTimer
 from test_torch_i3d import NARROW, _randomize_bn
 from torch_infer_fixtures import _args, _flax_variables, _save_weights
+from torch_network_fixtures import StubExtractor
 from torch_port_fixtures import jax_compile_cache  # autouse: one XLA cache per worker
 
 RESIZE, CROP = 64, 56
@@ -525,8 +527,9 @@ def test_extract_features_center_crops_and_flag_checks(narrow, rng, tmp_path, mo
                                                        capsys):
     """--crops center pins crops.json, writes (n, 1, C) features and skips
     the segments with the JAX CLI's message; --batch 0 stops at the parser
-    with the JAX wording; the parser refuses the JAX CLI's unported flags
-    and an unknown ``--model``."""
+    with the JAX wording; without ``datasets`` both CLIs' ``--hf-dataset``
+    fail alike; the parser refuses ``--multihost`` with ``--hf-dataset`` as
+    the JAX CLI does, and an unknown ``--model``."""
     _three_videos(tmp_path / "vids", rng)
     monkeypatch.setattr(t_extract_features, "FeatureExtractor", _narrow_factory(narrow, []))
     t_extract_features.main(["--videos", str(tmp_path / "vids"), "--outdir", str(tmp_path / "o"),
@@ -548,12 +551,25 @@ def test_extract_features_center_crops_and_flag_checks(narrow, rng, tmp_path, mo
         assert exc.value.code == 2
         errors.append(capsys.readouterr().err.strip().splitlines()[-1])
     assert errors[0] == errors[1]
-    # --hf-dataset needs the network and stays unported; with --multihost
-    # both CLIs refuse it in the same words
-    with pytest.raises(SystemExit) as exc:
-        t_extract_features.main(["--outdir", "o", "--hf-dataset", "jinmang2/ucf_crime"])
-    assert exc.value.code == 2
-    assert "--hf-dataset is not ported" in capsys.readouterr().err
+    # --hf-dataset where datasets cannot be imported: each CLI (extractor
+    # and weights stubbed, no I3D built) stops at the same ModuleNotFoundError;
+    # with --multihost both CLIs refuse it in the same words
+    from anomaly_detection_on_video_tpu.data import extraction as jextraction
+
+    monkeypatch.setitem(sys.modules, "datasets", None)
+    monkeypatch.setattr(jextraction, "FeatureExtractor", StubExtractor)
+    monkeypatch.setattr(t_extract_features, "FeatureExtractor", StubExtractor)
+    monkeypatch.setattr(j_extract_features, "load_weights", lambda *args, **kw: None)
+    monkeypatch.setattr(t_extract_features, "load_i3d_weights", lambda *args, **kw: None)
+    errors = []
+    for main, device in ((j_extract_features.main, []),
+                         (t_extract_features.main, ["--device", "cpu"])):
+        with pytest.raises(ModuleNotFoundError) as exc:
+            main(["--outdir", str(tmp_path / "hf"), "--hf-dataset", "jinmang2/ucf_crime",
+                  "--decode-workers", "1"] + device)
+        errors.append((exc.value.name, str(exc.value)))
+    assert errors[0] == errors[1] and errors[0][0] == "datasets"
+    capsys.readouterr()
     errors = []
     for main in (j_extract_features.main, t_extract_features.main):
         with pytest.raises(SystemExit) as exc:

@@ -1,7 +1,10 @@
 """The port's Hugging Face cache reader (``utils/hub.py``) and what reads
 through it, against the JAX package on the CPU: the spec grammar, cached
 weight paths against ``huggingface_hub``'s offline answer, the feature
-zips of the reference's dataset repo bit for bit, and the CLIs.
+zips of the reference's dataset repo bit for bit, and the CLIs. The port
+reads the cache itself where ``huggingface_hub`` does not import (the
+card's machine), so every test here blocks that import in this process
+(``tests/test_torch_network_mode.py`` holds the download path).
 
 The JAX side runs ``huggingface_hub`` in a child process that sets
 ``HF_HUB_OFFLINE=1`` before the import and refuses every socket
@@ -36,6 +39,13 @@ C = 64  # feature width of the cached zips
 # narrow i3res50 with 2048-wide features, as tests/torch_i3d_variants_fixtures.py
 STAGES_2048 = ((8, 1, 1, (3,), (1,)), (8, 1, 2, (1,), (1,)), (8, 1, 1, (1,), (1,)),
                (512, 1, 1, (1,), (1,)))
+
+
+@pytest.fixture(autouse=True)
+def no_huggingface_hub(monkeypatch):
+    """The port's reader runs where ``huggingface_hub`` does not import;
+    the real package here would also try the network."""
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)
 
 
 @pytest.fixture(autouse=True, scope="module")
