@@ -252,7 +252,7 @@ def i3d_state_dict_to_pytorchvideo(state_dict: Mapping[str, Any]) -> Dict[str, t
     return sd
 
 
-_BRANCH_OF_CONV = {"conv1": "branch_a", "conv2": "branch_b", "conv3": "branch_c",
+BRANCH_OF_CONV = {"conv1": "branch_a", "conv2": "branch_b", "conv3": "branch_c",
                    "downsample.0": "proj"}
 
 
@@ -265,9 +265,9 @@ def act_scale_key(module_name: str) -> str:
     if module_name == "conv1":
         return "stem"
     layer, block, conv = module_name.split(".", 2)
-    if not layer.startswith("layer") or conv not in _BRANCH_OF_CONV:
+    if not layer.startswith("layer") or conv not in BRANCH_OF_CONV:
         raise KeyError(f"{module_name}: not a conv of the ported i3res50")
-    return f"stage{layer[5:]}_block{block}/{_BRANCH_OF_CONV[conv]}"
+    return f"stage{layer[5:]}_block{block}/{BRANCH_OF_CONV[conv]}"
 
 
 def block_act_scales(scales: Mapping[str, float], stage: int, block: int) -> Dict[str, float]:

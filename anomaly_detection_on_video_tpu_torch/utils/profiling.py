@@ -6,6 +6,7 @@
   written on exit as a Chrome trace under ``logdir``, which TensorBoard's
   profiler plugin, Perfetto and ``chrome://tracing`` open; the JAX module's
   ``trace`` wraps ``jax.profiler`` the same way.
+- ``device_kernel_ms``: a recording's device time by kernel name.
 - ``StageTimer``: cheap accumulating wall-clock timers for the stages of
   extraction (decode wait, device extract), read by the extraction CLI's
   ``--profile``.
@@ -78,6 +79,22 @@ def trace(logdir: str) -> Iterator[Any]:
 def warmup_kernels_kept(prof) -> int:
     """How many of ``trace``'s warm-up kernels the profiler recorded."""
     return sum(SACRIFICE_KERNEL_NAME in e.name() for e in prof.profiler.kineto_results.events())
+
+
+def device_kernel_ms(prof) -> Dict[str, float]:
+    """Device time in ms by kernel (or copy) name in a finished recording,
+    ``trace``'s warm-up kernels left out; empty where the recording holds
+    no device activity (on the CPU)."""
+    from torch.autograd import DeviceType
+
+    totals: Dict[str, float] = defaultdict(float)
+    for evt in prof.events():
+        # device-side records only, not the ranges a record_function spans over them
+        if (evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False)
+                or SACRIFICE_KERNEL_NAME in evt.key):
+            continue
+        totals[evt.key] += evt.time_range.elapsed_us() / 1e3
+    return dict(totals)
 
 
 class StageTimer:

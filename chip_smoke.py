@@ -243,12 +243,11 @@ Phases, each of which raises on failure (exit code != 0):
    ``anomaly_detection_on_video_tpu_torch/scripts/``, each run as a user
    runs it (``python -m``, its own process, on the card), every process
    of each appending its kernel launches at exit to a log
-   (``ANOMALY_TORCH_LAUNCH_LOG``): (a) ``demo --epochs 16`` alone, timed:
-   features (n_clips, 10, 2048), K1, K2 and K3 launched by its
-   ``extract_features`` process, AUC >= 0.7 (the script's own gate), the
-   export's ``manifest.json``; then at once (their gates are outcomes, not
-   times): (c) ``convert_checkpoint`` round trips of phase 8's MGFN
-   weights (``mgfn-hf``, its orbax step restored and saved as a ``.pt``)
+   (``ANOMALY_TORCH_LAUNCH_LOG``), at once (their gates are outcomes, not
+   times): (a) ``demo --epochs 16``: features (n_clips, 10, 2048), K1, K2
+   and K3 launched by its ``extract_features`` process, AUC >= 0.7 (the
+   script's own gate), the export's ``manifest.json``; (c)
+   ``convert_checkpoint`` round trips of phase 8's MGFN weights (``mgfn-hf``, its orbax step restored and saved as a ``.pt``)
    and phase 10's ``i3res50.pt`` (``i3d``) to
    ``.msgpack`` and back, every tensor bit-equal (``num_batches_tracked``
    back as 0), and ``infer.load_i3d_weights`` of the ``.msgpack`` equal to
@@ -343,6 +342,16 @@ Phases, each of which raises on failure (exit code != 0):
    non-zero naming ``datasets``; then in this process the cache reader
    serves phase 17's cache and a 2-epoch run warns as the JAX logger does
    and saves its steps.
+22. the JAX package's probes, ported (``anomaly_detection_on_video_tpu_torch/
+   scripts/``): ``int8_pallas_probe`` (K4 and K5 at the TPU probe's
+   shapes, the bf16 cuDNN yardstick, its verify), ``stage_probe`` (stages
+   1-4 in bf16 at B = 240 with MFU and HBM rate, ``FeatureExtractor`` at
+   batch 240 and 480, the int8 microprobes), ``int8_stage_probe`` (conv
+   microprobes, stages 1-2 in int8 with launches and a profiled split),
+   ``conv2d_probe``, ``stem2d_probe``, ``int8_probe``, ``eval_probe`` and
+   ``overlap_ab``, at the JAX shapes with 3 repetitions (2 for
+   ``overlap_ab``), their records printed, under the gates of
+   ``check_probes``.
 
 Prints a JSON line of per-kernel numbers, the nvidia-smi name and power
 limit line, and last ``{"ok": true, "device": {...}}``. It needs the
@@ -365,15 +374,15 @@ import sys
 import tempfile
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,  # dense tensor bf16; fp32 non-tensor
-              "int8": 1979e12}  # dense tensor int8 (operations per second)
-
+from anomaly_detection_on_video_tpu_torch.scripts.int8_pallas_probe import (
+    check_int8_probe_shapes, int_mm_ms)
+from anomaly_detection_on_video_tpu_torch.utils.measure import (
+    HBM_BYTES_PER_S, bound, check_equal, cuda_ms, taps_inside)
 
 # The JAX package's name, as the repository's configs spell their classes
 REFERENCE = "anomaly_detection_on_video_tpu"
-# configs/ composed with runner=mgfn (tests/test_torch_runner.py holds it to
-# the port's composition): the training phase's config where PyYAML is missing
+# configs/ composed with runner=mgfn (tests/test_torch_runner_data.py holds it
+# to the port's composition): the training phase's config where PyYAML is missing
 MGFN_RUN_CONFIG = {
     "data": {"batch_size": 16, "frames_per_clip": 16, "num_workers": 8, "dynamic_load": False,
              "revision": "tushar-n", "cache_dir": None, "local_path": None, "train_path": None,
@@ -419,23 +428,6 @@ for _name, _model, _config, _optimizer in (
         _choices_={"data": "default", "runner": _name, "trainer": "default"})
 
 
-def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``iters`` runs, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def device_ms(fn, iters: int) -> float:
     """Mean device time of ``fn`` over ``iters`` runs: the kernels' own
     durations by torch.profiler, without the host's launch time (a launch
@@ -453,21 +445,6 @@ def device_ms(fn, iters: int) -> float:
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False))
     return us / iters / 1e3
-
-
-def host_us(fn, calls: int = 500) -> float:
-    """Host time of one ``fn()`` call in microseconds: the time to enqueue
-    ``calls`` launches whose device work is shorter than their launch."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    seconds = time.perf_counter() - start
-    torch.cuda.synchronize()
-    return seconds / calls * 1e6
 
 
 def cosine_rows(a, b):
@@ -495,12 +472,6 @@ def check_cosine(name, got, ref, floor):
     return cos
 
 
-def bound(bytes_moved: float, flops: float, dtype_name: str):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
 def randomize_batchnorm_(torch, model, seed: int) -> None:
     """Seeded random affines and running statistics for every BatchNorm of
     ``model``. At their identity initialization every channel folds to the
@@ -515,14 +486,6 @@ def randomize_batchnorm_(torch, model, seed: int) -> None:
                 bn.bias.copy_(torch.randn(n, generator=gen) * 0.1)
                 bn.running_mean.copy_(torch.randn(n, generator=gen) * 0.1)
                 bn.running_var.copy_(torch.rand(n, generator=gen) + 0.5)
-
-
-def taps_inside(size_in: int, positions: int, kernel: int, stride: int, pad: int) -> int:
-    """Taps of a strided, zero-padded conv along one axis that read the
-    input rather than its padding, summed over output positions
-    ``0 .. positions - 1``."""
-    return sum(1 for o in range(positions) for k in range(kernel)
-               if 0 <= o * stride - pad + k < size_in)
 
 
 def smi_line() -> str:
@@ -702,112 +665,6 @@ def check_bottlenecks(torch, model, x32):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "max_abs_err": max_err}
 
 
-def int8_operands(torch, gen, m, k, n):
-    """Seeded int8 activations (m, k), K4's packed weights (n, k) and a
-    per-column float32 scale on the card."""
-    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
-    w = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
-    scale = torch.rand(n, generator=gen) * 1e-5 + 1e-6
-    return a.cuda(), w.cuda(), scale.cuda()
-
-
-def int_mm_ms(torch, a, w, iters: int, timer=cuda_ms):
-    """Time of ``torch._int_mm`` on the same operands as K4, the library
-    yardstick (the port never calls it): the packed (N, K) weights go in
-    as the column-major (K, N) operand cuBLASLt prefers. None where it
-    refuses the shape."""
-    rhs = w.t()
-    try:
-        torch._int_mm(a, rhs)
-    except RuntimeError:
-        return None
-    return timer(lambda: torch._int_mm(a, rhs), iters)
-
-
-def check_equal(name, got, ref) -> float:
-    """Raise unless ``got`` equals ``ref`` bit for bit; returns max |got -
-    ref|, computed in float64 over slices of 2^26 values."""
-    import torch
-
-    torch.cuda.synchronize()
-    if got.dtype != ref.dtype or got.shape != ref.shape:
-        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} against "
-                             f"{ref.dtype} {tuple(ref.shape)}")
-    flat_got, flat_ref, diff = got.reshape(-1), ref.reshape(-1), 0.0
-    for i in range(0, flat_got.numel(), 1 << 26):
-        part = flat_got[i:i + (1 << 26)].double() - flat_ref[i:i + (1 << 26)].double()
-        diff = max(diff, part.abs().max().item())
-    if not torch.equal(got, ref):
-        bad = (got != ref).sum().item()
-        raise AssertionError(f"{name}: {bad} of {ref.numel()} elements differ, max |err| {diff}")
-    return diff
-
-
-def check_int8_probe_shapes(torch):
-    """K4 and K5 at the TPU probe's own shapes, bit-equal, with times."""
-    import torch.nn.functional as F
-
-    from anomaly_detection_on_video_tpu_torch.ops.kernels import (
-        int8_conv, int8_conv_plain, int8_matmul, int8_matmul_plain)
-
-    gen = torch.Generator().manual_seed(4)
-    # K4 at two edge shapes: a ragged last row tile, and the narrowest tile
-    for m, k, n in ((12_345, 512, 256), (65_536, 64, 128)):
-        a, w, scale = int8_operands(torch, gen, m, k, n)
-        check_equal(f"K4 ({m}, {k}) x ({n}, {k}) int32", int8_matmul(a, w), int8_matmul_plain(a, w))
-        for out_dtype in (torch.float32, torch.bfloat16):
-            check_equal(f"K4 ({m}, {k}) x ({n}, {k}) {out_dtype}",
-                        int8_matmul(a, w, scale, out_dtype),
-                        int8_matmul_plain(a, w, scale, out_dtype))
-        print(f"K4 int8_matmul edge shape ({m}, {k}) x ({n}, {k}): bit-equal (int32, float32 and "
-              f"bf16 epilogues)", flush=True)
-    # K4: probe_raw_matmul's (B*T*784, 512) x (512, 256) -> int32, B*T = 480
-    a, w, scale = int8_operands(torch, gen, 480 * 784, 512, 256)
-    check_equal("K4 probe int32", int8_matmul(a, w), int8_matmul_plain(a, w))
-    check_equal("K4 probe bf16", int8_matmul(a, w, scale, torch.bfloat16),
-                int8_matmul_plain(a, w, scale, torch.bfloat16))
-    ms = cuda_ms(lambda: int8_matmul(a, w), 10)
-    plain_ms = cuda_ms(lambda: int8_matmul_plain(a, w), 3)
-    library_ms = int_mm_ms(torch, a, w, 10)
-    m, k = a.shape
-    n = w.shape[0]
-    bound_ms, bound_by = bound(m * k + k * n + 4 * m * n, 2.0 * m * k * n, "int8")
-    library = "refused" if library_ms is None else f"{library_ms:.3f} ms"
-    print(f"K4 int8_matmul probe shape ({m}, {k}) x ({n}, {k}) -> int32: bit-equal (int32 and "
-          f"bf16 epilogue); {ms:.3f} ms kernel, {plain_ms:.3f} ms plain (float64), torch._int_mm "
-          f"{library}, bound {bound_ms:.3f} ms ({bound_by})", flush=True)
-    # host time per launch at a stage-4 shape, whose device work takes microseconds
-    a, w, scale = int8_operands(torch, gen, 3920, 1024, 512)
-    rhs = w.t()
-    k4_us = host_us(lambda: int8_matmul(a, w, scale, torch.bfloat16))
-    lib_us = host_us(lambda: torch._int_mm(a, rhs))
-    print(f"host time per launch at (3920, 1024) x (512, 1024): K4 {k4_us:.1f} us, torch._int_mm "
-          f"{lib_us:.1f} us", flush=True)
-    del a, w
-    # K5: make_conv3x3's (B*T, 128, 28*28) planes, channels last, pad 1
-    x = torch.randint(-127, 128, (240, 2, 28, 28, 128), generator=gen, dtype=torch.int8).cuda()
-    w = torch.randint(-5, 6, (128, 9 * 128), generator=gen, dtype=torch.int8).cuda()  # (Cout, K)
-    scale = (torch.rand(128, generator=gen) * 2e-3 + 1e-4).cuda()
-    geo = ((1, 3, 3), (1, 1, 1), (0, 1, 1))
-    for out_dtype in (torch.int8, torch.bfloat16):
-        got = int8_conv(x, w, scale, *geo, out_dtype)
-        check_equal(f"K5 probe {out_dtype}", got, int8_conv_plain(x, w, scale, *geo, out_dtype))
-    saturated = (got.float().abs() >= 127).float().mean().item()
-    ms = cuda_ms(lambda: int8_conv(x, w, scale, *geo, torch.int8), 10)
-    plain_ms = cuda_ms(lambda: int8_conv_plain(x, w, scale, *geo, torch.int8), 3)
-    xb = x.to(torch.bfloat16).permute(0, 4, 1, 2, 3)
-    wb = w.to(torch.bfloat16).reshape(128, 1, 3, 3, 128).permute(0, 4, 1, 2, 3)
-    bf16_conv_ms = cuda_ms(lambda: F.conv3d(xb, wb, None, 1, (0, 1, 1)), 10)
-    taps = taps_inside(28, 28, 3, 1, 1) ** 2
-    bound_ms, bound_by = bound(2 * x.numel() + w.numel() + 4 * 128,
-                               2.0 * 240 * 2 * taps * 128 * 128, "int8")
-    print(f"K5 int8_conv probe shape {tuple(x.shape)} k(1,3,3): bit-equal (int8 and bf16 "
-          f"epilogues; bf16 share >= 127: {saturated:.3f}); {ms:.3f} ms kernel (int8 out), "
-          f"{plain_ms:.3f} ms plain (float64), no library call (torch has no int8 conv on CUDA; "
-          f"bf16 F.conv3d at this shape {bf16_conv_ms:.3f} ms), bound {bound_ms:.3f} ms "
-          f"({bound_by})", flush=True)
-
-
 def int8_forward_with(torch, model, crops, matmul, conv):
     """One int8 forward of ``model`` with its K4 and K5 calls routed to
     ``matmul`` and ``conv`` (the plain versions, or recorders)."""
@@ -873,12 +730,12 @@ def check_int8_path_calls(torch, model, crops):
             if name == "int8_matmul":
                 a, w = args[0], args[1]
                 (m, k), n = a.shape, w.shape[0]
-                lib_ms = int_mm_ms(torch, a, w, 10)
+                lib_ms = int_mm_ms(a, w, 10)
                 if lib_ms is None:
                     entry["library_refused"] += 1
                 else:
                     entry["library_ms"] += lib_ms
-                    entry["library_device_ms"] += int_mm_ms(torch, a, w, 5, device_ms)
+                    entry["library_device_ms"] += int_mm_ms(a, w, 5, device_ms)
                 ops = 2.0 * m * k * n
                 bytes_moved = a.numel() + w.numel() + 4 * n + out_bytes
                 key = f"K4 ({m}, {k}) x ({n}, {k})"
@@ -4135,14 +3992,14 @@ def check_tp_audit(root: str) -> None:
 
 def check_user_tools(torch, root: str, checkpoint: str, weights: str) -> None:
     """Phase 16: the repository's user tools of ``scripts/``, ported, run
-    as a user runs them (``python -m``) on the card: (a) the demo alone,
-    timed; then (b)-(c), (d) and (e) at once (their gates are outcomes,
-    not times); then (f), whose step times want the card to itself."""
+    as a user runs them (``python -m``) on the card: (a), (b)-(c), (d) and
+    (e) at once (their gates are outcomes, not times; the demo ran alone
+    until the script grew past phase 21); then (f), whose step times want
+    the card to itself."""
     import threading
 
     start = time.perf_counter()
     torch.cuda.empty_cache()
-    check_demo(root)
     errors = []
 
     def guarded(fn, *args):
@@ -4156,7 +4013,8 @@ def check_user_tools(torch, root: str, checkpoint: str, weights: str) -> None:
         check_operating_point(root, checkpoint, weights)
 
     threads = [threading.Thread(target=guarded, args=(fn, *args)) for fn, args in (
-        (tools_over_checkpoints, ()), (check_convergence, (root,)), (check_int8_e2e, (root,)))]
+        (check_demo, (root,)), (tools_over_checkpoints, ()), (check_convergence, (root,)),
+        (check_int8_e2e, (root,)))]
     t0 = time.perf_counter()
     for thread in threads:
         thread.start()
@@ -4164,7 +4022,7 @@ def check_user_tools(torch, root: str, checkpoint: str, weights: str) -> None:
         thread.join()
     if errors:
         raise errors[0]
-    print(f"phase 16 (b)-(e) at once: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phase 16 (a)-(e) at once: {time.perf_counter() - t0:.1f} s", flush=True)
     check_tp_audit(root)
     print(f"user tools phase (16): {time.perf_counter() - start:.1f} s", flush=True)
 
@@ -5362,6 +5220,108 @@ def check_network_mode(torch, root: str, weights: str, video) -> None:
     print(f"network mode phase (21): {time.perf_counter() - start:.1f} s", flush=True)
 
 
+# ------------------------------------------- phase 22: the JAX package's probes
+
+PROBE_REPS = 3  # each timing's repetitions in phase 22 (the probes' own: 10-50)
+COSINE_2D_FLOOR = 0.9999  # bf16 2-D against 3-D formulations (conv2d_probe)
+STEM2D_REL = 1e-5  # float32 stem2d against stem3d, relative to the peak, TF32 off
+PEAK_SHARE = 1.05  # an MFU or HBM rate above 105% of its peak is a miscount
+
+
+def probe_records(name: str, records) -> dict:
+    """Print each record of probe ``name`` on a line of its own; raise on
+    an error record. Returns the records by their ``probe``."""
+    records = list(records)
+    for record in records:
+        print(f"phase 22 {name}: {json.dumps(record)}", flush=True)
+    errors = [r for r in records if "error" in r]
+    if errors:
+        raise AssertionError(f"phase 22 {name}: {errors}")
+    return {r.get("probe", name): r for r in records}
+
+
+def gate(name: str, ok: bool, what) -> None:
+    if not ok:
+        raise AssertionError(f"phase 22 {name}: {what}")
+
+
+def check_probes(torch, root: str) -> None:
+    """Phase 22: the eight probes of the JAX package's ``scripts/``, ported,
+    at the JAX shapes with ``PROBE_REPS`` repetitions, in this process.
+    Gates: no error record; ``int8_pallas_probe``'s verify; ``stage_probe``
+    every 0 < MFU and HBM rate <= 105% of the peak it is divided by, and
+    §2's K1 / K2 / K3 launches 2 / 2 / 6 a pass (two groups); the int8
+    stages bit-equal to K4's and K5's plain versions, their launches the
+    counts their specs imply; ``conv2d_probe``'s 2-D outputs against the
+    3-D ones (bf16 cosine >= 0.9999, int8 bit-equal); ``stem2d_vs_3d_f32``
+    within 1e-5 of the peak, TF32 off; ``int8_probe``'s cosine >= 0.99
+    (phase 5's int8 gate); ``overlap_ab``'s modes bit-equal. Then one probe
+    as a user runs it, ``python -m ...int8_pallas_probe --verify`` with no
+    ``--device``: ``{"verify": "ok"}``, K4 and K5 launched (the card by
+    default)."""
+    from anomaly_detection_on_video_tpu_torch.scripts import (
+        conv2d_probe, eval_probe, int8_pallas_probe, int8_probe, int8_stage_probe, overlap_ab,
+        stage_probe, stem2d_probe)
+
+    dev = torch.device("cuda")
+    start = time.perf_counter()
+    seconds = {}
+
+    def timed_probe(name, records):
+        t0 = time.perf_counter()
+        out = probe_records(name, records)
+        torch.cuda.empty_cache()
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed_probe("int8_pallas_probe", int8_pallas_probe.run(dev, reps=PROBE_REPS))
+    int8_pallas_probe.verify_kernel_correctness(dev)
+    print("phase 22 int8_pallas_probe --verify: K4 and K5 bit-equal to their plain versions, K5 "
+          "to a float64 F.conv2d", flush=True)
+
+    recs = timed_probe("stage_probe", stage_probe.run(dev, reps=PROBE_REPS))
+    hbm_gbps = HBM_BYTES_PER_S / 1e9
+    for s in stage_probe.STAGE_SPECS:
+        r = recs[f"stage{s}"]
+        gate(f"stage{s}", 0 < r["mfu"] <= PEAK_SHARE and 0 < r["hbm_gbps"] <= PEAK_SHARE * hbm_gbps,
+             r)
+    for batch in stage_probe.PIPELINE_BATCHES:
+        r = recs[f"pipeline_batch{batch}"]
+        gate(r["probe"], r["launches"] == dict(zip(stage_probe.KERNELS_K1_K3, (2, 2, 6))), r)
+
+    recs = timed_probe("int8_stage_probe",
+                       int8_stage_probe.run(dev, reps=PROBE_REPS, check_plain=True))
+    for s in int8_stage_probe.INT8_STAGES:
+        r = recs[f"stage{s}_int8"]
+        gate(r["probe"], r["unequal_vs_plain"] == 0 and r["launches"] == r["expected_launches"], r)
+
+    recs = timed_probe("conv2d_probe", conv2d_probe.run(dev, reps=PROBE_REPS))
+    for tag in conv2d_probe.CASES:
+        gate(tag, recs[f"{tag}_2d_bf16"]["cosine_vs_3d"] >= COSINE_2D_FLOOR
+             and recs[f"{tag}_2d_int8"]["unequal_vs_3d"] == 0,
+             (recs[f"{tag}_2d_bf16"], recs[f"{tag}_2d_int8"]))
+
+    recs = timed_probe("stem2d_probe", stem2d_probe.run(dev, reps=PROBE_REPS))
+    r = recs["stem2d_vs_3d_f32"]
+    gate(r["probe"], r["max_rel_to_peak"] <= STEM2D_REL and r["tf32"] is False, r)
+
+    recs = timed_probe("int8_probe", int8_probe.run(dev, reps=PROBE_REPS))
+    gate("int8_probe", recs["pipeline_int8"]["cosine_vs_bf16"] >= 0.99, recs["pipeline_int8"])
+
+    timed_probe("eval_probe", eval_probe.run(dev))
+    recs = timed_probe("overlap_ab", overlap_ab.run(dev, reps=2))
+    gate("overlap_ab", recs["overlap_ab"]["modes_bit_equal"] is True, recs["overlap_ab"])
+    out, records, cli_s = run_tool(root, "int8_pallas_probe", ["--verify"])
+    launches = launches_of(records, f"{TOOLS}.int8_pallas_probe")
+    gate("int8_pallas_probe --verify", json.loads(out.strip().splitlines()[-1]) == {"verify": "ok"}
+         and launches.get("int8_matmul", 0) >= 1 and launches.get("int8_conv", 0) >= 1,
+         (out, launches))
+    print(f"phase 22 python -m {TOOLS}.int8_pallas_probe --verify: {out.strip()}, launches "
+          f"{json.dumps(launches)}; {cli_s:.1f} s", flush=True)
+    print(f"probes phase (22): {time.perf_counter() - start:.1f} s; by probe {json.dumps(seconds)}",
+          flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5459,7 +5419,7 @@ def main() -> int:
     # 4. the int8 path: K4 and K5 at the TPU probe's shapes, then the int8
     # main path (FeatureExtractor(quantize=True), bfloat16 around int8 convs)
     # on the same video, weights and scorer
-    check_int8_probe_shapes(torch)
+    check_int8_probe_shapes()
     torch.cuda.empty_cache()
     qextractor = FeatureExtractor(state_dict=model.state_dict(), dtype=torch.bfloat16, batch=40,
                                   device=dev, quantize=True)
@@ -5615,6 +5575,11 @@ def main() -> int:
         # and wandb packages: extract_features --hf-dataset, run with no data
         # path and wandb_key, and both without the stand-ins
         check_network_mode(torch, work, os.path.join(work, "i3res50.pt"), video)
+        torch.cuda.empty_cache()
+
+        # 22. the JAX package's last eight scripts, its probes: stages,
+        # conv formulations, the stem, int8, eval and the dispatch A/B
+        check_probes(torch, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
